@@ -1,0 +1,107 @@
+"""``RunConfig`` — the typed knob-set of a training run, a copy of
+``repro.api.config.RunConfig`` without JAX.
+
+Pure data: construction checks only the values.  The training surface
+raises ``NotImplementedError`` for knobs this slice has not ported
+(:meth:`RunConfig.unported`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+#: Legacy method-string spellings -> canonical train-mode vocabulary.
+MODE_ALIASES: dict[str, str] = {"lags": "lags_dp"}
+
+
+def canonical_mode(mode: str) -> str:
+    """``"lags"`` -> ``"lags_dp"``; other names pass through (the
+    registry rejects unknown ones)."""
+    return MODE_ALIASES.get(mode, mode)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Everything about HOW to train that is not the model architecture.
+
+    ``mode=None`` / ``ratio=None`` defer to the model config's
+    ``train_mode`` / ``compression_ratio`` at build time."""
+    mode: str | None = None
+    ratio: float | None = None
+    ratio_inner: float | None = None
+    inner_workers: int | None = None
+    compressor: str = "topk_exact"
+    # "xla" (plain torch selection) or "kernel" (the CUDA kernels of
+    # repro_torch.kernels), resolved per compressor via KERNEL_BACKED
+    selection_backend: str = "xla"
+    inner_compressor: str | None = None
+    block_size: int = 4096
+    schedule: Any = None
+    # optimizer
+    lr: float = 0.01
+    lr_schedule: Callable[[Any], Any] | None = None   # step -> lr
+    momentum: float = 0.0
+    momentum_correction: float = 0.0
+    # exchange pipelining: only "off" is ported
+    pipeline: str = "off"
+    waves: Any = None
+    wave_target_bytes: int | None = None
+    # compute shape
+    chunk: int = 1024
+    loss_chunk: int = 512
+    donate: bool = True
+    # instrumentation
+    measure_delta: bool = False
+    health_every: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.mode is not None:
+            object.__setattr__(self, "mode", canonical_mode(self.mode))
+        if self.pipeline not in ("off", "wave", "async1"):
+            raise ValueError(
+                f"pipeline={self.pipeline!r} not in ('off', 'wave', "
+                f"'async1')")
+        if self.selection_backend not in ("xla", "kernel"):
+            raise ValueError(
+                f"selection_backend={self.selection_backend!r} not in "
+                f"('xla', 'kernel')")
+        if self.health_every < 0:
+            raise ValueError(f"health_every={self.health_every} < 0")
+
+    def unported(self) -> list[str]:
+        """The knobs set here that this slice has not ported, each with
+        its ROADMAP.md item."""
+        out = []
+        if self.schedule is not None:
+            out.append("schedule (ROADMAP.md queue 1 item 10)")
+        if self.measure_delta:
+            out.append("measure_delta (ROADMAP.md queue 1 item 10)")
+        if self.momentum_correction:
+            out.append("momentum_correction (ROADMAP.md queue 1 item 7)")
+        if self.pipeline != "off":
+            out.append(f"pipeline={self.pipeline!r} (ROADMAP.md queue 1 "
+                       f"item 11)")
+        if self.health_every > 0:
+            out.append("health_every > 0 (ROADMAP.md queue 1 item 12)")
+        return out
+
+    def resolved_mode(self, cfg=None) -> str:
+        if self.mode is not None:
+            return self.mode
+        if cfg is not None:
+            return canonical_mode(cfg.train_mode)
+        return "lags_dp"
+
+    def resolved_ratio(self, cfg=None) -> float:
+        if self.ratio is not None:
+            return float(self.ratio)
+        if cfg is not None:
+            return float(cfg.compression_ratio)
+        return 250.0
+
+    def lr_at(self, step):
+        """Learning rate at ``step`` — the schedule wins."""
+        if self.lr_schedule is not None:
+            return self.lr_schedule(step)
+        return self.lr

@@ -1,0 +1,172 @@
+"""The port's compressors and simulation-surface exchanges against the JAX
+reference, on the same numpy updates and residuals.
+
+Selections (values, indices) and EF residuals are bitwise.  The exchange
+mean is bitwise too: on the CPU ``index_add_`` sums duplicate indices in
+index order, as XLA's scatter does.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.api import registry as JR  # noqa: E402
+from repro.core import compressors as JC  # noqa: E402
+from repro.core import lags as JL  # noqa: E402
+from repro_torch.api import registry as TR  # noqa: E402
+from repro_torch.core import compressors as TC  # noqa: E402
+from repro_torch.core import lags as TL  # noqa: E402
+from repro_torch import tree  # noqa: E402
+
+BLOCK = 1024
+# leaf sizes: one block or less, a short tail block, many blocks
+LEAVES = {"a": (100,), "b": (40, 130), "c": (3, 700), "d": (2, 1024)}
+
+
+def _bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.float().numpy()
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _assert_bitwise(port, ref, what=""):
+    for i, (p, r) in enumerate(zip(port, ref)):
+        assert tuple(p.shape) == tuple(np.shape(r)), (what, i)
+        np.testing.assert_array_equal(_bits(p), _bits(r), err_msg=f"{what}"
+                                      f" output {i}")
+
+
+def _tree(p, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return {k: (scale * rng.standard_normal((p,) + s)).astype(np.float32)
+            for k, s in LEAVES.items()}
+
+
+@pytest.mark.parametrize("name", sorted(TC.REGISTRY))
+@pytest.mark.parametrize("d", [100, 5200])
+def test_compressor_matches_jax(name, d):
+    x = np.random.default_rng(d).standard_normal(d).astype(np.float32)
+    kw = {} if name == "topk_exact" else {"block_size": BLOCK}
+    got = TC.get_compressor(name)(torch.from_numpy(x), 12, **kw)
+    want = jax.jit(lambda v: JC.get_compressor(name)(v, 12, **kw))(
+        jnp.asarray(x))
+    _assert_bitwise(got, want, name)
+    # the sparse form scatters back identically
+    np.testing.assert_array_equal(
+        _bits(TC.decompress(got[0], got[1], d)),
+        _bits(JC.decompress(want[0], want[1], d)))
+
+
+def test_fused_select_matches_jax():
+    """The fused EF selectors: (vals, idx, residual) bitwise."""
+    u = np.random.default_rng(1).standard_normal(5200).astype(np.float32)
+    e = 0.1 * np.random.default_rng(2).standard_normal(5200).astype(
+        np.float32)
+    for name in ("topk_block_ef_kernel", "topk_hier_ef_kernel"):
+        got = TC.REGISTRY[name].fused_select(torch.from_numpy(u),
+                                             torch.from_numpy(e), 60,
+                                             block_size=BLOCK)
+        want = jax.jit(lambda a, b: JC.REGISTRY[name].fused_select(
+            a, b, 60, block_size=BLOCK))(jnp.asarray(u), jnp.asarray(e))
+        _assert_bitwise(got, want, name)
+
+
+def test_kernel_backed_resolution_matches_jax():
+    assert TC.KERNEL_BACKED == JC.KERNEL_BACKED
+    for name in ("randk", "topk_sampled"):
+        with pytest.raises(ValueError):
+            TC.kernel_backed(name)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TC.get_compressor(name)
+
+
+def test_ks_from_ratio_matches_jax():
+    params = {k: np.zeros(s, np.float32) for k, s in LEAVES.items()}
+    for ratio in (1.0, 8.0, 333.0, 1e6):
+        want = jax.tree.leaves(JL.ks_from_ratio(params, ratio))
+        assert tree.leaves(TL.ks_from_ratio(params, ratio)) == want
+
+
+def _exchanges(mode, compressor, backend, p):
+    like = {k: np.zeros(s, np.float32) for k, s in LEAVES.items()}
+    kw = dict(mode=mode, ratio=64.0, compressor=compressor,
+              selection_backend=backend, block_size=BLOCK, sim=True,
+              n_workers=p)
+    return (TR.build_exchange(TR.ExchangeSpec(params_like=like, **kw)),
+            JR.build_exchange(JR.ExchangeSpec(params_like=like, **kw)))
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("backend", ["xla", "kernel"])
+@pytest.mark.parametrize("compressor", ["topk_exact", "topk_block",
+                                        "topk_hier"])
+def test_lags_exchange_matches_jax(p, backend, compressor):
+    """Two exchange steps (the residual feeds back): per-leaf means and
+    residuals bitwise at P workers."""
+    tex, jex = _exchanges("lags_dp", compressor, backend, p)
+    assert tex.compressor_name == jex.compressor_name
+    jstep = jax.jit(lambda u, e: jex.exchange(u, e, None))
+    like = {k: torch.zeros((p,) + s) for k, s in LEAVES.items()}
+    te = tex.init(like)
+    je = jex.init(jax.tree.map(jnp.asarray, _tree(p, 0)))
+    for step in range(2):
+        u = _tree(p, 10 + step)
+        tm, te = tex.exchange({k: torch.from_numpy(v) for k, v in u.items()},
+                              te, None)
+        jm, je = jstep(jax.tree.map(jnp.asarray, u), je)
+        for k in LEAVES:
+            _assert_bitwise((tm[k], te[k]), (jm[k], je[k]), f"{k}@{step}")
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_dense_exchange_matches_jax(p):
+    tex, jex = _exchanges("dense", "topk_exact", "xla", p)
+    u = _tree(p, 5)
+    tm, ts = tex.exchange({k: torch.from_numpy(v) for k, v in u.items()},
+                          tex.init(None), None)
+    jm, js = jex.exchange(jax.tree.map(jnp.asarray, u), (), None)
+    assert ts == () and js == ()
+    for k in LEAVES:
+        _assert_bitwise((tm[k],), (jm[k],), k)
+
+
+def test_exchange_bucket_uses_global_leaf_ids():
+    """A wave of leaves 2..3 selects exactly as the monolithic exchange
+    does for those leaves (per-leaf k follows the global id)."""
+    tex, _ = _exchanges("lags_dp", "topk_exact", "kernel", 2)
+    u = {k: torch.from_numpy(v) for k, v in _tree(2, 3).items()}
+    e = tex.init({k: torch.zeros((2,) + s) for k, s in LEAVES.items()})
+    full_m, full_e = tex.exchange(u, e, None)
+    keys = sorted(LEAVES)[2:]
+    m, r = tex.exchange_bucket((2, 3), [u[k] for k in keys],
+                               [e[k] for k in keys], None)
+    for k, mm, rr in zip(keys, m, r):
+        assert torch.equal(mm, full_m[k]) and torch.equal(rr, full_e[k])
+
+
+def test_ef_invariant_exact():
+    """e + u == scatter(values, indices) + residual, for every worker."""
+    comp = TC.get_compressor("topk_hier_ef_kernel")
+    u = torch.from_numpy(_tree(3, 7)["c"])
+    e = torch.from_numpy(_tree(3, 8, 0.1)["c"])
+    vals, idx, res = TL.local_select_ef(u, e, 40, comp, block_size=BLOCK)
+    recon = res.reshape(3, -1) + TC.decompress(vals, idx, u[0].numel())
+    assert torch.equal(recon, (e + u).reshape(3, -1))
+
+
+@pytest.mark.parametrize("mode", ["slgs", "lags_hier", "lags_hier2"])
+def test_unported_modes_raise_naming_roadmap(mode):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _exchanges(mode, "topk_exact", "xla", 2)
+
+
+def test_distributed_surface_raises_naming_roadmap():
+    like = {"a": np.zeros((4,), np.float32)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TR.build_exchange(TR.ExchangeSpec(mode="lags_dp", params_like=like))
+    tex, _ = _exchanges("lags_dp", "topk_exact", "xla", 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tex.exchange_bucket((0,), [torch.zeros(1, 100)],
+                            [torch.zeros(1, 100)], ("data",))
