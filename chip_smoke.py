@@ -7,9 +7,13 @@
    from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit (rows of 4096 plus a short and an odd row length, f32 and bf16
-   inputs, k in {1, 4, 5, bs}, threshold gate on and off), then time it at
-   the main path's largest shape beside its byte bound, its plain version
-   and ``torch.topk`` on the same rows.
+   inputs, k in {1, 4, 5, bs}, threshold gate on and off; for
+   ``ef_accum_sparsify`` flat vectors of 100 to 2^22 + 5 elements, four
+   (lr, thr) pairs and a misaligned view), then time it at the main
+   path's largest shape beside its byte bound, its plain version and
+   ``torch.topk`` on the same rows (no one PyTorch call computes
+   ``ef_accum_sparsify``: its ``library_ms`` is null; its timed outputs
+   are held bitwise against the plain version's too).
 3. Small-input reference: the kernel-backed exchange on the card against
    the same exchange on the CPU (plain versions), bitwise.
 4. The main path: LAGS-SGD training of TinyLlama-1.1B at its published
@@ -19,7 +23,28 @@
    ``topk_block`` and ``topk_hier``, through ``Session.simulator``.  Every
    loss must be finite and every kernel of a configuration must launch in
    it; the EF invariant is checked on one leaf.
-5. Print the kernels' JSON line, the card line and the result line.
+5. ``ef_accum_sparsify``'s own path, the entry point
+   ``ops.ef_accum_sparsify`` as its users call it: two error-feedback
+   threshold passes over every leaf of one full-size TinyLlama-1.1B
+   gradient, the threshold from ``ops.hier_topk_threshold`` at ratio
+   1000; every leaf's (selected, residual) equals the plain version's
+   bit for bit, and ``selected + residual == acc``.
+6. The distributed data-parallel surface: one NCCL rank (world size 1),
+   full-size TinyLlama-1.1B, one 1024-token sequence, 3 steps each of
+   ``dense``, ``lags_dp`` (kernel backend) and ``lags_dp`` + momentum
+   correction 0.9 through ``Session(cfg, run, mesh=...).train_step()``;
+   ``ef_select_pack`` must launch, and step 0's exchanged mean and EF
+   residual must equal the simulation path's (``BlockLAGSExchange``,
+   P = 1) bit for bit, under deterministic algorithms.
+7. Print the kernels' JSON line, the card line and the result line.
+
+    python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
+
+runs phase 6 on 4 NCCL ranks, one process and one card each, 4
+sequences per global batch; after every step each rank's parameters
+must equal rank 0's bit for bit, with deterministic algorithms off (the
+replicas are never re-synchronised, so the exchange itself must give
+every rank the same bits).
 
 Any failure raises (non-zero exit).  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script exits 1 and prints no result.
@@ -32,6 +57,8 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -44,6 +71,7 @@ REPLACES = {
     "block_topk": "src/repro/kernels/block_topk.py:49",
     "ef_select_pack": "src/repro/kernels/ef_sparsify.py:137",
     "ef_block_candidates": "src/repro/kernels/ef_sparsify.py:177",
+    "ef_accum_sparsify": "src/repro/kernels/ef_sparsify.py:55",
 }
 SOURCE = "src/repro_torch/kernels/csrc/selection.cu"
 # kernels each main-path configuration must launch
@@ -66,7 +94,7 @@ def card_line() -> str:
 def bits(t):
     import torch
     t = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
-    return t.contiguous().view(torch.int32).cpu()
+    return t.contiguous().view(torch.int32)
 
 
 def assert_bitwise(what, got, want) -> float:
@@ -143,6 +171,29 @@ def parity(dev) -> dict:
                             ef_sparsify.ef_block_candidates(g, e, lr, k),
                             ref.ef_block_candidates_ref(g, e, lr, k)))
                 n_cases += 1
+    errs["ef_accum_sparsify"] = 0.0
+    # 2^22 + 5: each thread of the one-wave grid (132 SMs x 8 blocks x 256
+    # threads on an H100) goes round its grid-stride loop several times
+    for d in (100, 1024, 5000, 70000, 2**20 + 3, 2**22 + 5):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn((d + 1,), generator=gen, device=dev).to(dtype)
+            e = torch.randn((d + 1,), generator=gen, device=dev)
+            # |acc| == thr exactly at (lr, thr) = (0.1, 0.5): 0.3 + 0.2
+            g[:32], e[:32] = 2.0, 0.3
+            views = {"aligned": (g[:d], e[:d]),
+                     # one element in: no pointer is 16-byte aligned, so
+                     # the kernel takes its element-by-element path
+                     "misaligned": (g[1:], e[1:])}
+            for lr, thr in ((0.1, 0.5), (1.0, 0.0), (0.01, 2.0),
+                            (0.3, 0.7)):
+                for view, (gv, ev) in views.items():
+                    errs["ef_accum_sparsify"] = max(
+                        errs["ef_accum_sparsify"], assert_bitwise(
+                            f"ef_accum_sparsify d={d} {dtype} lr={lr} "
+                            f"thr={thr} {view}",
+                            ef_sparsify.ef_accum_sparsify(gv, ev, lr, thr),
+                            ref.ef_accum_sparsify_ref(gv, ev, lr, thr)))
+                    n_cases += 1
     torch.cuda.synchronize()
     print(f"parity: {n_cases} shape/dtype/k cases, every kernel bitwise "
           f"equal to its plain version (max_abs_err {errs})")
@@ -198,7 +249,38 @@ def timings(dev, cfg, p: int) -> dict:
         print(f"time {name}: rows {n}x{bs} k={k}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the bound")
-    del g, e, acc, mag
+    # ef_accum_sparsify on the same elements as one flat vector, the
+    # threshold at ratio 1000 from the hierarchical top-k of the same acc
+    from repro_torch.kernels import ops
+    d_all = n * bs
+    thr, _ = ops.hier_topk_threshold(acc.reshape(-1),
+                                     round(d_all / cfg.compression_ratio))
+    del mag
+    for dtype, per in ((torch.float32, 16), (torch.bfloat16, 14)):
+        gf = g.reshape(-1).to(dtype)
+        ef = e.reshape(-1)
+        ms = cuda_ms(lambda: ef_sparsify.ef_accum_sparsify(gf, ef, lr, thr),
+                     10)
+        plain_ms = cuda_ms(
+            lambda: ref.ef_accum_sparsify_ref(gf, ef, lr, thr), 3)
+        err = assert_bitwise(
+            f"ef_accum_sparsify {d_all} elements g {dtype}",
+            ef_sparsify.ef_accum_sparsify(gf, ef, lr, thr),
+            ref.ef_accum_sparsify_ref(gf, ef, lr, thr))
+        b_ms, b_by = bound(d_all * per, 4 * d_all)
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None, "shape": [d_all],
+               "g_dtype": str(dtype), "thr": float(thr),
+               "bytes": d_all * per, "max_abs_err": err}
+        name = "ef_accum_sparsify" + ("" if dtype == torch.float32
+                                      else "_bf16")
+        out[name] = row
+        print(f"time {name}: {d_all} elements g {dtype}: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, no library call, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the bound; "
+              f"outputs bitwise equal to the plain version's")
+        del gf
+    del g, e, acc
     torch.cuda.empty_cache()
     return out
 
@@ -379,13 +461,250 @@ def check_ef_invariant(trainer, dev) -> None:
           f"bitwise on embed/embedding ({tuple(e.shape)}, k={k})")
 
 
+def ef_accum_path(dev, cfg, seq: int) -> dict:
+    """``ops.ef_accum_sparsify`` as its users call it: two error-feedback
+    threshold passes (the residual feeds the second) over every leaf of
+    one full-size gradient, lr 0.01, the threshold of each pass from
+    ``ops.hier_topk_threshold`` of that pass's acc at the config's ratio.
+    Every leaf's (selected, residual) must equal the plain version's bit
+    for bit.  Returns (the launch counts of the pass, the largest
+    absolute error)."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+
+    model = T.Transformer(cfg, seed=0, device=dev)
+    batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=3).batch(
+        0, 1, seq, device=dev)
+    leaves = tree.leaves(model.params)
+    loss, _ = T.loss_fn(model.params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    del model, leaves, loss
+    lr = 0.01
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kept, err = 0, 0.0
+    with torch.no_grad():
+        for i, g in enumerate(grads):
+            g = g.reshape(-1)
+            e = torch.zeros(g.shape, dtype=torch.float32, device=dev)
+            k = max(1, round(g.numel() / cfg.compression_ratio))
+            for t in range(2):
+                acc = e + lr * g.float()
+                thr, _ = ops.hier_topk_threshold(acc, k)
+                sel, e_new = ops.ef_accum_sparsify(g, e, lr, thr)
+                # the plain version launches nothing, so counts stay
+                err = max(err, assert_bitwise(
+                    f"ef_accum path leaf {i} pass {t}", (sel, e_new),
+                    ref.ef_accum_sparsify_ref(g, e, lr, thr)))
+                if not torch.equal(sel + e_new, acc):
+                    raise AssertionError("ef_accum_sparsify: selected + "
+                                         "residual != acc")
+                kept += int((sel != 0).sum())
+                e = e_new
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts["ef_accum_sparsify"] == 0:
+        raise AssertionError("ef_accum_sparsify never launched on its path")
+    print(f"ef_accum path: 2 threshold passes over {len(grads)} leaves of a "
+          f"TinyLlama-1.1B gradient, {kept} entries selected, (selected, "
+          f"residual) bitwise equal to the plain version's and selected + "
+          f"residual == acc on every leaf; launches {counts}")
+    del grads
+    torch.cuda.empty_cache()
+    return counts, err
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
+                rank: int = 0, init_method: str | None = None
+                ) -> tuple[dict, dict]:
+    """The data-parallel surface on ``world`` NCCL ranks (this process is
+    ``rank``; one sequence per rank): ``steps`` steps each of dense,
+    lags_dp (kernel backend) and lags_dp with momentum correction.  One
+    rank: step 0 of lags_dp is held against the simulation path.
+    Several: after every step each rank's parameters must equal rank
+    0's bit for bit.  Returns (launch counts summed over the run,
+    per-step rows)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, kernels, tree
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+
+    configs = {
+        "dense": api.RunConfig(mode="dense", lr=0.01),
+        "lags_dp/kernel": api.RunConfig(mode="lags_dp", lr=0.01,
+                                        selection_backend="kernel"),
+        "lags_dp/kernel/mc0.9": api.RunConfig(
+            mode="lags_dp", lr=0.01, selection_backend="kernel",
+            momentum_correction=0.9),
+    }
+    data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
+    batches = [data.batch(t, world, seq, device=dev) for t in range(steps)]
+    M.init_process_group(init_method or f"tcp://localhost:{free_port()}",
+                         world, rank, device=dev.type)
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    results = {}
+    try:
+        mesh = M.make_mesh(device=dev.type)
+        for label, run in configs.items():
+            sess = api.Session(cfg, run, mesh=mesh)
+            step_fn = sess.step_fn
+            state, _ = sess.init_state(seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            counts = dict.fromkeys(kernels.WRAPPERS, 0)
+            rows = []
+            for t in range(steps):
+                check = world == 1 and t == 0 and label == "lags_dp/kernel"
+                if check:
+                    p0 = [x.detach().clone()
+                          for x in tree.leaves(state["params"])]
+                    torch.use_deterministic_algorithms(True)
+                kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batches[t])
+                loss = float(metrics["loss"])                # device sync
+                step_s = time.perf_counter() - t0
+                for k, v in kernels.launch_counts().items():
+                    counts[k] += v
+                mem = torch.cuda.max_memory_allocated()
+                if check:   # its comparison launches are not counted
+                    try:
+                        check_step0(sess, state, p0, batches[0])
+                    finally:
+                        torch.use_deterministic_algorithms(False)
+                    del p0
+                if world > 1:
+                    check_replicas(state["params"], f"{label} step {t}")
+                rows.append({"step": t, "loss": loss, "step_s": step_s,
+                             "max_memory_allocated": mem,
+                             "deterministic": check})
+                who = f" rank {rank}/{world}" if world > 1 else ""
+                print(f"distributed {label}{who} step {t}: loss {loss:.6f} "
+                      f"step_s {step_s:.4f} max_memory_allocated "
+                      f"{mem / 2**30:.3f} GiB launches {counts}"
+                      + (" (deterministic algorithms)" if check else "")
+                      + (", parameters equal on every rank"
+                         if world > 1 else ""))
+                if not math.isfinite(loss):
+                    raise AssertionError(f"distributed {label} step {t}: "
+                                         f"loss {loss}")
+            if run.mode == "lags_dp" and counts["ef_select_pack"] == 0:
+                raise AssertionError(f"distributed {label}: ef_select_pack "
+                                     f"never launched")
+            for k, v in counts.items():
+                totals[k] += v
+            results[label] = {"steps": rows, "launches": counts}
+            del state, step_fn, sess
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return totals, results
+
+
+def check_replicas(params, what: str) -> None:
+    """Every rank's parameters == rank 0's, bit for bit (a broadcast of
+    each leaf from rank 0, compared on every rank; a rank that differs
+    fails the collective check on all of them)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    bad = 0
+    for path, x in zip(tree.leaf_paths(params), tree.leaves(params)):
+        x = x.detach()
+        ref0 = x.clone()
+        dist.broadcast(ref0, 0)
+        if not torch.equal(bits(x), bits(ref0)):
+            print(f"rank {dist.get_rank()}: {what} {path} differs from "
+                  f"rank 0")
+            bad += 1
+        del ref0
+    flag = torch.tensor([bad], device=tree.leaves(params)[0].device)
+    dist.all_reduce(flag)
+    if int(flag):
+        raise AssertionError(f"{what}: parameters differ across ranks "
+                             f"({int(flag)} leaf copies)")
+
+
+def check_step0(sess, state, p0, batch) -> None:
+    """Step 0 of the distributed lags_dp step against the simulation
+    path, bit for bit: the gradient is taken again at the step's starting
+    parameters (deterministic algorithms make it the step's own), the
+    distributed exchange and ``BlockLAGSExchange``'s simulation path
+    (P = 1) run on the same updates; their means and residuals must be
+    equal, the residual must be the step's, and the step's parameters
+    must be ``p0 - mean``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import lags
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    run, meta = sess.run_config, sess.meta
+    treedef = tree.flatten(state["params"])[1]
+    start = [x.clone().requires_grad_() for x in p0]
+    loss, _ = T.loss_fn(tree.unflatten(treedef, start), sess.cfg, batch,
+                        chunk=run.chunk, loss_chunk=run.loss_chunk)
+    grads = torch.autograd.grad(loss, start)
+    del start, loss
+    with torch.no_grad():
+        lr = torch.full((), run.lr, device=p0[0].device)
+        u = [g.float().mul_(lr) for g in grads]
+        del grads
+        zeros = [torch.zeros_like(x) for x in u]
+        dist_ex = lags.BlockLAGSExchange(ks=meta["ks"],
+                                         block_size=run.block_size,
+                                         use_kernel=True)
+        axes = M.worker_axes(sess.mesh, meta["manual"])
+        m_d, e_d = dist_ex.exchange(tree.unflatten(treedef, u),
+                                    tree.unflatten(treedef, zeros), axes)
+        del zeros
+        m_s, e_s = dist_ex.exchange(
+            tree.unflatten(treedef, [x[None] for x in u]),
+            tree.unflatten(treedef, [torch.zeros((1,) + x.shape,
+                                                 device=x.device)
+                                     for x in u]), None)
+        del u
+        for path, md, ms, ed, es, ef, p_start, p_new in zip(
+                tree.leaf_paths(m_d), tree.leaves(m_d), tree.leaves(m_s),
+                tree.leaves(e_d), tree.leaves(e_s), tree.leaves(state["ef"]),
+                p0, tree.leaves(state["params"])):
+            assert_bitwise(f"step 0 {path} mean / residual vs simulation",
+                           (md, ed[None]), (ms, es))
+            assert_bitwise(f"step 0 {path} residual vs the step's", (ef,),
+                           (es,))
+            assert_bitwise(f"step 0 {path} parameters vs p0 - mean",
+                           (p_new,), ((p_start.float() - md).to(p_new.dtype),))
+    print("distributed lags_dp step 0: exchanged mean and EF residual == "
+          "BlockLAGSExchange simulation path (P = 1), bitwise; the step's "
+          "residual and parameters agree")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra step of each main-path "
                          "configuration (tables to chiprun_out/)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="> 1: run only the distributed phase, on this "
+                         "many NCCL ranks (one card each)")
+    # a rank process of --ranks N, started by this script itself
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
+    # deterministic cuBLAS, for the distributed step-0 check; read when
+    # the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -401,6 +720,10 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cfg = tinyllama_1_1b.CONFIG            # published width and depth
+    seq, steps = 1024, 3
+    if args.rank is not None:
+        return rank_main(args, cfg, seq, steps)
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -409,6 +732,8 @@ def main(argv=None) -> int:
     lib_path = build.build(verbose=True)
     build_s = time.perf_counter() - t0
     print(f"built {lib_path.name} in {build_s:.1f} s")
+    if args.ranks > 1:
+        return ranks_main(args.ranks)
     dev = torch.device("cuda", 0)
 
     torch.use_deterministic_algorithms(True)
@@ -418,13 +743,23 @@ def main(argv=None) -> int:
     finally:
         torch.use_deterministic_algorithms(False)
 
-    cfg = tinyllama_1_1b.CONFIG            # published width and depth
-    p, seq, steps = 2, 1024, 3
+    p = 2
     times = timings(dev, cfg, p)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     totals, results = main_path(dev, cfg, p, seq, steps,
                                 out_dir if args.profile else None)
+    # each later path: counts set to 0 just before it, read just after
+    path_counts, path_err = ef_accum_path(dev, cfg, seq)
+    for k, v in path_counts.items():
+        totals[k] += v
+    errs["ef_accum_sparsify"] = max(
+        errs["ef_accum_sparsify"], path_err,
+        times["ef_accum_sparsify"]["max_abs_err"],
+        times["ef_accum_sparsify_bf16"]["max_abs_err"])
+    dist_totals, dist_results = distributed(dev, cfg, seq, steps)
+    for k, v in dist_totals.items():
+        totals[k] += v
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -438,12 +773,81 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
-         "timings": times, "main": results, **kernels_line}, indent=1))
+         "timings": times, "main": results, "distributed": dist_results,
+         **kernels_line}, indent=1))
     print(json.dumps(kernels_line))
     print(card_line())
-    print(json.dumps({"ok": True, "device": {
+    print(result_line(torch))
+    return 0
+
+
+def result_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}})
+
+
+def ranks_main(world: int) -> int:
+    """Start ``world`` rank processes of this script (the kernels are
+    already built), wait for all of them, print their output; every
+    rank must exit 0."""
+    import torch
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke: --ranks {world} needs {world} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    init = f"tcp://localhost:{free_port()}"
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    logs = [out_dir / f"chip_smoke_rank{r}.log" for r in range(world)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--ranks", str(world), "--rank", str(r), "--init",
+                     init], stdin=subprocess.DEVNULL, stdout=f,
+                    stderr=subprocess.STDOUT, text=True))
+        # a rank that fails leaves the others waiting in a collective:
+        # stop them all then, or at the deadline
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(codes):
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(f"--- rank {r} (exit {p.returncode})")
+        print(log.read_text(), end="")
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        print(f"chip_smoke: ranks {failed} failed", file=sys.stderr)
+        return 1
+    print(card_line())
+    print(result_line(torch))
+    return 0
+
+
+def rank_main(args, cfg, seq: int, steps: int) -> int:
+    """One rank of ``--ranks N``: the distributed phase on card ``rank``,
+    its rows to ``chiprun_out/chip_smoke_rank<r>.json``."""
+    import torch
+    torch.cuda.set_device(args.rank)
+    dev = torch.device("cuda", args.rank)
+    totals, results = distributed(dev, cfg, seq, steps, world=args.ranks,
+                                  rank=args.rank, init_method=args.init)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_rank{args.rank}.json").write_text(json.dumps(
+        {"card": card_line(), "torch": torch.__version__,
+         "world": args.ranks, "rank": args.rank, "seq": seq,
+         "launches": totals, "distributed": results}, indent=1))
     return 0
 
 

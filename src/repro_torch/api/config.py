@@ -41,6 +41,8 @@ class RunConfig:
     lr: float = 0.01
     lr_schedule: Callable[[Any], Any] | None = None   # step -> lr
     momentum: float = 0.0
+    # DGC momentum correction: the velocity accumulates BEFORE
+    # sparsification (ExchangeSpec.init_extra_state, per-worker "mom")
     momentum_correction: float = 0.0
     # exchange pipelining: only "off" is ported
     pipeline: str = "off"
@@ -68,6 +70,12 @@ class RunConfig:
                 f"('xla', 'kernel')")
         if self.health_every < 0:
             raise ValueError(f"health_every={self.health_every} < 0")
+        if self.pipeline == "wave" and self.momentum_correction > 0.0:
+            # the wave taps form updates from raw gradients inside
+            # backprop; the DGC velocity is a post-backward recurrence
+            raise ValueError(
+                "momentum_correction requires pipeline 'off' or 'async1' "
+                "(wave taps compute updates inside backprop)")
 
     def unported(self) -> list[str]:
         """The knobs set here that this slice has not ported, each with
@@ -77,8 +85,6 @@ class RunConfig:
             out.append("schedule (ROADMAP.md queue 1 item 10)")
         if self.measure_delta:
             out.append("measure_delta (ROADMAP.md queue 1 item 10)")
-        if self.momentum_correction:
-            out.append("momentum_correction (ROADMAP.md queue 1 item 7)")
         if self.pipeline != "off":
             out.append(f"pipeline={self.pipeline!r} (ROADMAP.md queue 1 "
                        f"item 11)")

@@ -5,15 +5,21 @@
     def _build(spec: ExchangeSpec):
         return MyExchange(ks=spec.ks, ...)
 
-This slice builds ``dense`` and ``lags_dp`` on the simulation surface
-(``sim=True``); the reference's other modes are registered and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``dense`` and ``lags_dp`` build on both surfaces: the simulation surface
+(``sim=True``) and the distributed data-parallel step (``sim=False``,
+where ``lags_dp`` runs ``BlockLAGSExchange``).  The reference's other
+modes are registered and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable
 
+import torch
+
+from repro_torch import tree
 from repro_torch.api.config import canonical_mode
 from repro_torch.core import compressors as C
 from repro_torch.core import lags
@@ -31,6 +37,26 @@ class ExchangeSpec:
     selection_backend: str = "xla"   # "xla" | "kernel"
     sim: bool = False
     n_workers: int = 1
+    # distributed-only layout hint (see lags.BlockLAGSExchange)
+    shard_dims: Any = None
+    # DGC momentum correction factor (the velocity accumulates BEFORE
+    # sparsification); > 0 turns on the per-worker "mom" extra state
+    momentum_correction: float = 0.0
+
+    def init_extra_state(self, updates_like=None):
+        """Per-worker auxiliary exchange state beyond the EF residual:
+        ``{"mom": zeros (n_workers, ...) f32 tree}`` when
+        ``momentum_correction > 0``, else ``{}``.  ``updates_like``
+        (leaves with ``shape`` and ``device``) defaults to
+        ``params_like``."""
+        like = self.params_like if updates_like is None else updates_like
+        extra: dict[str, Any] = {}
+        if self.momentum_correction > 0.0:
+            n_w = max(1, int(self.n_workers))
+            extra["mom"] = tree.map(lambda x: torch.zeros(
+                (n_w,) + tuple(x.shape), dtype=torch.float32,
+                device=x.device), like)
+        return extra
 
     def resolved_ks(self):
         if self.ks is not None:
@@ -86,29 +112,39 @@ def build_exchange(spec: ExchangeSpec):
     return get_exchange(spec.mode)(spec)
 
 
-def _sim_only(spec: ExchangeSpec) -> None:
-    if not spec.sim:
-        raise NotImplementedError(
-            f"{spec.mode}: the distributed surface is not ported yet "
-            f"(ROADMAP.md queue 1 item 7)")
-
-
 @register_exchange("dense")
 def _dense_factory(spec: ExchangeSpec):
     """Vanilla S-SGD baseline: dense mean over workers."""
-    _sim_only(spec)
     return lags.DenseExchange()
 
 
 @register_exchange("lags_dp")
 def _lags_factory(spec: ExchangeSpec):
-    """Layer-wise adaptive sparsification (the paper), simulation
-    surface: the per-leaf compressor, resolved through
-    ``selection_backend``."""
-    _sim_only(spec)
-    name = spec.resolved_compressor()
-    return lags.LAGSExchange(ks=spec.resolved_ks(), compressor_name=name,
-                             compressor_kwargs=_sel_kwargs(name, spec))
+    """Layer-wise adaptive sparsification (the paper).
+
+    Simulation uses the per-leaf compressor (``LAGSExchange``, resolved
+    through ``selection_backend``); the distributed step uses the block
+    layout (``BlockLAGSExchange``), whose selection operator is block
+    top-k, with the fused ``ef_select_pack`` kernel under the "kernel"
+    backend."""
+    ks = spec.resolved_ks()
+    if spec.sim:
+        name = spec.resolved_compressor()
+        C.get_compressor(name)      # an unported compressor raises here
+        return lags.LAGSExchange(ks=ks, compressor_name=name,
+                                 compressor_kwargs=_sel_kwargs(name, spec))
+    if spec.compressor not in ("topk_exact", "topk_block",
+                               "topk_block_kernel", "topk_block_ef_kernel"):
+        # a run validated in simulation under another compressor deploys
+        # with a different selection operator
+        warnings.warn(
+            f"distributed lags ignores compressor={spec.compressor!r}: "
+            f"the production exchange selects via block top-k "
+            f"(BlockLAGSExchange); simulate with compressor='topk_exact' "
+            f"for the closest semantics match", stacklevel=3)
+    return lags.BlockLAGSExchange(
+        ks=ks, block_size=spec.block_size, shard_dims=spec.shard_dims,
+        use_kernel=(spec.selection_backend == "kernel"))
 
 
 def _unported(mode: str, item: str):

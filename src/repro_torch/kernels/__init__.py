@@ -9,13 +9,15 @@ sets them to 0.
 from __future__ import annotations
 
 from repro_torch.kernels.block_topk import block_topk
-from repro_torch.kernels.ef_sparsify import (ef_block_candidates,
+from repro_torch.kernels.ef_sparsify import (ef_accum_sparsify,
+                                             ef_block_candidates,
                                              ef_select_pack)
 
 WRAPPERS = {
     "block_topk": block_topk,
     "ef_select_pack": ef_select_pack,
     "ef_block_candidates": ef_block_candidates,
+    "ef_accum_sparsify": ef_accum_sparsify,
 }
 
 

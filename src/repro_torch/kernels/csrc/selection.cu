@@ -1,8 +1,9 @@
 // Gradient-selection kernels for Hopper (sm_90a): per-row top-k by
 // magnitude with lowest-index ties, optionally fused with the
-// error-feedback accumulate, the payload pack and the residual.
+// error-feedback accumulate, the payload pack and the residual; and the
+// elementwise error-feedback threshold sparsify.
 //
-// Three kernels, built into one shared library with a plain C interface
+// Four kernels, built into one shared library with a plain C interface
 // (loaded with ctypes by repro_torch/kernels/build.py):
 //
 //   block_topk          replaces src/repro/kernels/block_topk.py
@@ -12,6 +13,9 @@
 //                       _topk_emit)
 //   ef_block_candidates replaces src/repro/kernels/ef_sparsify.py
 //                       ef_block_candidates_pallas (body _ef_cand_kernel)
+//   ef_accum_sparsify   replaces src/repro/kernels/ef_sparsify.py
+//                       ef_accum_sparsify_pallas (body _ef_kernel); its
+//                       design is described above the kernel
 //
 // Design.  One thread block per row.  The row's f32 values (|x| for
 // block_topk; acc = e + lr*g and |acc| for the EF kernels) sit in dynamic
@@ -219,6 +223,117 @@ int launch_ef_select(const void* g, const float* e, const float* lr,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// ef_accum_sparsify: acc = e + lr*g; sel = acc * [|acc| >= thr];
+// res = acc - sel, over a flat vector of any length d.
+//
+// Bound on the H100: bytes.  One read of g and e and one write of sel and
+// res, 16 B per element at f32 g (14 B at bf16 g), against 4 flops per
+// element: far below the f32 rate, so the floor is d * 16 B / 3.35 TB/s.
+// The Pallas kernel tiles a (rows, 1024) padded view for the TPU's vector
+// registers; here one streaming pass needs no padding.  A grid of one
+// full wave of resident blocks strides over the vector; each thread moves
+// 16-byte vectors (float4 of e, sel and res; float4 or 4 x bf16 of g)
+// when every pointer is aligned for them, and the d % 4 tail (or the
+// whole vector, for a misaligned view) element by element.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ef_accum_one(float g, float e, float lr,
+                                             float thr, float& sel,
+                                             float& res) {
+  const float a = __fadd_rn(e, __fmul_rn(lr, g));  // no fma: see Rounding
+  sel = fabsf(a) >= thr ? a : 0.0f;
+  res = __fsub_rn(a, sel);  // literally acc - sel, as the reference
+}
+
+__device__ __forceinline__ void load4(const float* g, int64_t v, float* out) {
+  const float4 x = reinterpret_cast<const float4*>(g)[v];
+  out[0] = x.x;
+  out[1] = x.y;
+  out[2] = x.z;
+  out[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* g, int64_t v,
+                                      float* out) {
+  const uint2 raw = reinterpret_cast<const uint2*>(g)[v];
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  out[0] = lo.x;
+  out[1] = lo.y;
+  out[2] = hi.x;
+  out[3] = hi.y;
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    ef_accum_kernel(const T* __restrict__ g, const float* __restrict__ e,
+                    const float* __restrict__ lr_p,
+                    const float* __restrict__ thr_p, float* __restrict__ sel,
+                    float* __restrict__ res, int64_t d) {
+  const float lr = *lr_p;
+  const float thr = *thr_p;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  int64_t tail = 0;
+  if constexpr (kVec) {
+    const int64_t nv = d / 4;
+    for (int64_t v = tid; v < nv; v += stride) {
+      float gv[4];
+      load4(g, v, gv);
+      const float4 ev = reinterpret_cast<const float4*>(e)[v];
+      float4 sv, rv;
+      ef_accum_one(gv[0], ev.x, lr, thr, sv.x, rv.x);
+      ef_accum_one(gv[1], ev.y, lr, thr, sv.y, rv.y);
+      ef_accum_one(gv[2], ev.z, lr, thr, sv.z, rv.z);
+      ef_accum_one(gv[3], ev.w, lr, thr, sv.w, rv.w);
+      reinterpret_cast<float4*>(sel)[v] = sv;
+      reinterpret_cast<float4*>(res)[v] = rv;
+    }
+    tail = nv * 4;
+  }
+  for (int64_t j = tail + tid; j < d; j += stride) {
+    ef_accum_one(to_f32(g[j]), e[j], lr, thr, sel[j], res[j]);
+  }
+}
+
+template <typename T>
+int launch_ef_accum(const void* g, const float* e, const float* lr,
+                    const float* thr, float* sel, float* res, int64_t d,
+                    cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_sm,
+                                 cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (err != cudaSuccess) return err;
+  // 16-byte vectors need every pointer aligned to its vector's width
+  const uintptr_t gw = sizeof(T) * 4;
+  const bool vec = reinterpret_cast<uintptr_t>(g) % gw == 0 &&
+                   reinterpret_cast<uintptr_t>(e) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(sel) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(res) % 16 == 0;
+  const int64_t items = vec ? d / 4 + d % 4 : d;
+  const int64_t wave = static_cast<int64_t>(sms) * (per_sm / kThreads);
+  const int64_t need = (items + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(need < wave ? (need > 0 ? need : 1)
+                                                  : wave);
+  const T* gp = static_cast<const T*>(g);
+  if (vec) {
+    ef_accum_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        gp, e, lr, thr, sel, res, d);
+  } else {
+    ef_accum_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+        gp, e, lr, thr, sel, res, d);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,6 +379,22 @@ int ef_block_candidates(const void* g, int g_bf16, const void* e,
                       g, ep, lp, nullptr, 1, vp, ip, nullptr, n, bs, r, s)
                 : launch_ef_select<float, false>(g, ep, lp, nullptr, 1, vp,
                                                  ip, nullptr, n, bs, r, s);
+}
+
+// Elementwise EF threshold sparsify over d elements: g f32 (g_bf16 = 0)
+// or bf16 (g_bf16 = 1); e, sel, res f32; lr and thr one f32 each on the
+// device.
+int ef_accum_sparsify(const void* g, int g_bf16, const void* e,
+                      const void* lr, const void* thr, void* sel, void* res,
+                      long long d, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* ep = static_cast<const float*>(e);
+  auto* lp = static_cast<const float*>(lr);
+  auto* tp = static_cast<const float*>(thr);
+  auto* sp = static_cast<float*>(sel);
+  auto* rp = static_cast<float*>(res);
+  return g_bf16 ? launch_ef_accum<__nv_bfloat16>(g, ep, lp, tp, sp, rp, d, s)
+                : launch_ef_accum<float>(g, ep, lp, tp, sp, rp, d, s);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
-"""Fused error-feedback selection: wrappers of the CUDA ``ef_select_pack``
-and ``ef_block_candidates`` kernels.
+"""Fused error-feedback selection: wrappers of the CUDA ``ef_select_pack``,
+``ef_block_candidates`` and ``ef_accum_sparsify`` kernels.
 
 Replace ``repro.kernels.ef_sparsify.ef_select_pack_pallas`` (EF
 accumulate + per-row top-k + payload pack + residual, ``acc = e + lr·g``
-never in device memory) and ``ef_block_candidates_pallas`` (the same
+never in device memory), ``ef_block_candidates_pallas`` (the same
 accumulate, emitting only each row's top-r: stage 1 of
-``ops.ef_hier_pack``).  A CPU tensor runs the plain version
+``ops.ef_hier_pack``) and ``ef_accum_sparsify_pallas`` (the same
+accumulate with a magnitude threshold, elementwise: selected and
+residual).  A CPU tensor runs the plain version
 (``repro_torch.kernels.ref``); a CUDA tensor launches the kernel or
 raises.
 
@@ -106,5 +108,50 @@ def ef_block_candidates(g_rows, e_rows, lr, r: int):
     return vals, idx
 
 
+def ef_accum_sparsify(g, e, lr, thr):
+    """Fused ``acc = e + lr·g``; ``selected = acc·[|acc| >= thr]``;
+    ``residual = acc − selected``, elementwise.
+
+    g: f32 or bf16, e: f32, both contiguous and of one shape (any);
+    ``lr``/``thr``: Python floats or one f32 on ``g``'s device.  Returns
+    (selected, residual), f32, of that shape.  Contract: on the card the
+    kernel is bitwise equal to its plain version
+    (``ref.ef_accum_sparsify_ref``) at every lr, and the plain version is
+    bitwise equal to ``repro.kernels.ref.ef_accum_sparsify_ref`` at
+    lr = 1 and within rtol = atol = 1e-6 (the reference's own kernel
+    tolerance) elsewhere, where XLA may contract ``e + lr·g`` into one
+    fma."""
+    if g.device.type == "cpu":
+        return ref.ef_accum_sparsify_ref(g, e, lr, thr)
+    for name, t, dtypes in (("g", g, DTYPES), ("e", e, (torch.float32,))):
+        if t.device.type != "cuda":
+            raise ValueError(f"ef_accum_sparsify {name}: expected a CUDA "
+                             f"tensor, got {t.device}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"ef_accum_sparsify {name}: dtype {t.dtype} "
+                             f"not in {dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"ef_accum_sparsify {name}: tensor must be "
+                             f"contiguous")
+    if e.shape != g.shape or e.device != g.device:
+        raise ValueError(f"ef_accum_sparsify: g {tuple(g.shape)} on "
+                         f"{g.device} and e {tuple(e.shape)} on {e.device}")
+    dev = g.device
+    lr_t = _device_scalar(lr, dev)
+    thr_t = _device_scalar(thr, dev)
+    sel = torch.empty(g.shape, dtype=torch.float32, device=dev)
+    res = torch.empty(g.shape, dtype=torch.float32, device=dev)
+    if g.numel():
+        with torch.cuda.device(dev):
+            err = build.lib().ef_accum_sparsify(
+                g.data_ptr(), int(g.dtype == torch.bfloat16), e.data_ptr(),
+                lr_t.data_ptr(), thr_t.data_ptr(), sel.data_ptr(),
+                res.data_ptr(), g.numel(), stream_of(g))
+        build.check("ef_accum_sparsify", err)
+        ef_accum_sparsify.launches += 1
+    return sel, res
+
+
 ef_select_pack.launches = 0
 ef_block_candidates.launches = 0
+ef_accum_sparsify.launches = 0

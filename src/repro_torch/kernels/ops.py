@@ -69,6 +69,15 @@ def hier_topk_threshold(x: torch.Tensor, k: int, *, block_size: int = 4096,
                                cand_idx.reshape(shape))
 
 
+def ef_accum_sparsify(g, e, lr, thr):
+    """Fused ``acc = e + lr·g``; ``selected = acc·[|acc| >= thr]``;
+    ``residual = acc − selected`` on flat ``(d,)`` vectors (any leading
+    axes are fine: the pass is elementwise).  ``thr`` is typically the
+    k-th magnitude from :func:`hier_topk_threshold`.  Returns (selected,
+    residual), f32."""
+    return _ef.ef_accum_sparsify(g, e, lr, thr)
+
+
 def ef_select_pack_rows(g_rows, e_rows, lr, thr, k: int):
     """Fused EF accumulate + per-row top-``k`` + payload pack on a block
     view; ``thr=None`` disables the gate.  Returns (vals (n, k) f32,

@@ -34,6 +34,24 @@ def _accumulate(g_rows, e_rows, lr):
     return e_rows.float() + lr * g_rows.float()
 
 
+def ef_accum_sparsify_ref(g, e, lr, thr):
+    """Fused error-feedback accumulate + magnitude-threshold sparsify,
+    elementwise over same-shape ``g`` (f32 or bf16) and ``e`` (f32):
+
+        acc      = e + lr·g            (Algorithm 1 line 7)
+        selected = acc·[|acc| >= thr]  (top-k as a threshold, Eq. 4)
+        residual = acc − selected      (Algorithm 1 line 8)
+
+    ``lr`` and ``thr``: Python floats or one-element f32 tensors.
+    Returns (selected, residual), both f32."""
+    acc = _accumulate(g, e, lr)
+    keep = acc.abs() >= torch.as_tensor(thr, dtype=torch.float32,
+                                         device=acc.device)
+    selected = torch.where(keep, acc, torch.zeros((), dtype=acc.dtype,
+                                                  device=acc.device))
+    return selected, acc - selected
+
+
 def ef_select_pack_ref(g_rows, e_rows, lr, thr, k: int):
     """Fused EF accumulate + per-row top-``k`` + payload pack.
 

@@ -95,6 +95,16 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     return _map_specs(make, _shapes(cfg))
 
 
+def abstract_params(cfg) -> dict:
+    """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+    storage (the counterpart of the reference's ``eval_shape`` of
+    ``init_model``)."""
+    check_supported(cfg)
+    dtype = L.DTYPES[cfg.param_dtype]
+    return _map_specs(lambda spec: torch.empty(spec[0], dtype=dtype,
+                                               device="meta"), _shapes(cfg))
+
+
 def _map_specs(fn, specs):
     if isinstance(specs, dict):
         return {k: _map_specs(fn, v) for k, v in specs.items()}

@@ -4,9 +4,11 @@
 One step: each worker takes the gradient of ``loss_fn`` on its batch
 (the workers run one after another, so only one worker's activations
 are alive at a time); ``u = lr·g`` in f32 is stacked into (P, ...)
-leaves; the exchange turns (u, residual) into the mean update and the
-new residual; ``SGD`` and ``apply_deltas`` apply the mean.  Parameters
-are updated in place.
+leaves — or, with ``momentum_correction`` mc > 0, the DGC velocity
+``mom = mc·mom + lr·g`` is, per worker, before sparsification; the
+exchange turns (u, residual) into the mean update and the new residual;
+``SGD`` and ``apply_deltas`` apply the mean.  Parameters and the
+velocity are updated in place.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ def _sim_spec(run: RunConfig, params, n_workers: int) -> R.ExchangeSpec:
                           compressor=run.compressor,
                           selection_backend=run.selection_backend,
                           block_size=run.block_size, sim=True,
-                          n_workers=n_workers)
+                          n_workers=n_workers,
+                          momentum_correction=run.momentum_correction)
 
 
 class SimTrainer:
@@ -60,7 +63,8 @@ class SimTrainer:
         self.run_config = run
         self.mode = run.resolved_mode()
         self.n_workers = n_workers
-        self.exchange = R.build_exchange(_sim_spec(run, params, n_workers))
+        spec = _sim_spec(run, params, n_workers)
+        self.exchange = R.build_exchange(spec)
         self.optimizer = opt.SGD(momentum=run.momentum)
         per_worker_like = tree.map(
             lambda p: Spec((n_workers,) + tuple(p.shape), torch.float32,
@@ -68,6 +72,7 @@ class SimTrainer:
         self.state = {
             "params": params,
             "ef": self.exchange.init(per_worker_like),
+            "mom": spec.init_extra_state().get("mom", ()),
             "opt": self.optimizer.init(params),
             "step": 0,
         }
@@ -84,9 +89,13 @@ class SimTrainer:
         leaves, treedef = tree.flatten(params)
         lr = self._lr(state["step"])
         p_workers = self.n_workers
-        updates = [torch.empty((p_workers,) + tuple(p.shape),
-                               dtype=torch.float32, device=p.device)
-                   for p in leaves]
+        mc = self.run_config.momentum_correction
+        if mc:
+            updates = tree.leaves(state["mom"])   # the velocity, in place
+        else:
+            updates = [torch.empty((p_workers,) + tuple(p.shape),
+                                   dtype=torch.float32, device=p.device)
+                       for p in leaves]
         losses = []
         for w in range(p_workers):
             loss, _aux = self.loss_fn(params, tree.map(lambda x: x[w], batch))
@@ -96,8 +105,11 @@ class SimTrainer:
                     # u = lr * f32(g): cast first, so a bf16 gradient is
                     # scaled in f32 as in the reference (a 0-d f32 tensor
                     # times bf16 would stay bf16 in torch)
-                    u[w].copy_(g)
-                    u[w].mul_(lr)
+                    if mc:     # mom = mc·mom + lr·g, each product rounded
+                        u[w].mul_(mc).add_(g.float().mul_(lr))
+                    else:
+                        u[w].copy_(g)
+                        u[w].mul_(lr)
             del grads
             losses.append(loss.detach())
         with torch.no_grad():
@@ -109,8 +121,8 @@ class SimTrainer:
                                                     lr=1.0)
             del mean_update
             opt.apply_deltas(params, deltas)
-        self.state = {"params": params, "ef": new_ef, "opt": new_opt,
-                      "step": state["step"] + 1}
+        self.state = {"params": params, "ef": new_ef, "mom": state["mom"],
+                      "opt": new_opt, "step": state["step"] + 1}
         return {"loss": torch.stack(losses).mean(), "lr": lr}
 
     def run(self, data_fn, n_steps: int, log_every: int = 0):

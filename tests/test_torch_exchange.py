@@ -1,10 +1,15 @@
-"""The port's compressors and simulation-surface exchanges against the JAX
-reference, on the same numpy updates and residuals.
+"""The port's compressors and exchanges against the JAX reference, on the
+same numpy updates and residuals: the simulation surface of every ported
+strategy, and ``BlockLAGSExchange`` (the distributed ``lags_dp``
+exchange) on its simulation path.
 
 Selections (values, indices) and EF residuals are bitwise.  The exchange
 mean is bitwise too: on the CPU ``index_add_`` sums duplicate indices in
-index order, as XLA's scatter does.
+index order, as XLA's scatter does.  The distributed surface across
+processes is ``test_torch_distributed.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -163,10 +168,132 @@ def test_unported_modes_raise_naming_roadmap(mode):
 
 
 def test_distributed_surface_raises_naming_roadmap():
+    """What the distributed surface still lacks raises, naming its
+    ROADMAP.md item: ``slgs``, a ``model`` axis > 1 and sharded dims
+    (tensor parallelism)."""
+    from repro_torch.launch import mesh as M
     like = {"a": np.zeros((4,), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.build_exchange(TR.ExchangeSpec(mode="lags_dp", params_like=like))
-    tex, _ = _exchanges("lags_dp", "topk_exact", "xla", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tex.exchange_bucket((0,), [torch.zeros(1, 100)],
-                            [torch.zeros(1, 100)], ("data",))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*8"):
+        TR.build_exchange(TR.ExchangeSpec(mode="slgs", params_like=like))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):
+        M.make_mesh(data=2, model=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):
+        TR.build_exchange(TR.ExchangeSpec(mode="lags_dp", params_like=like,
+                                          shard_dims={"a": (0,)}))
+    # unsharded hints are the identity layout
+    TR.build_exchange(TR.ExchangeSpec(mode="lags_dp", params_like=like,
+                                      shard_dims={"a": ()}))
+
+
+# -- BlockLAGSExchange: the distributed lags_dp exchange -----------------
+
+BLOCK_LEAVES = {"a": (100,), "b": (257,), "c": (50, 100)}
+
+
+def _block_pair(p, use_kernel):
+    ks = {"a": 3, "b": 9, "c": 40}
+    return (TL.BlockLAGSExchange(ks=ks, block_size=64, use_kernel=use_kernel),
+            JL.BlockLAGSExchange(ks=ks, block_size=64, use_kernel=use_kernel))
+
+
+def _block_tree(p, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return {k: (scale * rng.standard_normal((p,) + s)).astype(np.float32)
+            for k, s in BLOCK_LEAVES.items()}
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_block_lags_sim_matches_jax(p, use_kernel):
+    """Leaves of 100 (d > bs with a short tail), 257 (a one-element tail
+    block) and 5000 elements at block_size 64; two steps, the residual
+    fed back: means and residuals bitwise, both backends."""
+    tex, jex = _block_pair(p, use_kernel)
+    jstep = jax.jit(lambda u, e: jex.exchange(u, e, None))
+    e = _block_tree(p, 1, 0.1)
+    for step in range(2):
+        u = _block_tree(p, 10 + step)
+        tm, te = tex.exchange({k: torch.from_numpy(v) for k, v in u.items()},
+                              {k: torch.from_numpy(np.array(v))
+                               for k, v in e.items()}, None)
+        jm, je = jstep(jax.tree.map(jnp.asarray, u),
+                       jax.tree.map(jnp.asarray, e))
+        for k in BLOCK_LEAVES:
+            _assert_bitwise((tm[k], te[k]), (jm[k], je[k]), f"{k}@{step}")
+        e = jax.tree.map(np.asarray, je)
+
+
+def test_block_lags_small_leaf_below_block_size_matches_jax():
+    """d < block_size: one block of d elements."""
+    tex = TL.BlockLAGSExchange(ks={"w": 5}, block_size=64, use_kernel=True)
+    jex = JL.BlockLAGSExchange(ks={"w": 5}, block_size=64, use_kernel=True)
+    u = {"w": np.random.default_rng(3).standard_normal((2, 40)).astype(
+        np.float32)}
+    e = {"w": np.zeros((2, 40), np.float32)}
+    tm, te = tex.exchange({"w": torch.from_numpy(u["w"])},
+                          {"w": torch.from_numpy(e["w"])}, None)
+    jm, je = jex.exchange(jax.tree.map(jnp.asarray, u),
+                          jax.tree.map(jnp.asarray, e), None)
+    _assert_bitwise((tm["w"], te["w"]), (jm["w"], je["w"]))
+
+
+@pytest.mark.parametrize("p", [3, 4, 8])
+def test_row_scatter_mean_sums_workers_in_rank_order(p):
+    """Every worker picks the same entries, with values whose f32 sum
+    depends on its order (1e8, -1e8, then ones): each entry must be the
+    sum in rank order, as the reference's (worker, pick) scatter, / P."""
+    n_blocks, bs, k_b = 3, 8, 2
+    rng = np.random.default_rng(p)
+    local = np.tile(np.array([[0, 5], [2, 7], [1, 3]], np.int32), (p, 1, 1))
+    vals = (rng.standard_normal((p, n_blocks, k_b)) *
+            10.0 ** rng.integers(-3, 9, (p, n_blocks, k_b))).astype(
+        np.float32)
+    vals[:, 0, 0] = [1e8, -1e8] + [1.0] * (p - 2)
+    got = TL._row_scatter_mean(torch.from_numpy(vals),
+                               torch.from_numpy(local), n_blocks, bs, p)
+    want = np.zeros(n_blocks * bs, np.float32)
+    for w in range(p):
+        for b in range(n_blocks):
+            for j in range(k_b):
+                i = b * bs + local[w, b, j]
+                want[i] = np.float32(want[i] + vals[w, b, j])
+    want = want / np.float32(p)
+    assert want[0] == np.float32(p - 2) / np.float32(p)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_distributed_factory_builds_block_lags_like_jax():
+    """``lags_dp`` with ``sim=False`` builds the block exchange (the
+    fused kernel under the kernel backend), with the reference's ks and
+    its warning for a non-block compressor."""
+    like = {k: np.zeros(s, np.float32) for k, s in LEAVES.items()}
+    for backend in ("xla", "kernel"):
+        kw = dict(mode="lags_dp", ratio=64.0, selection_backend=backend,
+                  block_size=BLOCK, sim=False, n_workers=4)
+        tex = TR.build_exchange(TR.ExchangeSpec(params_like=like, **kw))
+        jex = JR.build_exchange(JR.ExchangeSpec(params_like=like, **kw))
+        assert isinstance(tex, TL.BlockLAGSExchange)
+        assert tex.use_kernel == jex.use_kernel == (backend == "kernel")
+        assert tree.leaves(tex.ks) == jax.tree.leaves(jex.ks)
+        assert tex.block_size == jex.block_size
+    with pytest.warns(UserWarning, match="block top-k"):
+        TR.build_exchange(TR.ExchangeSpec(
+            mode="lags_dp", params_like=like, compressor="topk_hier"))
+    assert isinstance(TR.build_exchange(TR.ExchangeSpec(
+        mode="dense", params_like=like)), TL.DenseExchange)
+
+
+def test_momentum_extra_state_matches_jax_layout():
+    like = {k: np.zeros(s, np.float32) for k, s in LEAVES.items()}
+    tspec = TR.ExchangeSpec(mode="lags_dp", params_like={
+        k: torch.zeros(s) for k, s in LEAVES.items()}, n_workers=3,
+        momentum_correction=0.9)
+    jspec = JR.ExchangeSpec(mode="lags_dp", params_like=like, n_workers=3,
+                            momentum_correction=0.9)
+    got, want = tspec.init_extra_state(), jspec.init_extra_state()
+    assert list(got) == list(want) == ["mom"]
+    for g, w in zip(tree.leaves(got["mom"]), jax.tree.leaves(want["mom"])):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        assert not g.any()
+    assert dataclasses.replace(tspec, momentum_correction=0.0
+                               ).init_extra_state() == {}

@@ -55,6 +55,45 @@ def test_kernels_match_plain_bitwise(cuda, bs, dtype):
                  ref.ef_block_candidates_ref(g, e, 0.3, k))
 
 
+@pytest.mark.parametrize("d", [100, 5000, 2**20 + 3, 2**22 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ef_accum_sparsify_matches_plain_bitwise(cuda, d, dtype):
+    """Aligned (16-byte vectors and a d % 4 tail) and misaligned (element
+    by element) views, at lr 1 and lr != 1; 2^22 + 5 elements take each
+    thread of the one-wave grid round its grid-stride loop several
+    times."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    g = torch.randn((d + 1,), generator=gen, device=cuda).to(dtype)
+    e = torch.randn((d + 1,), generator=gen, device=cuda)
+    for gv, ev in ((g[:d], e[:d]), (g[1:], e[1:])):
+        for lr, thr in ((1.0, 0.0), (0.3, 0.7), (0.01, 2.0)):
+            _bitwise(ef_sparsify.ef_accum_sparsify(gv, ev, lr, thr),
+                     ref.ef_accum_sparsify_ref(gv, ev, lr, thr))
+    with pytest.raises(ValueError, match="dtype"):
+        ef_sparsify.ef_accum_sparsify(g, e.double(), 1.0, 0.5)
+
+
+def test_block_lags_mean_has_the_same_bits_on_every_call(cuda):
+    """Without deterministic algorithms: 4 workers' picks collide on the
+    card (one leaf of mostly equal magnitudes), yet the exchanged mean
+    is the CPU's bit for bit on every call, because the scatter runs
+    worker by worker and never sums duplicates with atomics; so every
+    distributed rank computes the same mean."""
+    from repro_torch.core import lags as TL
+    torch.use_deterministic_algorithms(False)
+    gen = torch.Generator().manual_seed(7)
+    u = {"w": torch.randn((4, 64, 4096), generator=gen).sign()
+         + 1e-3 * torch.randn((4, 64, 4096), generator=gen)}
+    e = {"w": torch.zeros((4, 64, 4096))}
+    ex = TL.BlockLAGSExchange(ks={"w": 64 * 4096 // 8}, block_size=4096,
+                              use_kernel=True)
+    want, want_e = ex.exchange(u, e, None)
+    for _ in range(5):
+        got, got_e = ex.exchange({"w": u["w"].to(cuda)},
+                                 {"w": e["w"].to(cuda)}, None)
+        _bitwise((got["w"], got_e["w"]), (want["w"], want_e["w"]))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn((4, 256), device=cuda)
     with pytest.raises(ValueError, match="outside"):
@@ -77,7 +116,8 @@ def test_launch_counts_move_only_on_a_launch(cuda):
     block_topk(x.cpu(), 2)                       # plain version: no launch
     ef_sparsify.ef_select_pack(x, x, 1.0, None, 2)
     assert kernels.launch_counts() == {"block_topk": 1, "ef_select_pack": 1,
-                                       "ef_block_candidates": 0}
+                                       "ef_block_candidates": 0,
+                                       "ef_accum_sparsify": 0}
 
 
 @pytest.mark.parametrize("compressor", ["topk_exact", "topk_block",

@@ -194,6 +194,61 @@ def test_gate_emits_zero_with_in_range_index():
     assert torch.equal(res, torch.tensor([[0.0, 0.1, -2.0, 0.2]]))
 
 
+@pytest.mark.parametrize("d", [100, 1024, 5000, 70000])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ef_accum_sparsify_matches_pallas(d, dtype):
+    """Every ``TestEfSparsify`` case: the port's entry point (its plain
+    version here) against the Pallas kernel in interpret mode, bitwise
+    at lr = 1 and within that test's rtol = atol = 1e-6 elsewhere (XLA
+    may contract ``e + lr·g`` into one fma)."""
+    gj, gt = _pair(_normal((d,), 3 * d), dtype)
+    ej, et = _pair(_normal((d,), 3 * d + 1), "float32")
+    for lr, thr in [(0.1, 0.5), (1.0, 0.0), (0.01, 2.0)]:
+        got = ops.ef_accum_sparsify(gt, et, lr, thr)
+        want = jops.ef_accum_sparsify(gj, ej, lr, thr)
+        assert all(t.dtype == torch.float32 and t.shape == (d,)
+                   for t in got)
+        if lr == 1.0:
+            _assert_bitwise(got, want)
+        for p, w in zip(got, want):
+            np.testing.assert_allclose(p.numpy(), np.asarray(w), rtol=1e-6,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ef_accum_sparsify_ref_matches_jax_ref(dtype):
+    """The plain versions of both packages round ``lr·g`` and the sum
+    separately, so they agree bitwise at lr != 1 too."""
+    gj, gt = _pair(_normal((3000,), 51), dtype)
+    ej, et = _pair(_normal((3000,), 52), "float32")
+    _assert_bitwise(ref.ef_accum_sparsify_ref(gt, et, 0.3, 0.7),
+                    jref.ef_accum_sparsify_ref(gj, ej, 0.3, 0.7))
+
+
+def test_ef_accum_sparsify_split_is_exact():
+    """selected + residual == acc: Algorithm 1's exact EF split."""
+    g, e = _normal((3000,), 61), _normal((3000,), 62)
+    gt, et = torch.from_numpy(g), torch.from_numpy(e)
+    sel, res = ops.ef_accum_sparsify(gt, et, 0.3, 0.7)
+    assert torch.equal(sel + res, et + 0.3 * gt)
+    np.testing.assert_allclose((sel + res).numpy(), e + 0.3 * g,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_ef_accum_sparsify_threshold_semantics():
+    """With e = 0 and lr = 1 an entry is selected iff |g| >= thr; ties at
+    the threshold are kept; a kept entry's residual is 0."""
+    g = _normal((500,), 71)
+    g[:3] = [1.5, -1.5, 1.4999999]
+    sel, res = ops.ef_accum_sparsify(torch.from_numpy(g),
+                                     torch.zeros(500), 1.0, 1.5)
+    sel, res = sel.numpy(), res.numpy()
+    assert ((np.abs(g) >= 1.5) == (sel != 0)).all()
+    assert sel[:3].tolist() == [1.5, -1.5, 0.0]
+    assert (res[sel != 0] == 0).all()
+    np.testing.assert_array_equal(res[sel == 0], g[sel == 0])
+
+
 def test_non_cpu_non_cuda_tensor_raises():
     """A wrapper runs the plain version only for a CPU tensor; any other
     device must launch the kernel or raise (no fallback)."""
@@ -204,3 +259,5 @@ def test_non_cpu_non_cuda_tensor_raises():
         ef_sparsify.ef_select_pack(x, x, 1.0, None, 4)
     with pytest.raises(ValueError, match="CUDA"):
         ef_sparsify.ef_block_candidates(x, x, 1.0, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ef_accum_sparsify(x[0], x[0], 1.0, 0.5)

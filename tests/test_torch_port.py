@@ -77,7 +77,7 @@ def test_trainer_refuses_params_on_another_device():
 @pytest.mark.parametrize("knob", [
     {"measure_delta": True}, {"health_every": 5}, {"pipeline": "wave"},
     {"pipeline": "async1"}, {"schedule": object()},
-    {"momentum_correction": 0.9}])
+    {"compressor": "randk"}])
 def test_unported_knobs_raise_naming_roadmap(knob):
     cfg = tinyllama_1_1b.smoke_config()
     module = TT.Transformer(cfg, device="cpu")
@@ -85,6 +85,22 @@ def test_unported_knobs_raise_naming_roadmap(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.Session(cfg, run, device="cpu").simulator(
             lambda p, b: TT.loss_fn(p, cfg, b), module.params, 2)
+
+
+@pytest.mark.parametrize("knob", [
+    {"measure_delta": True}, {"health_every": 5}, {"pipeline": "async1"},
+    {"schedule": object()}])
+def test_distributed_step_raises_for_unported_knobs(knob):
+    """The distributed step refuses what it has not ported before it
+    touches the mesh."""
+    run = api.RunConfig(mode="lags_dp", **knob)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.build_train_step(tinyllama_1_1b.smoke_config(), None, run)
+
+
+def test_run_config_rejects_wave_with_momentum_correction():
+    with pytest.raises(ValueError, match="momentum_correction"):
+        api.RunConfig(pipeline="wave", momentum_correction=0.9)
 
 
 def test_run_config_mirrors_reference_fields():

@@ -1,6 +1,7 @@
 """Three ``SimTrainer`` steps of the port against the JAX ``SimTrainer``:
 the same parameters (as numpy), the same numpy batches, P=2 workers,
-ratio 8, for ``dense`` and for ``lags_dp`` under both selection backends.
+ratio 8, for ``dense`` and for ``lags_dp`` under both selection backends,
+and with the DGC momentum correction.
 
 Tolerance: losses rtol 1e-5, parameters atol 1e-5 + rtol 1e-4.  The
 reference's jit may contract ``lr·g + e`` into one fma inside the step
@@ -43,13 +44,29 @@ def _batches(vocab):
                                           ("lags_dp", "xla"),
                                           ("lags_dp", "kernel")])
 def test_three_steps_match_jax(mode, backend):
+    _three_steps(mode, backend, 0.0)
+
+
+@pytest.mark.parametrize("mode,backend", [("lags_dp", "xla"),
+                                          ("lags_dp", "kernel")])
+def test_three_steps_with_momentum_correction_match_jax(mode, backend):
+    """mc = 0.9: the per-worker DGC velocity (``mom = mc·mom + lr·g``)
+    follows the reference's too."""
+    ttr, jtr = _three_steps(mode, backend, 0.9)
+    for got, want in zip(tree.leaves(ttr.state["mom"]),
+                         jax.tree.leaves(jtr.state["mom"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def _three_steps(mode, backend, mc):
     cfg_j = dataclasses.replace(jcfg.smoke_config(), **SMALL)
     cfg_t = dataclasses.replace(tcfg.smoke_config(), **SMALL)
     params, _ = JT.init_model(jax.random.PRNGKey(0), cfg_j)
     module = TT.from_jax_params(jax.tree.map(np.asarray, params), cfg_t,
                                 device="cpu")
     kw = dict(mode=mode, ratio=8.0, lr=0.1, selection_backend=backend,
-              block_size=512)
+              block_size=512, momentum_correction=mc)
     batches = _batches(cfg_j.vocab)
 
     jtr = japi.Session(cfg_j, japi.RunConfig(**kw)).simulator(
@@ -74,3 +91,4 @@ def test_three_steps_match_jax(mode, backend):
                              jax.tree.leaves(jtr.state["ef"])):
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        rtol=1e-4, atol=1e-5)
+    return ttr, jtr
