@@ -12,8 +12,8 @@
    (lr, thr) pairs and a misaligned view), then time it at the main
    path's largest shape beside its byte bound, its plain version and
    ``torch.topk`` on the same rows (no one PyTorch call computes
-   ``ef_accum_sparsify``: its ``library_ms`` is null; its timed outputs
-   are held bitwise against the plain version's too).
+   ``ef_accum_sparsify``: its ``library_ms`` is null); every kernel's
+   timed outputs are held bitwise against the plain version's too.
 3. Small-input reference: the kernel-backed exchange on the card against
    the same exchange on the CPU (plain versions), bitwise.
 4. The main path: LAGS-SGD training of TinyLlama-1.1B at its published
@@ -30,12 +30,26 @@
    1000; every leaf's (selected, residual) equals the plain version's
    bit for bit, and ``selected + residual == acc``.
 6. The distributed data-parallel surface: one NCCL rank (world size 1),
-   full-size TinyLlama-1.1B, one 1024-token sequence, 3 steps each of
-   ``dense``, ``lags_dp`` (kernel backend) and ``lags_dp`` + momentum
-   correction 0.9 through ``Session(cfg, run, mesh=...).train_step()``;
-   ``ef_select_pack`` must launch, and step 0's exchanged mean and EF
-   residual must equal the simulation path's (``BlockLAGSExchange``,
-   P = 1) bit for bit, under deterministic algorithms.
+   full-size TinyLlama-1.1B, one 1024-token sequence (the same every
+   step), 3 steps each of the configurations of ``DIST_CONFIGS``
+   through ``Session(cfg, run, mesh=...).train_step()``: ``dense``,
+   ``lags_dp`` (kernel backend) and ``lags_dp`` + momentum correction
+   0.9, each ``off`` (the exchange after backward), ``wave`` (exchanges
+   launched by autograd hooks inside backprop) or ``async1`` (the
+   previous step's exchange launched before the forward), and ``slgs``
+   (kernel backend: one global top-k over the 1,100,048,384-element
+   whole-model vector) off and in its one wave.  Step 0 runs under
+   deterministic algorithms: step 0's exchanged mean and EF residual of
+   ``lags_dp`` and ``slgs`` must equal the simulation path's (P = 1) bit
+   for bit, every kernel launch of that exchange (for ``slgs`` the
+   268,567-row block view of the whole-model vector) must equal its
+   plain version on the same inputs bit for bit, step 0's parameters and residuals of each ``wave``
+   configuration must equal its ``off`` twin's, and the losses of each
+   ``async1`` configuration must be ``[L0, L0, L1]`` of its twin's
+   ``[L0, L1, ...]``.  Each step prints its time, peak memory and kernel
+   launches, and each ``wave`` step how long before the end of backward
+   each wave launched; ``ef_select_pack`` (and for ``slgs``
+   ``ef_block_candidates``) must launch.
 7. Print the kernels' JSON line, the card line and the result line.
 
     python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
@@ -54,6 +68,7 @@ profiled step per configuration (``chiprun_out/profile_*.txt``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -242,13 +257,16 @@ def timings(dev, cfg, p: int) -> dict:
         ms = cuda_ms(kern, 10)
         plain_ms = cuda_ms(plain, 3)
         library_ms = cuda_ms(lambda: torch.topk(mag, k, dim=1), 3)
+        err = assert_bitwise(f"{name} rows {n}x{bs} k={k}", kern(), plain())
         b_ms, b_by = bound(nbytes, k * n * bs)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms,
-                     "shape": [n, bs], "k": k, "bytes": nbytes}
+                     "shape": [n, bs], "k": k, "bytes": nbytes,
+                     "max_abs_err": err}
         print(f"time {name}: rows {n}x{bs} k={k}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the bound")
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the bound; "
+              f"outputs bitwise equal to the plain version's")
     # ef_accum_sparsify on the same elements as one flat vector, the
     # threshold at ratio 1000 from the hierarchical top-k of the same acc
     from repro_torch.kernels import ops
@@ -523,64 +541,104 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+#: the distributed phase's configurations, in run order: each pipelined
+#: one comes after its "off" twin (``TWINS``), which it is held to
+DIST_CONFIGS = {
+    "dense": dict(mode="dense"),
+    "dense/wave": dict(mode="dense", pipeline="wave"),
+    "lags_dp/kernel": dict(mode="lags_dp", selection_backend="kernel"),
+    "lags_dp/kernel/wave": dict(mode="lags_dp", selection_backend="kernel",
+                                pipeline="wave"),
+    "lags_dp/kernel/async1": dict(mode="lags_dp", selection_backend="kernel",
+                                  pipeline="async1"),
+    "lags_dp/kernel/mc0.9": dict(mode="lags_dp", selection_backend="kernel",
+                                 momentum_correction=0.9),
+    "lags_dp/kernel/async1/mc0.9": dict(
+        mode="lags_dp", selection_backend="kernel", pipeline="async1",
+        momentum_correction=0.9),
+    "slgs/kernel": dict(mode="slgs", selection_backend="kernel"),
+    "slgs/kernel/wave": dict(mode="slgs", selection_backend="kernel",
+                             pipeline="wave"),
+}
+TWINS = {"dense/wave": "dense", "lags_dp/kernel/wave": "lags_dp/kernel",
+         "lags_dp/kernel/async1": "lags_dp/kernel",
+         "lags_dp/kernel/async1/mc0.9": "lags_dp/kernel/mc0.9",
+         "slgs/kernel/wave": "slgs/kernel"}
+# kernels each distributed configuration must launch, by mode
+DIST_EXPECTED = {"dense": (), "lags_dp": ("ef_select_pack",),
+                 "slgs": ("ef_block_candidates", "ef_select_pack")}
+
+
 def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                 rank: int = 0, init_method: str | None = None
-                ) -> tuple[dict, dict]:
+                ) -> tuple[dict, dict, dict]:
     """The data-parallel surface on ``world`` NCCL ranks (this process is
-    ``rank``; one sequence per rank): ``steps`` steps each of dense,
-    lags_dp (kernel backend) and lags_dp with momentum correction.  One
-    rank: step 0 of lags_dp is held against the simulation path.
-    Several: after every step each rank's parameters must equal rank
-    0's bit for bit.  Returns (launch counts summed over the run,
-    per-step rows)."""
+    ``rank``; one sequence per rank, the same global batch every step):
+    ``steps`` steps of each configuration of ``DIST_CONFIGS``.  One rank:
+    step 0 of every configuration runs under deterministic algorithms;
+    step 0 of lags_dp and slgs is held against the simulation path, step
+    0's parameters and residuals of each ``wave`` configuration against
+    its ``off`` twin bit for bit, and each ``async1`` configuration's
+    losses against ``[L0, L0, L1]`` of its twin.  Several ranks: after
+    every step each rank's parameters must equal rank 0's bit for bit.
+    Returns (launch counts summed over the run, per-step rows, each
+    kernel's largest absolute error against its plain version in the
+    step-0 checks)."""
     import torch
     import torch.distributed as dist
     from repro_torch import api, kernels, tree
     from repro_torch.data import synthetic
     from repro_torch.launch import mesh as M
+    from repro_torch.pipeline import step as WS
 
-    configs = {
-        "dense": api.RunConfig(mode="dense", lr=0.01),
-        "lags_dp/kernel": api.RunConfig(mode="lags_dp", lr=0.01,
-                                        selection_backend="kernel"),
-        "lags_dp/kernel/mc0.9": api.RunConfig(
-            mode="lags_dp", lr=0.01, selection_backend="kernel",
-            momentum_correction=0.9),
-    }
     data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
-    batches = [data.batch(t, world, seq, device=dev) for t in range(steps)]
+    batch = data.batch(0, world, seq, device=dev)
     M.init_process_group(init_method or f"tcp://localhost:{free_port()}",
                          world, rank, device=dev.type)
     totals = dict.fromkeys(kernels.WRAPPERS, 0)
-    results = {}
+    results, twins, errs = {}, {}, {}
     try:
         mesh = M.make_mesh(device=dev.type)
-        for label, run in configs.items():
+        for label, kw in DIST_CONFIGS.items():
+            run = api.RunConfig(lr=0.01, **kw)
             sess = api.Session(cfg, run, mesh=mesh)
             step_fn = sess.step_fn
             state, _ = sess.init_state(seed=0)
+            waves = sess.meta["waves"]
+            if waves is not None and rank == 0:
+                for i, w in enumerate(waves.waves):
+                    print(f"distributed {label} wave {i}: {len(w.leaf_ids)} "
+                          f"leaves {list(w.names)}")
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             counts = dict.fromkeys(kernels.WRAPPERS, 0)
-            rows = []
+            rows, losses = [], []
             for t in range(steps):
-                check = world == 1 and t == 0 and label == "lags_dp/kernel"
-                if check:
+                det = world == 1 and t == 0
+                if det:
                     p0 = [x.detach().clone()
                           for x in tree.leaves(state["params"])]
                     torch.use_deterministic_algorithms(True)
                 kernels.reset_launch_counts()
                 torch.cuda.reset_peak_memory_stats()
+                marks = [] if run.pipeline == "wave" else None
                 t0 = time.perf_counter()
-                state, metrics = step_fn(state, batches[t])
+                state, metrics = step_fn(state, batch, marks=marks)
                 loss = float(metrics["loss"])                # device sync
                 step_s = time.perf_counter() - t0
-                for k, v in kernels.launch_counts().items():
+                step_counts = kernels.launch_counts()
+                for k, v in step_counts.items():
                     counts[k] += v
                 mem = torch.cuda.max_memory_allocated()
-                if check:   # its comparison launches are not counted
+                losses.append(loss)
+                leads = None if marks is None else WS.launch_leads(marks)
+                if det:    # its comparison launches are not counted
                     try:
-                        check_step0(sess, state, p0, batches[0])
+                        if run.mode != "dense" and run.pipeline == "off":
+                            for k, v in check_step0(sess, state, p0,
+                                                    batch).items():
+                                errs[k] = max(errs.get(k, 0.0), v)
+                        held(label, state, twins)
                     finally:
                         torch.use_deterministic_algorithms(False)
                     del p0
@@ -588,28 +646,74 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                     check_replicas(state["params"], f"{label} step {t}")
                 rows.append({"step": t, "loss": loss, "step_s": step_s,
                              "max_memory_allocated": mem,
-                             "deterministic": check})
+                             "launches": step_counts, "wave_leads": leads,
+                             "deterministic": det})
                 who = f" rank {rank}/{world}" if world > 1 else ""
                 print(f"distributed {label}{who} step {t}: loss {loss:.6f} "
                       f"step_s {step_s:.4f} max_memory_allocated "
-                      f"{mem / 2**30:.3f} GiB launches {counts}"
-                      + (" (deterministic algorithms)" if check else "")
+                      f"{mem / 2**30:.3f} GiB launches {step_counts}"
+                      + (" (deterministic algorithms)" if det else "")
                       + (", parameters equal on every rank"
                          if world > 1 else ""))
+                if leads is not None:
+                    print(f"distributed {label}{who} step {t}: launch lead "
+                          f"before the end of backward, per wave (host ms "
+                          f"/ device ms): " + ", ".join(
+                              f"w{x['wave']} {x['host_ms']:.3f}/"
+                              f"{x['device_ms'] or 0.0:.3f}" for x in leads))
                 if not math.isfinite(loss):
                     raise AssertionError(f"distributed {label} step {t}: "
                                          f"loss {loss}")
-            if run.mode == "lags_dp" and counts["ef_select_pack"] == 0:
-                raise AssertionError(f"distributed {label}: ef_select_pack "
-                                     f"never launched")
+            if world == 1 and "async1" in label:
+                want = twins[TWINS[label]]["losses"]
+                if losses[:3] != [want[0], want[0], want[1]]:
+                    raise AssertionError(
+                        f"{label}: losses {losses} are not [L0, L0, L1] of "
+                        f"{TWINS[label]}'s {want}")
+                print(f"distributed {label}: losses {losses[:3]} == [L0, "
+                      f"L0, L1] of {TWINS[label]} ({want[:2]}), exactly")
+            if world == 1 and label not in TWINS:
+                twins.setdefault(label, {})["losses"] = losses
+            for k in DIST_EXPECTED[run.mode]:
+                if counts[k] == 0:
+                    raise AssertionError(f"distributed {label}: {k} never "
+                                         f"launched")
             for k, v in counts.items():
                 totals[k] += v
-            results[label] = {"steps": rows, "launches": counts}
+            results[label] = {"steps": rows, "launches": counts,
+                              "n_waves": None if waves is None
+                              else waves.n_waves}
             del state, step_fn, sess
             torch.cuda.empty_cache()
     finally:
+        torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
-    return totals, results
+    return totals, results, errs
+
+
+def held(label: str, state, twins: dict) -> None:
+    """Step 0 of an ``off`` configuration with a ``wave`` twin: keep its
+    parameters and residuals on the host.  Step 0 of a ``wave``
+    configuration: they must equal its twin's, bit for bit."""
+    from repro_torch import tree
+    parts = tree.leaves(state["params"]) + tree.leaves(state["ef"])
+    wave_twins = {v for k, v in TWINS.items() if k.endswith("/wave")}
+    if label in wave_twins:
+        twins.setdefault(label, {})["step0"] = [
+            x.detach().to("cpu", copy=True) for x in parts]
+        return
+    if not label.endswith("/wave"):
+        return
+    twin = TWINS[label]
+    want = twins[twin].pop("step0")
+    if len(want) != len(parts):
+        raise AssertionError(f"{label}: {len(parts)} leaves, {twin} has "
+                             f"{len(want)}")
+    for i, (got, ref0) in enumerate(zip(parts, want)):
+        assert_bitwise(f"{label} step 0 leaf {i} vs {twin}",
+                       (got.detach().cpu(),), (ref0,))
+    print(f"distributed {label} step 0: parameters and residuals == "
+          f"{twin}'s, bitwise ({len(parts)} leaves)")
 
 
 def check_replicas(params, what: str) -> None:
@@ -636,17 +740,66 @@ def check_replicas(params, what: str) -> None:
                              f"({int(flag)} leaf copies)")
 
 
-def check_step0(sess, state, p0, batch) -> None:
-    """Step 0 of the distributed lags_dp step against the simulation
-    path, bit for bit: the gradient is taken again at the step's starting
-    parameters (deterministic algorithms make it the step's own), the
-    distributed exchange and ``BlockLAGSExchange``'s simulation path
-    (P = 1) run on the same updates; their means and residuals must be
-    equal, the residual must be the step's, and the step's parameters
-    must be ``p0 - mean``."""
+@contextlib.contextmanager
+def held_to_plain(errs: dict, shapes: dict, chunk_rows: int = 1 << 15):
+    """Inside the block, every ``ef_select_pack`` and
+    ``ef_block_candidates`` launch is held against its plain version on
+    the same inputs, bit for bit: the plain version runs chunk by chunk
+    of ``chunk_rows`` rows (rows are independent; a gate with one
+    threshold per row group runs whole), so the check fits beside the
+    step at its full shapes.  ``errs`` takes each kernel's largest
+    absolute error, ``shapes`` the row shapes it was launched at."""
+    import types
+
+    import torch
+    from repro_torch.kernels import ef_sparsify, ops, ref
+    kernel = {"ef_select_pack": ef_sparsify.ef_select_pack,
+              "ef_block_candidates": ef_sparsify.ef_block_candidates}
+    plain = {"ef_select_pack": ref.ef_select_pack_ref,
+             "ef_block_candidates": ref.ef_block_candidates_ref}
+
+    def checked(name):
+        def call(g_rows, e_rows, lr, *rest):
+            out = kernel[name](g_rows, e_rows, lr, *rest)
+            n, bs = g_rows.shape
+            thr = rest[0] if name == "ef_select_pack" else None
+            whole = thr is not None and torch.as_tensor(thr).numel() > 1
+            step = n if whole else chunk_rows
+            for lo in range(0, n, step):
+                hi = min(n, lo + step)
+                errs[name] = max(errs.get(name, 0.0), assert_bitwise(
+                    f"{name} rows {n}x{bs} [{lo}:{hi}]",
+                    tuple(o[lo:hi] for o in out),
+                    plain[name](g_rows[lo:hi], e_rows[lo:hi], lr, *rest)))
+            shapes.setdefault(name, set()).add((n, bs))
+            return out
+        return call
+
+    # the exchanges reach the kernels through ``ops``; the wrappers
+    # themselves (and their launch counts) stay as they are
+    ops._ef = types.SimpleNamespace(**{
+        **vars(ef_sparsify), **{name: checked(name) for name in kernel}})
+    try:
+        yield
+    finally:
+        ops._ef = ef_sparsify
+
+
+def check_step0(sess, state, p0, batch) -> dict:
+    """Step 0 of the distributed lags_dp or slgs step against the
+    simulation path, bit for bit: the gradient is taken again at the
+    step's starting parameters (deterministic algorithms make it the
+    step's own), the distributed exchange and the same exchange's
+    simulation path (P = 1) run on the same updates; their means and
+    residuals must be equal, the residual must be the step's, and the
+    step's parameters must be ``p0 - mean``.  Every kernel launch of the
+    distributed exchange (the step's own inputs and shapes: 268,567 rows
+    of the whole-model vector for slgs) is held against its plain
+    version too (``held_to_plain``).  Returns each kernel's largest
+    absolute error there."""
     import torch
     from repro_torch import tree
-    from repro_torch.core import lags
+    from repro_torch.api import registry as R
     from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
     run, meta = sess.run_config, sess.meta
@@ -660,20 +813,28 @@ def check_step0(sess, state, p0, batch) -> None:
         lr = torch.full((), run.lr, device=p0[0].device)
         u = [g.float().mul_(lr) for g in grads]
         del grads
+        ex = R.build_exchange(R.ExchangeSpec(
+            mode=meta["mode"], params_like=state["params"],
+            ratio=run.resolved_ratio(sess.cfg), block_size=run.block_size,
+            compressor=run.compressor,
+            selection_backend=run.selection_backend, sim=False))
         zeros = [torch.zeros_like(x) for x in u]
-        dist_ex = lags.BlockLAGSExchange(ks=meta["ks"],
-                                         block_size=run.block_size,
-                                         use_kernel=True)
         axes = M.worker_axes(sess.mesh, meta["manual"])
-        m_d, e_d = dist_ex.exchange(tree.unflatten(treedef, u),
-                                    tree.unflatten(treedef, zeros), axes)
+        errs, shapes = {}, {}
+        with held_to_plain(errs, shapes):
+            m_d, e_d = ex.exchange(tree.unflatten(treedef, u),
+                                   tree.unflatten(treedef, zeros), axes)
         del zeros
-        m_s, e_s = dist_ex.exchange(
+        if not errs:
+            raise AssertionError(f"step 0 of {meta['mode']}: no kernel "
+                                 f"launched in the exchange")
+        m_s, e_s = ex.exchange(
             tree.unflatten(treedef, [x[None] for x in u]),
             tree.unflatten(treedef, [torch.zeros((1,) + x.shape,
                                                  device=x.device)
                                      for x in u]), None)
         del u
+        nonzero = 0
         for path, md, ms, ed, es, ef, p_start, p_new in zip(
                 tree.leaf_paths(m_d), tree.leaves(m_d), tree.leaves(m_s),
                 tree.leaves(e_d), tree.leaves(e_s), tree.leaves(state["ef"]),
@@ -684,9 +845,24 @@ def check_step0(sess, state, p0, batch) -> None:
                            (es,))
             assert_bitwise(f"step 0 {path} parameters vs p0 - mean",
                            (p_new,), ((p_start.float() - md).to(p_new.dtype),))
-    print("distributed lags_dp step 0: exchanged mean and EF residual == "
-          "BlockLAGSExchange simulation path (P = 1), bitwise; the step's "
-          "residual and parameters agree")
+            nonzero += int((md != 0).sum())
+    what = (f"{type(ex).__name__} simulation path (P = 1), bitwise; the "
+            f"step's residual and parameters agree; {nonzero} nonzero "
+            f"entries in the mean")
+    if meta["mode"] == "slgs":
+        d = sum(x.numel() for x in p0)
+        n_blocks = -(-d // run.block_size)
+        what += (f" of d = {d}: k_total = {ex.k_total}, {n_blocks} blocks x "
+                 f"r = 4 = {4 * n_blocks} candidates, the k-th clamped to "
+                 f"the last (every candidate passes the gate)"
+                 if 4 * n_blocks < ex.k_total else
+                 f" of d = {d}: k_total = {ex.k_total}")
+    print(f"distributed {meta['mode']} step 0: exchanged mean and EF "
+          f"residual == {what}")
+    print(f"distributed {meta['mode']} step 0: every kernel launch of the "
+          f"exchange == its plain version on the same inputs, bitwise; row "
+          f"shapes {dict((k, sorted(v)) for k, v in shapes.items())}")
+    return errs
 
 
 def main(argv=None) -> int:
@@ -755,9 +931,12 @@ def main(argv=None) -> int:
         totals[k] += v
     errs["ef_accum_sparsify"] = max(
         errs["ef_accum_sparsify"], path_err,
-        times["ef_accum_sparsify"]["max_abs_err"],
         times["ef_accum_sparsify_bf16"]["max_abs_err"])
-    dist_totals, dist_results = distributed(dev, cfg, seq, steps)
+    for name in REPLACES:
+        errs[name] = max(errs[name], times[name]["max_abs_err"])
+    dist_totals, dist_results, dist_errs = distributed(dev, cfg, seq, steps)
+    for name, err in dist_errs.items():
+        errs[name] = max(errs[name], err)
     for k, v in dist_totals.items():
         totals[k] += v
 
@@ -811,7 +990,7 @@ def ranks_main(world: int) -> int:
                     stderr=subprocess.STDOUT, text=True))
         # a rank that fails leaves the others waiting in a collective:
         # stop them all then, or at the deadline
-        deadline = time.monotonic() + 300
+        deadline = time.monotonic() + 600
         while time.monotonic() < deadline:
             codes = [p.poll() for p in procs]
             if all(c is not None for c in codes) or any(codes):
@@ -840,8 +1019,8 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
     import torch
     torch.cuda.set_device(args.rank)
     dev = torch.device("cuda", args.rank)
-    totals, results = distributed(dev, cfg, seq, steps, world=args.ranks,
-                                  rank=args.rank, init_method=args.init)
+    totals, results, _ = distributed(dev, cfg, seq, steps, world=args.ranks,
+                                     rank=args.rank, init_method=args.init)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"chip_smoke_rank{args.rank}.json").write_text(json.dumps(

@@ -44,9 +44,18 @@ class RunConfig:
     # DGC momentum correction: the velocity accumulates BEFORE
     # sparsification (ExchangeSpec.init_extra_state, per-worker "mom")
     momentum_correction: float = 0.0
-    # exchange pipelining: only "off" is ported
+    # exchange pipelining (repro_torch.pipeline): "off" = monolithic
+    # post-backward exchange; "wave" = per-wave exchange launched inside
+    # backprop (bitwise equal to "off"); "async1" = step-N exchange
+    # launched before step N+1's forward (one step of bounded staleness).
+    # The distributed step runs them; SimTrainer, like the reference's,
+    # always runs the monolithic exchange.
     pipeline: str = "off"
+    # optional repro_torch.pipeline.WaveSchedule (names are re-bound at
+    # build time); None = the geometry-default wave partition
     waves: Any = None
+    # wave payload target in bytes; None = pipeline.waves'
+    # DEFAULT_TARGET_BYTES
     wave_target_bytes: int | None = None
     # compute shape
     chunk: int = 1024
@@ -85,9 +94,6 @@ class RunConfig:
             out.append("schedule (ROADMAP.md queue 1 item 10)")
         if self.measure_delta:
             out.append("measure_delta (ROADMAP.md queue 1 item 10)")
-        if self.pipeline != "off":
-            out.append(f"pipeline={self.pipeline!r} (ROADMAP.md queue 1 "
-                       f"item 11)")
         if self.health_every > 0:
             out.append("health_every > 0 (ROADMAP.md queue 1 item 12)")
         return out

@@ -1,15 +1,15 @@
-"""String -> factory registry for exchange strategies, as
-``repro.api.registry`` has it.
+"""String -> strategy registry for exchanges, as ``repro.api.registry``
+has it.
 
     @register_exchange("my_exchange")
     def _build(spec: ExchangeSpec):
         return MyExchange(ks=spec.ks, ...)
 
-``dense`` and ``lags_dp`` build on both surfaces: the simulation surface
-(``sim=True``) and the distributed data-parallel step (``sim=False``,
-where ``lags_dp`` runs ``BlockLAGSExchange``).  The reference's other
-modes are registered and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+``dense``, ``lags_dp`` and ``slgs`` build on both surfaces: the
+simulation surface (``sim=True``) and the distributed data-parallel step
+(``sim=False``, where ``lags_dp`` runs ``BlockLAGSExchange``).  The
+reference's hierarchical modes are registered and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -84,19 +84,36 @@ def _sel_kwargs(name: str, spec: ExchangeSpec) -> tuple:
     return ()
 
 
-_EXCHANGES: dict[str, Callable[[ExchangeSpec], Any]] = {}
+@dataclasses.dataclass(frozen=True)
+class ExchangeStrategy:
+    """A registered strategy: its factory and its EF-state layout.
+
+    ``ef_tiers``: ``()`` = one residual tree; a non-empty tuple of tier
+    names means the exchange's state is ``{tier: residual_tree}`` (the
+    reference's two-tier ``lags_hier2``), which the pipeline's state
+    plumbing (``pipeline.step.flatten_state``) must be told about.  Every
+    ported strategy runs manual over the data axis, so the reference's
+    ``axes`` plan has no counterpart here."""
+    name: str
+    factory: Callable[[ExchangeSpec], Any]
+    ef_tiers: tuple = ()
 
 
-def register_exchange(name: str):
+_EXCHANGES: dict[str, ExchangeStrategy] = {}
+
+
+def register_exchange(name: str, *, ef_tiers: tuple = ()):
     """Decorator: register ``factory(spec) -> exchange`` under ``name``."""
     def deco(factory):
-        _EXCHANGES[name] = factory
+        _EXCHANGES[name] = ExchangeStrategy(name=name, factory=factory,
+                                            ef_tiers=tuple(ef_tiers))
         return factory
     return deco
 
 
-def get_exchange(name: str) -> Callable[[ExchangeSpec], Any]:
-    """The factory registered under ``name`` (legacy spellings accepted)."""
+def get_exchange(name: str) -> ExchangeStrategy:
+    """The strategy registered under ``name`` (legacy spellings
+    accepted)."""
     key = canonical_mode(name)
     if key not in _EXCHANGES:
         raise KeyError(f"unknown exchange strategy {name!r}; registered: "
@@ -109,13 +126,25 @@ def exchange_names() -> list[str]:
 
 
 def build_exchange(spec: ExchangeSpec):
-    return get_exchange(spec.mode)(spec)
+    return get_exchange(spec.mode).factory(spec)
 
 
 @register_exchange("dense")
 def _dense_factory(spec: ExchangeSpec):
     """Vanilla S-SGD baseline: dense mean over workers."""
     return lags.DenseExchange()
+
+
+@register_exchange("slgs")
+def _slgs_factory(spec: ExchangeSpec):
+    """Single-layer (whole-model-vector) global top-k baseline:
+    ``k_total = round(d_total / ratio)`` on both surfaces."""
+    d_total = sum(lags._size(x) for x in tree.leaves(spec.params_like))
+    name = spec.resolved_compressor()
+    C.get_compressor(name)          # an unported compressor raises here
+    return lags.SLGSExchange(
+        k_total=max(1, int(round(d_total / spec.ratio))),
+        compressor_name=name, compressor_kwargs=_sel_kwargs(name, spec))
 
 
 @register_exchange("lags_dp")
@@ -147,14 +176,13 @@ def _lags_factory(spec: ExchangeSpec):
         use_kernel=(spec.selection_backend == "kernel"))
 
 
-def _unported(mode: str, item: str):
+def _unported(mode: str, item: str, ef_tiers: tuple = ()):
     def factory(spec):
         raise NotImplementedError(
             f"exchange mode {mode!r} is not ported yet (ROADMAP.md "
             f"queue 1 item {item})")
-    register_exchange(mode)(factory)
+    register_exchange(mode, ef_tiers=ef_tiers)(factory)
 
 
-_unported("slgs", "8: slgs")
 _unported("lags_hier", "9: the hierarchy")
-_unported("lags_hier2", "9: the hierarchy")
+_unported("lags_hier2", "9: the hierarchy", ef_tiers=("inner", "outer"))

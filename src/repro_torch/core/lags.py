@@ -1,14 +1,25 @@
 """LAGS-SGD — layer-wise adaptive gradient sparsification (Algorithm 1).
 
 ``DenseExchange`` (Dense-SGD baseline), ``LAGSExchange`` (the paper:
-per-layer top-k with per-layer error feedback) and ``BlockLAGSExchange``
-(the same with a per-block budget: the production distributed path)
-share the bucket-stream interface of ``repro.core.lags``:
+per-layer top-k with per-layer error feedback), ``BlockLAGSExchange``
+(the same with a per-block budget: the production distributed path) and
+``SLGSExchange`` (the single-layer baseline: one global top-k over the
+whole-model vector) share the bucket-stream interface of
+``repro.core.lags``:
 
     init(updates_like)                     -> state (residual tree)
     exchange(updates, state, axis_names)   -> (mean_update, new_state)
     exchange_bucket(wave, updates, state, axis_names)
                                            -> (means, new_state)
+    launch_bucket(wave, updates, state, axis_names) -> Launched
+    Launched.finish()                      -> (means, new_state)
+
+``exchange_bucket`` is ``launch_bucket`` followed by ``finish``: launch
+selects and packs, then starts the wave's collectives with
+``async_op=True``; finish waits on them and scatter-means.  The split
+lets ``repro_torch.pipeline`` start a wave's exchange inside backprop
+and wait only after it, so the compute stream never queues behind a
+collective.
 
 ``updates`` are learning-rate-scaled gradients.  ``axis_names=None``
 selects the simulation surface: leaves carry a leading P axis (one row
@@ -21,17 +32,17 @@ surface the P workers of a leaf select in one call (one kernel launch,
 P·n_blocks rows): rows are independent, so this equals the reference's
 per-worker ``vmap``.
 
-``DenseExchange`` and ``BlockLAGSExchange`` serve both surfaces;
-``LAGSExchange`` serves the simulation surface (as in the reference,
-where the distributed ``lags_dp`` step builds ``BlockLAGSExchange``).
-Not ported yet: ``SLGSExchange`` (ROADMAP.md queue 1 item 8), the
-hierarchical exchanges (item 9) and tensor parallelism (item 7's tail).
+``DenseExchange``, ``BlockLAGSExchange`` and ``SLGSExchange`` serve both
+surfaces; ``LAGSExchange`` serves the simulation surface (as in the
+reference, where the distributed ``lags_dp`` step builds
+``BlockLAGSExchange``).  Not ported yet: the hierarchical exchanges
+(ROADMAP.md queue 1 item 9) and tensor parallelism (item 7's tail).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -111,22 +122,62 @@ class Axes:
         return dist.get_world_size(self.group)
 
 
-def all_gather(x: torch.Tensor, axes: Axes) -> torch.Tensor:
-    """Every worker's ``x`` (at least 1-D) stacked in rank order: (P,
-    ...).  Gathers into the concatenated (P·n, ...) form and views it,
-    because gloo rejects a stacked output for ``all_gather_into_tensor``."""
-    x = x.contiguous()
+class Launched:
+    """An exchange whose collectives may still be in flight.
+
+    ``finish()`` waits on every work handle (on CUDA: makes the current
+    stream wait for the collective), then returns ``(means,
+    new_state)``; it runs once.  ``keep`` holds the collectives' input
+    tensors until then.
+
+    Rule for every ``launch_bucket``: it has read its ``updates`` (and
+    its ``state``) by the time it returns — copied them, packed them, or
+    enqueued the kernel that reads them on the current stream — and no
+    collective or ``finish`` reads them later.  The caller may write to
+    them once launch returns: under ``pipeline="async1"`` with momentum
+    correction the launched pending updates ARE the velocity tensors,
+    which the same step's velocity update then changes in place."""
+
+    def __init__(self, works: Sequence, finish: Callable[[], tuple],
+                 keep: tuple = ()):
+        self._works, self._finish, self._keep = list(works), finish, keep
+
+    def finish(self) -> tuple:
+        if self._finish is None:
+            raise RuntimeError("this exchange was already finished")
+        for work in self._works:
+            work.wait()
+        out, self._finish = self._finish(), None
+        self._works, self._keep = [], ()
+        return out
+
+
+def _done(means, state) -> Launched:
+    """A launch with nothing in flight (the simulation surface)."""
+    return Launched((), lambda: (means, state))
+
+
+def _all_gather_start(x: torch.Tensor, axes: Axes):
+    """Start gathering every worker's ``x`` (at least 1-D, contiguous) in
+    rank order; returns ((P, ...) output, work).  Gathers into the
+    concatenated (P·n, ...) form and views it, because gloo rejects a
+    stacked output for ``all_gather_into_tensor``."""
     out = torch.empty((axes.size * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=axes.group)
-    return out.reshape((axes.size,) + tuple(x.shape))
+    work = dist.all_gather_into_tensor(out, x, group=axes.group,
+                                       async_op=True)
+    return out.reshape((axes.size,) + tuple(x.shape)), work
 
 
-def _psum_mean(x: torch.Tensor, axes: Axes) -> torch.Tensor:
-    """All-reduce SUM over the worker axes, / P (a new tensor)."""
-    s = x.clone()
-    dist.all_reduce(s, op=dist.ReduceOp.SUM, group=axes.group)
-    return s.div_(axes.size)
+def _gather_picks_start(vals, idx, axes: Axes):
+    """Start the all-gathers of this worker's sparse picks (values and
+    indices, the reference's ``_sparse_mean_over``).  Returns (works,
+    the gathered inputs to keep alive, every worker's values (P, ...),
+    every worker's indices (P, ...))."""
+    vals, idx = vals.contiguous(), idx.contiguous()
+    vals_all, w_vals = _all_gather_start(vals, axes)
+    idx_all, w_idx = _all_gather_start(idx, axes)
+    return [w_vals, w_idx], (vals, idx), vals_all, idx_all
 
 
 def _wave_ids(wave) -> tuple[int, ...]:
@@ -152,11 +203,22 @@ class DenseExchange:
     def init(self, updates_like):
         return ()
 
+    def launch_bucket(self, wave, updates, state,
+                      axis_names: Axes | None, *, key=None) -> Launched:
+        """Distributed: one all-reduce SUM per leaf, started on a copy of
+        the update; finish divides by P in place."""
+        if axis_names is None:
+            return _done([u.mean(0) for u in updates], state)
+        sums = [u.clone() for u in updates]
+        works = [dist.all_reduce(s, op=dist.ReduceOp.SUM,
+                                 group=axis_names.group, async_op=True)
+                 for s in sums]
+        p = axis_names.size
+        return Launched(works, lambda: ([s.div_(p) for s in sums], state))
+
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
-        if axis_names is None:
-            return [u.mean(0) for u in updates], state
-        return [_psum_mean(u, axis_names) for u in updates], state
+        return self.launch_bucket(wave, updates, state, axis_names).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):
@@ -189,6 +251,11 @@ class LAGSExchange:
             tuple(s.shape), dtype=self.residual_dtype, device=s.device),
             updates_like)
 
+    def launch_bucket(self, wave, updates, state,
+                      axis_names: Axes | None, *, key=None) -> Launched:
+        return _done(*self.exchange_bucket(wave, updates, state,
+                                           axis_names))
+
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
         """One wave: flat lists of the wave's leaves, global-id keyed."""
@@ -204,6 +271,99 @@ class LAGSExchange:
             means.append(mean.reshape(u.shape[1:]))
             resids.append(resid)
         return means, resids
+
+    def exchange(self, updates, state, axis_names: Axes | None,
+                 *, key=None):
+        flat_u, treedef = tree.flatten(updates)
+        means, resids = self.exchange_bucket(
+            tuple(range(len(flat_u))), flat_u, tree.leaves(state),
+            axis_names)
+        return tree.unflatten(treedef, means), tree.unflatten(treedef,
+                                                              resids)
+
+
+def _split(vec: torch.Tensor, shapes, dtypes=None) -> list:
+    """Cut the last axis of ``vec`` ((..., d)) into consecutive pieces of
+    the given shapes (each (...,) + shape's trailing size), as views
+    where the layout allows; ``dtypes`` casts each piece."""
+    out, off = [], 0
+    lead = tuple(vec.shape[:-1])
+    for j, shape in enumerate(shapes):
+        n = int(math.prod(shape[len(lead):]))
+        piece = vec[..., off:off + n].reshape(shape)
+        out.append(piece if dtypes is None else piece.to(dtypes[j]))
+        off += n
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SLGSExchange:
+    """Single-layer gradient sparsification baseline: one global top-k
+    over the concatenation of ALL leaves (``k_total``), selected only
+    after the entire backward pass (``repro.core.lags.SLGSExchange``).
+
+    The updates and the residuals are concatenated separately (the
+    accumulate commutes with the concatenation), so a fused compressor
+    runs accumulate + select in one pass over the whole-model vector;
+    the mean and the residual are split back per leaf."""
+    k_total: int
+    compressor_name: str = "topk_exact"
+    residual_dtype: torch.dtype = torch.float32
+    name: str = "slgs"
+    compressor_kwargs: tuple = ()
+    # global top-k over the whole-model vector: the selection is only
+    # defined once every leaf's gradient exists, so the pipeline must
+    # schedule exactly one wave
+    wave_granularity = "model"
+
+    @property
+    def compressor(self) -> C.Compressor:
+        return C.get_compressor(self.compressor_name)
+
+    def init(self, updates_like):
+        return tree.map(lambda s: torch.zeros(
+            tuple(s.shape), dtype=self.residual_dtype, device=s.device),
+            updates_like)
+
+    def launch_bucket(self, wave, updates, state,
+                      axis_names: Axes | None, *, key=None) -> Launched:
+        """The one wave of every leaf, in flatten order: select over the
+        whole-model vector, then start the gather of the picks."""
+        ids = _wave_ids(wave)
+        if ids != tuple(range(len(ids))):
+            raise ValueError(
+                "slgs selects over the whole-model vector: its single wave "
+                "must cover every leaf in flatten order "
+                f"(wave_granularity='model'), got leaf_ids={ids}")
+        sim = axis_names is None
+        w = updates[0].shape[0] if sim else 1
+        mean_shapes = [tuple(u.shape[1:] if sim else u.shape)
+                       for u in updates]
+        dtypes = [u.dtype for u in updates]
+        e_shapes = [tuple(e.shape) for e in state]
+        u_vec = torch.cat([u.reshape(w, -1) for u in updates], dim=1)
+        e_vec = torch.cat([e.reshape(w, -1).float() for e in state], dim=1)
+        d = u_vec.shape[1]
+        vals, idx, resid_vec = local_select_ef(
+            u_vec, e_vec, self.k_total, self.compressor,
+            **dict(self.compressor_kwargs))
+        del u_vec, e_vec
+        resids = _split(resid_vec if sim else resid_vec[0], e_shapes)
+        if sim:
+            mean = _gathered_scatter_mean(vals, idx, d, w)
+            return _done(_split(mean, mean_shapes, dtypes), resids)
+        works, keep, vals_all, idx_all = _gather_picks_start(
+            vals[0], idx[0], axis_names)
+        p = axis_names.size
+
+        def finish():
+            mean = _gathered_scatter_mean(vals_all, idx_all, d, p)
+            return _split(mean, mean_shapes, dtypes), resids
+        return Launched(works, finish, keep)
+
+    def exchange_bucket(self, wave, updates, state,
+                        axis_names: Axes | None, *, key=None):
+        return self.launch_bucket(wave, updates, state, axis_names).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):
@@ -298,7 +458,9 @@ class BlockLAGSExchange:
         return (vals.reshape(w, n_blocks, k_b),
                 local.reshape(w, n_blocks, k_b), resid.reshape(w, -1))
 
-    def _leaf(self, u, e, k: int, axis_names: Axes | None):
+    def _launch_leaf(self, u, e, k: int, axis_names: Axes | None):
+        """Select and pack one leaf, then start its gather.  Returns
+        (works, kept inputs, finish -> mean, residual)."""
         sim = axis_names is None
         param_shape = tuple(u.shape[1:] if sim else u.shape)
         size = int(math.prod(param_shape))
@@ -306,26 +468,45 @@ class BlockLAGSExchange:
         w = u.shape[0] if sim else 1
         vals, local, resid_rows = self._local_rows(
             u.reshape(w, size), e.reshape(w, size), n_blocks, bs, k_b)
-        resid = resid_rows[:, :size]
+        resid = resid_rows[:, :size].reshape(e.shape)
+        dtype = u.dtype
+
+        def mean_of(vals_all, local_all, p):
+            mean = _row_scatter_mean(vals_all, local_all, n_blocks, bs,
+                                     p)[:size]
+            return mean.reshape(param_shape).to(dtype)
+
         if sim:
-            p = w
-        else:
-            # layer-wise sparse all-gather: 2·k_b scalars per block
-            p = axis_names.size
-            vals, local = all_gather(vals[0], axis_names), \
-                all_gather(local[0], axis_names)
-        mean = _row_scatter_mean(vals, local, n_blocks, bs, p)[:size]
-        return mean.reshape(param_shape).to(u.dtype), resid.reshape(e.shape)
+            mean = mean_of(vals, local, w)
+            return [], (), resid, lambda: mean
+        # layer-wise sparse all-gather: 2·k_b scalars per block
+        works, keep, vals_all, local_all = _gather_picks_start(
+            vals[0], local[0], axis_names)
+        p = axis_names.size
+        return works, keep, resid, lambda: mean_of(vals_all, local_all, p)
+
+    def launch_bucket(self, wave, updates, state,
+                      axis_names: Axes | None, *, key=None) -> Launched:
+        """One wave: every leaf selected and packed (the ``ef_select_pack``
+        kernel under ``use_kernel``) and its two gathers started."""
+        flat_k = tree.leaves(self.ks)
+        works, keep, resids, finishes = [], [], [], []
+        for i, u, e in zip(_wave_ids(wave), updates, state):
+            w, kept, resid, fin = self._launch_leaf(u, e, flat_k[i],
+                                                    axis_names)
+            works += w
+            keep.append(kept)
+            resids.append(resid)
+            finishes.append(fin)
+        return Launched(works, lambda: ([f() for f in finishes], resids),
+                        tuple(keep))
 
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
         """One wave: flat lists of the wave's leaves, global-id keyed.
         Block top-k is deterministic; ``key`` is accepted for interface
         uniformity."""
-        flat_k = tree.leaves(self.ks)
-        outs = [self._leaf(u, e, flat_k[i], axis_names)
-                for i, u, e in zip(_wave_ids(wave), updates, state)]
-        return [o[0] for o in outs], [o[1] for o in outs]
+        return self.launch_bucket(wave, updates, state, axis_names).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):

@@ -1,5 +1,5 @@
 """Distributed data-parallel train step: the counterpart of
-``repro.launch.train`` for ``pipeline="off"``.
+``repro.launch.train``.
 
 Build steps through ``repro_torch.api`` (``Session(cfg, run,
 mesh=...).train_step()`` or ``build_train_step(cfg, mesh, run)``).  One
@@ -13,20 +13,30 @@ reference's shard_map ``worker`` runs on its manual-axis shard:
      when ``momentum_correction`` mc > 0;
   3. the exchange over the data axis: ``dense`` all-reduces the mean,
      ``lags_dp`` runs ``BlockLAGSExchange`` (per-block top-k with error
-     feedback, the sparse (values, indices) all-gathered leaf by leaf);
+     feedback, the sparse (values, indices) all-gathered leaf by leaf),
+     ``slgs`` one global top-k over the whole-model vector;
   4. ``p <- (f32(p) − mean).to(p.dtype)``: plain SGD on pre-scaled
      deltas (Algorithm 1 line 10), not ``optim.SGD``.
 
-The loss is all-reduce-averaged.  State: ``{"params", "ef", "step"}``,
-plus ``"extra": {"mom"}`` when mc > 0.  ``ef`` and ``mom`` hold this
-rank's worker slice, leaves (1, ...) f32 (the reference's per-worker
-state under its manual axes); ``step`` is a Python int.  The port
-updates the parameters and the velocity in place, which saves one copy
-of each.
+``run.pipeline`` says when step 3 runs (``repro_torch.pipeline``):
+``"off"`` after backward; ``"wave"`` inside backprop, each wave of leaves
+launched by autograd hooks as its gradients land and finished after
+backward (bitwise equal to ``"off"``); ``"async1"`` exchanges the
+PREVIOUS step's updates (``state["pending"]``, zeros at step 0): launched
+before the forward, finished after the backward, while this step's
+updates (the velocity under mc) become the new pending — one step of
+bounded staleness.
 
-Not ported yet: ``pipeline != "off"`` (ROADMAP.md queue 1 item 11),
-``health_every > 0`` (item 12), ``schedule`` (item 10), ``slgs`` (item 8)
-and the hierarchy (item 9).
+The loss is all-reduce-averaged.  State: ``{"params", "ef", "step"}``,
+plus ``"extra": {"mom"}`` when mc > 0 and ``"pending"`` under
+``async1``.  ``ef``, ``mom`` and ``pending`` hold this rank's worker
+slice, leaves (1, ...) f32 (the reference's per-worker state under its
+manual axes); ``step`` is a Python int.  The port updates the
+parameters and the velocity in place, which saves one copy of each;
+under ``async1`` with mc the pending leaves are the velocity's own.
+
+Not ported yet: ``health_every > 0`` (ROADMAP.md queue 1 item 12),
+``schedule`` (item 10) and the hierarchy (item 9).
 """
 from __future__ import annotations
 
@@ -40,6 +50,9 @@ from repro_torch.api import registry as R
 from repro_torch.api.config import RunConfig, canonical_mode
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
+from repro_torch.pipeline import buckets as WB
+from repro_torch.pipeline import step as WS
+from repro_torch.pipeline import waves as WW
 from repro_torch.training.train_loop import Spec
 
 
@@ -55,11 +68,12 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
                      pipeline: str = "off",
                      momentum_correction: float = 0.0):
     """(state specs, meta) of this rank's train state: ``Spec`` leaves
-    (shape, dtype, device), no allocation."""
-    if pipeline != "off":
-        raise NotImplementedError(
-            f"pipeline={pipeline!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item 11)")
+    (shape, dtype, device), no allocation.  ``pipeline="async1"`` adds
+    ``"pending"`` (the previous step's updates, this rank's worker
+    slice)."""
+    if pipeline not in WW.PIPELINE_MODES:
+        raise ValueError(f"pipeline={pipeline!r} not in "
+                         f"{WW.PIPELINE_MODES}")
     mode, manual = _mode(cfg, mesh, method)
     dev = M.device_of(mesh)
     params = tree.map(lambda m: Spec(m.shape, m.dtype, dev),
@@ -72,6 +86,8 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
     state = {"params": params,
              "ef": () if mode == "dense" else tree.map(local, params),
              "step": Spec((), torch.int64, torch.device("cpu"))}
+    if pipeline == "async1":
+        state["pending"] = tree.map(local, params)
     if momentum_correction > 0.0:
         state["extra"] = {"mom": tree.map(local, params)}
     meta = {"mode": mode, "manual": manual,
@@ -85,8 +101,11 @@ def build_train_step(cfg, mesh, run: RunConfig):
     ``step_fn(state, batch) -> (state, metrics)``: ``batch`` is the
     global batch ({"tokens", "labels"} (B, S) on this rank's device, the
     same on every rank); ``metrics = {"loss"}``, the mean over workers.
-    ``meta`` carries ``mode``, ``n_workers``, ``manual``, ``ks`` and
-    ``run``."""
+    ``meta`` carries ``mode``, ``n_workers``, ``manual``, ``ks``, ``run``
+    and ``waves`` (the ``WaveSchedule`` of a pipelined run, else None).
+    ``step_fn(state, batch, marks=[])`` under ``pipeline="wave"`` fills
+    the list with each wave's launch marks (``pipeline.step.launch_leads``
+    reads them); without it nothing is recorded."""
     unported = run.unported()
     if unported:
         raise NotImplementedError(f"not ported yet: {unported}")
@@ -107,6 +126,22 @@ def build_train_step(cfg, mesh, run: RunConfig):
     rank = dist.get_rank(axes.group)
     dev = M.device_of(mesh)
     mc = float(run.momentum_correction)
+    pipeline = run.pipeline
+    ef_tiers = R.get_exchange(mode).ef_tiers
+
+    # wave partition of the pipelined modes: a given schedule is re-bound
+    # by leaf name against THIS params tree; otherwise the geometry
+    # default at the exchange's granularity (slgs: one wave)
+    waves = None
+    if pipeline != "off":
+        if run.waves is not None:
+            waves = WB.bind(run.waves, state_specs["params"])
+        else:
+            waves = WW.default_waves(
+                state_specs["params"], meta["ks"],
+                granularity=exch.wave_granularity,
+                target_bytes=run.wave_target_bytes, pipeline=pipeline)
+    meta["waves"] = waves
 
     def loss_fn(params, batch):
         return T.loss_fn(params, cfg, batch, chunk=run.chunk,
@@ -120,44 +155,69 @@ def build_train_step(cfg, mesh, run: RunConfig):
         per = b // p_workers
         return x[rank * per:(rank + 1) * per]
 
-    def step(state, batch):
+    def step(state, batch, *, marks: list | None = None):
         params = state["params"]
         leaves, treedef = tree.flatten(params)
-        loss, _aux = loss_fn(params, tree.map(shard, batch))
-        grads = list(torch.autograd.grad(loss, leaves))
+        local_batch = tree.map(shard, batch)
         lr = torch.as_tensor(run.lr_at(state["step"]), dtype=torch.float32,
                              device=dev)
+        ef_local = ([e[0] for e in tree.leaves(state["ef"])]
+                    if mode != "dense" else ())
+        out = {k: v for k, v in state.items() if k not in ("ef", "step")}
+        if pipeline == "wave":
+            # each wave's exchange launches inside backprop (hooks)
+            (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
+                lambda p: loss_fn(p, local_batch), exch, waves.waves,
+                params, WS.unflatten_state(ef_local, treedef), axes, lr=lr,
+                has_aux=True, tiers=ef_tiers, marks=marks)
+            flat_mean = tree.leaves(mean_upd)
+            new_ef = WS.flatten_state(new_ef_local, ef_tiers)
+            del mean_upd, new_ef_local
+        else:
+            launched = None
+            if pipeline == "async1":
+                # the previous step's exchange runs against this step's
+                # forward and backward
+                pend = [x[0] for x in tree.leaves(state["pending"])]
+                with torch.no_grad():
+                    launched = WS.launch_waves(exch, waves.waves, pend,
+                                               ef_local, axes)
+                del pend
+            loss, _aux = loss_fn(params, local_batch)
+            grads = list(torch.autograd.grad(loss, leaves))
+            with torch.no_grad():
+                if mc > 0.0:
+                    # DGC momentum correction: the velocity accumulates
+                    # BEFORE sparsification, per worker (in place)
+                    updates = [m[0].mul_(mc).add_(g.float().mul_(lr))
+                               for m, g in zip(
+                                   tree.leaves(state["extra"]["mom"]),
+                                   grads)]
+                else:
+                    updates = [g.float().mul_(lr) for g in grads]
+                del grads
+                if pipeline == "async1":
+                    flat_mean, new_ef = WS.finish_waves(launched, waves.waves,
+                                                        ef_local)
+                    del launched
+                    out["pending"] = (state["extra"]["mom"] if mc > 0.0
+                                      else tree.unflatten(
+                                          treedef, [u[None] for u in updates]))
+                else:
+                    flat_mean, new_ef = exch.exchange_bucket(
+                        tuple(range(len(leaves))), updates, ef_local, axes)
+                del updates
+        del ef_local
         with torch.no_grad():
-            if mc > 0.0:
-                # DGC momentum correction: the velocity accumulates
-                # BEFORE sparsification, per worker (in place)
-                updates = [m[0].mul_(mc).add_(g.float().mul_(lr))
-                           for m, g in zip(
-                               tree.leaves(state["extra"]["mom"]), grads)]
-            else:
-                updates = [g.float().mul_(lr) for g in grads]
-            del grads
-            if mode == "dense":
-                mean_upd, _ = exch.exchange(
-                    tree.unflatten(treedef, updates), (), axes)
-                new_ef = ()
-            else:
-                ef_local = tree.map(lambda e: e[0], state["ef"])
-                mean_upd, new_ef_local = exch.exchange(
-                    tree.unflatten(treedef, updates), ef_local, axes)
-                del ef_local
-                new_ef = tree.map(lambda e: e[None], new_ef_local)
-                del new_ef_local
-            del updates
-            for p, d in zip(leaves, tree.leaves(mean_upd)):
+            for p, d in zip(leaves, flat_mean):
                 p.copy_(p.float() - d)
-            del mean_upd
+            del flat_mean
             loss = loss.detach().clone()
             dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=axes.group)
             loss = loss / axes.size
-        out = {"params": params, "ef": new_ef, "step": state["step"] + 1}
-        if "extra" in state:
-            out["extra"] = state["extra"]
+        out["ef"] = (() if mode == "dense" else
+                     tree.unflatten(treedef, [e[None] for e in new_ef]))
+        out["step"] = state["step"] + 1
         return out, {"loss": loss}
 
     return step, state_specs, meta
@@ -193,6 +253,10 @@ def init_state(cfg, mesh, *, method: str | None = None, seed: int = 0,
 
     state = {"params": params, "ef": tree.map(zeros, state_specs["ef"]),
              "step": 0}
+    if "pending" in state_specs:
+        # the async1 double buffer starts empty: step 0 exchanges zeros
+        # and applies a zero update while its own updates fill it
+        state["pending"] = tree.map(zeros, state_specs["pending"])
     # this rank holds one worker's slice of the per-worker extra state
     extra = R.ExchangeSpec(mode=meta["mode"], params_like=params,
                            n_workers=1,

@@ -9,6 +9,12 @@ leaves — or, with ``momentum_correction`` mc > 0, the DGC velocity
 exchange turns (u, residual) into the mean update and the new residual;
 ``SGD`` and ``apply_deltas`` apply the mean.  Parameters and the
 velocity are updated in place.
+
+Like the reference's ``SimTrainer``, it never reads ``run.pipeline``: the
+simulation surface always runs the monolithic post-backward exchange
+(``wave`` is bitwise equal to it; ``async1`` and the in-backprop waves
+are the distributed step's, ``repro_torch.launch.train``).  Every
+registered ported mode runs here: ``dense``, ``lags_dp`` and ``slgs``.
 """
 from __future__ import annotations
 

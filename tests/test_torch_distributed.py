@@ -22,7 +22,19 @@ Contracts:
     match the reference's ``build_train_step`` at ``test_torch_train.py``'s
     tolerances: losses rtol 1e-5, parameters, residuals and velocities
     rtol 1e-4 atol 1e-5 (XLA may contract ``lr·g + e`` into one fma and
-    the model's sums run in another order).
+    the model's sums run in another order);
+  * the pipelined step (``repro_torch.pipeline``): ``pipeline="wave"``
+    (exchanges launched by autograd hooks inside backprop, ``wave_target_
+    bytes=2048`` so that the leaf-granular strategies run several waves)
+    equals ``"off"`` bit for bit in losses, parameters and residuals, 2
+    steps, for ``dense``, ``lags_dp`` (xla and kernel) and ``slgs`` (one
+    wave); ``"async1"`` reproduces the reference's exact sync prefix on
+    one repeated batch (losses ``[L0, L0, L1, ≠ off's third]``); and 3
+    steps of ``slgs``, ``lags_dp``/wave, ``lags_dp``/async1 (+ mc 0.9)
+    and ``dense``/``slgs`` async1 + mc 0.9 (the pending updates are the
+    velocity tensors, which the step then updates in place) match the
+    reference's ``build_train_step`` at the tolerances above, the
+    ``async1`` pending updates too.
 """
 import os
 import subprocess
@@ -49,6 +61,18 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
 MODES = {"dense": ("dense", 0.0), "lags_dp": ("lags_dp", 0.0),
          "lags_dp_mc": ("lags_dp", 0.9)}
 RUN_KW = dict(lr=0.1, chunk=16, loss_chunk=16)
+# against the reference: name -> (mode, mc, pipeline, one repeated batch)
+PIPE_MODES = {"slgs": ("slgs", 0.0, "off", False),
+              "lags_dp_wave": ("lags_dp", 0.0, "wave", False),
+              "lags_dp_async1": ("lags_dp", 0.0, "async1", True),
+              "lags_dp_async1_mc": ("lags_dp", 0.9, "async1", True),
+              "dense_async1_mc": ("dense", 0.9, "async1", True),
+              "slgs_async1_mc": ("slgs", 0.9, "async1", True)}
+# wave == off, bitwise: name -> (mode, selection backend)
+WAVE_PARITY = {"dense": ("dense", "xla"), "lags_dp_xla": ("lags_dp", "xla"),
+               "lags_dp_kernel": ("lags_dp", "kernel"),
+               "slgs": ("slgs", "kernel")}
+WAVE_BYTES = 2048
 # exchange leaves: a short tail block, a one-element tail, many blocks
 EX_LEAVES = {"a": (100,), "b": (257,), "c": (50, 100)}
 EX_KS = {"a": 3, "b": 9, "c": 40}
@@ -86,6 +110,29 @@ for name, (mode, mc) in MODES.items():
             out[f"{name}/{part}{i}"] = np.asarray(x)
     for i, x in enumerate(jax.tree.leaves(state.get("extra", {}))):
         out[f"{name}/mom{i}"] = np.asarray(x)
+for name, (mode, mc, pipeline, fixed) in PIPE_MODES.items():
+    run = api.RunConfig(mode=mode, momentum_correction=mc, donate=False,
+                        pipeline=pipeline, wave_target_bytes=WAVE_BYTES,
+                        **RUN_KW)
+    step, _, meta = api.build_train_step(cfg, mesh, run)
+    state, _ = TR.init_state(cfg, mesh, method=mode, pipeline=pipeline,
+                             momentum_correction=mc)
+    flat, treedef = jax.tree.flatten(state["params"])
+    state["params"] = jax.tree.unflatten(treedef, [
+        jax.device_put(inp[f"param{i}"], x.sharding)
+        for i, x in enumerate(flat)])
+    with compat.set_mesh(mesh):
+        for t in range(STEPS):
+            b = 0 if fixed else t
+            batch = {"tokens": inp["tokens"][b], "labels": inp["labels"][b]}
+            state, metrics = step(state, batch)
+            out[f"{name}/loss{t}"] = float(metrics["loss"])
+    for part in ("params", "ef", "pending"):
+        for i, x in enumerate(jax.tree.leaves(state.get(part, ()))):
+            out[f"{name}/{part}{i}"] = np.asarray(x)
+    for i, x in enumerate(jax.tree.leaves(state.get("extra", {}))):
+        out[f"{name}/mom{i}"] = np.asarray(x)
+    out[f"{name}/n_waves"] = meta["waves"].n_waves if meta["waves"] else 0
 np.savez(sys.argv[2], **out)
 print("OK jax")
 """
@@ -149,6 +196,47 @@ for name, (mode, mc) in MODES.items():
             out[f"{name}/{part}{i}"] = x.detach().numpy()
     for i, x in enumerate(tree.leaves(state.get("extra", {}))):
         out[f"{name}/mom{i}"] = x.numpy()
+
+
+# the pipelined steps and slgs
+def snapshot(name, state):
+    for part in ("params", "ef", "pending"):
+        for i, x in enumerate(tree.leaves(state.get(part, ()))):
+            out[f"{name}/{part}{i}"] = x.detach().clone().numpy()
+    for i, x in enumerate(tree.leaves(state.get("extra", {}))):
+        out[f"{name}/mom{i}"] = x.clone().numpy()
+
+
+def train(name, steps, fixed, save_after, **kw):
+    run = api.RunConfig(wave_target_bytes=WAVE_BYTES, **RUN_KW, **kw)
+    sess = api.Session(cfg, run, mesh=mesh)
+    module = TT.from_jax_params(start, cfg, device="cpu")
+    state, _ = sess.init_state(params=module.params)
+    for t in range(steps):
+        b = 0 if fixed else t
+        batch = {"tokens": torch.from_numpy(inp["tokens"][b]),
+                 "labels": torch.from_numpy(inp["labels"][b])}
+        state, metrics = sess.step_fn(state, batch)
+        out[f"{name}/loss{t}"] = float(metrics["loss"])
+        for p in tree.leaves(state["params"]):
+            assert p.grad is None and not p._post_accumulate_grad_hooks
+        if t + 1 == save_after:
+            snapshot(name, state)
+    waves = sess.meta["waves"]
+    out[f"{name}/n_waves"] = waves.n_waves if waves else 0
+
+
+for name, (mode, mc, pipeline, fixed) in PIPE_MODES.items():
+    # async1: a 4th step shows the honest staleness after the prefix
+    train(name, STEPS + (pipeline == "async1"), fixed, STEPS, mode=mode,
+          momentum_correction=mc, pipeline=pipeline,
+          selection_backend="xla" if mode == "slgs" else "kernel")
+train("async1_off", STEPS, True, STEPS, mode="lags_dp",
+      selection_backend="kernel")
+for name, (mode, backend) in WAVE_PARITY.items():
+    for pipeline in ("off", "wave"):
+        train(f"parity/{name}/{pipeline}", 2, False, 2, mode=mode,
+              selection_backend=backend, pipeline=pipeline)
 np.savez(out_path, **out)
 dist.destroy_process_group()
 print("OK rank", rank)
@@ -158,7 +246,7 @@ print("OK rank", rank)
 def _constants() -> str:
     return "".join(f"{name} = {globals()[name]!r}\n" for name in (
         "WORLD", "STEPS", "SMALL", "MODES", "RUN_KW", "EX_LEAVES", "EX_KS",
-        "EX_BLOCK"))
+        "EX_BLOCK", "PIPE_MODES", "WAVE_PARITY", "WAVE_BYTES"))
 
 
 def _exchange_inputs(rng):
@@ -288,6 +376,83 @@ def test_three_steps_match_jax_build_train_step(runs, name):
                              else 12)
         for key in keys:
             # the reference's (WORLD, ...) state; rank r holds row r
+            for r, res in enumerate(ranks):
+                np.testing.assert_allclose(res[key][0], jres[key][r],
+                                           rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{key} rank {r}")
+
+
+def _bitwise_equal(res: dict, prefix_a: str, prefix_b: str,
+                   what: str) -> int:
+    """Every array under ``prefix_a`` equals its ``prefix_b`` twin bit
+    for bit (the wave counts aside); returns how many were compared."""
+    def keys(prefix):
+        return sorted(k[len(prefix):] for k in res
+                      if k.startswith(prefix) and k != prefix + "n_waves")
+    assert keys(prefix_a) == keys(prefix_b), what
+    for k in keys(prefix_a):
+        np.testing.assert_array_equal(_bits(res[prefix_a + k]),
+                                      _bits(res[prefix_b + k]),
+                                      err_msg=f"{what} {k}")
+    return len(keys(prefix_a))
+
+
+@pytest.mark.parametrize("name", list(WAVE_PARITY))
+def test_wave_equals_off_bitwise_on_four_ranks(runs, name):
+    """Losses, parameters and EF residuals of 2 steps: ``wave`` (hooks
+    inside backprop) == ``off`` bit for bit on every rank, with several
+    waves for the leaf-granular strategies and one for slgs."""
+    _, _, ranks = runs
+    for r, res in enumerate(ranks):
+        n = res[f"parity/{name}/wave/n_waves"]
+        assert (n == 1) if name == "slgs" else (n > 1), n
+        assert res[f"parity/{name}/off/n_waves"] == 0
+        count = _bitwise_equal(res, f"parity/{name}/off/",
+                               f"parity/{name}/wave/", f"{name} rank {r}")
+        assert count == 2 + 12 * (1 if name == "dense" else 2)
+
+
+def test_async1_reproduces_the_exact_sync_prefix(runs):
+    """One repeated batch: step 0 exchanges the zero pending update
+    (params untouched), step 1 applies step 0's exchange, so the losses
+    are ``[L0, L0, L1]`` against ``off``'s ``[L0, L1, L2]``; step 3 runs
+    on one-step-stale updates and leaves ``off``'s trajectory."""
+    _, _, ranks = runs
+    for res in ranks:
+        a = [res[f"lags_dp_async1/loss{t}"] for t in range(STEPS + 1)]
+        off = [res[f"async1_off/loss{t}"] for t in range(STEPS)]
+        assert all(np.isfinite(a))
+        assert a[0] == off[0] and a[1] == off[0]
+        assert a[2] == off[1]
+        assert a[3] != off[2]
+        assert any(k.startswith("lags_dp_async1/pending") for k in res)
+        assert not any(k.startswith("async1_off/pending") for k in res)
+
+
+@pytest.mark.parametrize("name", list(PIPE_MODES))
+def test_pipelined_and_slgs_three_steps_match_jax(runs, name):
+    """3 steps against the reference's ``build_train_step``: losses rtol
+    1e-5; parameters, residuals, velocities and pending updates rtol
+    1e-4 atol 1e-5; parameters equal on every rank, bit for bit."""
+    _, jres, ranks = runs
+    got = ranks[0]
+    np.testing.assert_allclose(
+        [got[f"{name}/loss{t}"] for t in range(STEPS)],
+        [jres[f"{name}/loss{t}"] for t in range(STEPS)], rtol=1e-5)
+    assert got[f"{name}/n_waves"] == jres[f"{name}/n_waves"]
+    for i in range(12):
+        key = f"{name}/params{i}"
+        np.testing.assert_allclose(got[key], jres[key], rtol=1e-4,
+                                   atol=1e-5, err_msg=key)
+        for res in ranks[1:]:
+            np.testing.assert_array_equal(res[key], got[key], err_msg=key)
+    mode, mc, pipeline, _ = PIPE_MODES[name]
+    for part, want in (("ef", 0 if mode == "dense" else 12),
+                       ("mom", 12 if mc else 0),
+                       ("pending", 12 if pipeline == "async1" else 0)):
+        keys = [k for k in jres if k.startswith(f"{name}/{part}")]
+        assert len(keys) == want, (part, keys)
+        for key in keys:
             for r, res in enumerate(ranks):
                 np.testing.assert_allclose(res[key][0], jres[key][r],
                                            rtol=1e-4, atol=1e-5,

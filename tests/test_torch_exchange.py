@@ -161,7 +161,7 @@ def test_ef_invariant_exact():
     assert torch.equal(recon, (e + u).reshape(3, -1))
 
 
-@pytest.mark.parametrize("mode", ["slgs", "lags_hier", "lags_hier2"])
+@pytest.mark.parametrize("mode", ["lags_hier", "lags_hier2"])
 def test_unported_modes_raise_naming_roadmap(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _exchanges(mode, "topk_exact", "xla", 2)
@@ -169,12 +169,10 @@ def test_unported_modes_raise_naming_roadmap(mode):
 
 def test_distributed_surface_raises_naming_roadmap():
     """What the distributed surface still lacks raises, naming its
-    ROADMAP.md item: ``slgs``, a ``model`` axis > 1 and sharded dims
-    (tensor parallelism)."""
+    ROADMAP.md item: a ``model`` axis > 1 and sharded dims (tensor
+    parallelism)."""
     from repro_torch.launch import mesh as M
     like = {"a": np.zeros((4,), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8"):
-        TR.build_exchange(TR.ExchangeSpec(mode="slgs", params_like=like))
     with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):
         M.make_mesh(data=2, model=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):

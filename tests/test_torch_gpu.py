@@ -148,3 +148,86 @@ def test_training_on_the_card_tracks_the_cpu(cuda, compressor):
     assert out["cpu"][0] == pytest.approx(out["cuda"][0], rel=1e-4)
     for a, b in zip(out["cpu"][1], out["cuda"][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_slgs_on_the_card_equals_its_plain_version(cuda):
+    """The kernel-backed SLGS exchange (``topk_hier_ef_kernel`` over the
+    whole-model vector: candidates kernel, k-th candidate magnitude,
+    gated pack kernel) on the card == on the CPU (plain versions), bit
+    for bit, two steps with the residual fed back, P = 2 workers, d =
+    2^22 + 5 (a 5-element tail block), ratio 1000."""
+    from repro_torch.api import registry as R
+    like = {"a": torch.zeros(2**21), "b": torch.zeros(2**10, 2**10 + 1),
+            "c": torch.zeros(2**20 - 2**10 + 5)}
+    assert sum(x.numel() for x in like.values()) == 2**22 + 5
+    ex = R.build_exchange(R.ExchangeSpec(
+        mode="slgs", params_like=like, ratio=1000.0,
+        selection_backend="kernel", sim=True, n_workers=2))
+    assert ex.compressor_name == "topk_hier_ef_kernel"
+    gen = torch.Generator().manual_seed(11)
+    e_cpu = ex.init({k: torch.zeros((2,) + tuple(v.shape))
+                     for k, v in like.items()})
+    e_gpu = {k: v.to(cuda) for k, v in e_cpu.items()}
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        u = {k: 1e-2 * torch.randn((2,) + tuple(v.shape), generator=gen)
+             for k, v in like.items()}
+        m_cpu, e_cpu = ex.exchange(u, e_cpu, None)
+        m_gpu, e_gpu = ex.exchange({k: v.to(cuda) for k, v in u.items()},
+                                   e_gpu, None)
+        for k in like:
+            _bitwise((m_gpu[k], e_gpu[k]), (m_cpu[k], e_cpu[k]))
+    counts = kernels.launch_counts()
+    assert counts["ef_block_candidates"] == 2
+    assert counts["ef_select_pack"] == 2
+
+
+def _nccl_world_of_one():
+    import socket
+    from repro_torch.launch import mesh as M
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    M.init_process_group(f"tcp://localhost:{port}", 1, 0, device="cuda")
+    return M.make_mesh(device="cuda")
+
+
+@pytest.mark.parametrize("mode", ["dense", "lags_dp", "slgs"])
+def test_wave_step_equals_off_step_bitwise(cuda, mode):
+    """Two distributed steps at world size 1 (NCCL) under deterministic
+    algorithms: ``pipeline="wave"`` (exchanges launched by autograd hooks
+    inside backprop, several waves where the granularity allows) leaves
+    the parameters and residuals of ``"off"``, bit for bit."""
+    import os
+    import torch.distributed as dist
+    # deterministic cuBLAS; torch reads it on every determinism check
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(tinyllama_1_1b.smoke_config(), n_layers=2)
+    toks = torch.randint(0, cfg.vocab, (1, 33),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    mesh = _nccl_world_of_one()
+    out = {}
+    try:
+        for pipeline in ("off", "wave"):
+            run = api.RunConfig(mode=mode, ratio=16.0, lr=0.1,
+                                selection_backend="kernel", block_size=1024,
+                                pipeline=pipeline, wave_target_bytes=2048,
+                                chunk=16, loss_chunk=16)
+            sess = api.Session(cfg, run, mesh=mesh)
+            state, _ = sess.init_state(
+                params=TT.Transformer(cfg, seed=0, device=cuda).params)
+            losses = []
+            for _ in range(2):
+                state, metrics = sess.step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+            if pipeline == "wave":
+                n = sess.meta["waves"].n_waves
+                assert (n == 1) if mode == "slgs" else (n > 1)
+            out[pipeline] = (losses, tree.leaves(state["params"]),
+                             tree.leaves(state["ef"]))
+    finally:
+        dist.destroy_process_group()
+    assert out["off"][0] == out["wave"][0]
+    for part in (1, 2):
+        _bitwise(out["wave"][part], out["off"][part])

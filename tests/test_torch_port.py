@@ -75,21 +75,20 @@ def test_trainer_refuses_params_on_another_device():
 
 
 @pytest.mark.parametrize("knob", [
-    {"measure_delta": True}, {"health_every": 5}, {"pipeline": "wave"},
-    {"pipeline": "async1"}, {"schedule": object()},
+    {"measure_delta": True}, {"health_every": 5}, {"mode": "lags_hier"},
+    {"mode": "lags_hier2"}, {"schedule": object()},
     {"compressor": "randk"}])
 def test_unported_knobs_raise_naming_roadmap(knob):
     cfg = tinyllama_1_1b.smoke_config()
     module = TT.Transformer(cfg, device="cpu")
-    run = api.RunConfig(mode="lags_dp", **knob)
+    run = api.RunConfig(**({"mode": "lags_dp"} | knob))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.Session(cfg, run, device="cpu").simulator(
             lambda p, b: TT.loss_fn(p, cfg, b), module.params, 2)
 
 
 @pytest.mark.parametrize("knob", [
-    {"measure_delta": True}, {"health_every": 5}, {"pipeline": "async1"},
-    {"schedule": object()}])
+    {"measure_delta": True}, {"health_every": 5}, {"schedule": object()}])
 def test_distributed_step_raises_for_unported_knobs(knob):
     """The distributed step refuses what it has not ported before it
     touches the mesh."""

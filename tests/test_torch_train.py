@@ -1,7 +1,7 @@
 """Three ``SimTrainer`` steps of the port against the JAX ``SimTrainer``:
 the same parameters (as numpy), the same numpy batches, P=2 workers,
-ratio 8, for ``dense`` and for ``lags_dp`` under both selection backends,
-and with the DGC momentum correction.
+ratio 8, for ``dense`` and for ``lags_dp`` and ``slgs`` under both
+selection backends, and with the DGC momentum correction.
 
 Tolerance: losses rtol 1e-5, parameters atol 1e-5 + rtol 1e-4.  The
 reference's jit may contract ``lr·g + e`` into one fma inside the step
@@ -42,7 +42,9 @@ def _batches(vocab):
 
 @pytest.mark.parametrize("mode,backend", [("dense", "xla"),
                                           ("lags_dp", "xla"),
-                                          ("lags_dp", "kernel")])
+                                          ("lags_dp", "kernel"),
+                                          ("slgs", "xla"),
+                                          ("slgs", "kernel")])
 def test_three_steps_match_jax(mode, backend):
     _three_steps(mode, backend, 0.0)
 
@@ -86,7 +88,7 @@ def _three_steps(mode, backend, mc):
                          jax.tree.leaves(jtr.state["params"])):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4,
                                    atol=1e-5)
-    if mode == "lags_dp":   # the EF residuals follow too
+    if mode != "dense":     # the EF residuals follow too
         for got, want in zip(tree.leaves(ttr.state["ef"]),
                              jax.tree.leaves(jtr.state["ef"])):
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
