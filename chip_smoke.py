@@ -14,51 +14,61 @@
    ``torch.topk`` on the same rows (no one PyTorch call computes
    ``ef_accum_sparsify``: its ``library_ms`` is null); every kernel's
    timed outputs are held bitwise against the plain version's too.
-3. Small-input reference: the kernel-backed exchange on the card against
-   the same exchange on the CPU (plain versions), bitwise.
+3. Small-input reference: the kernel-backed exchanges on the card
+   (``lags_dp`` under three compressors, ``lags_hier2`` with 2 pods x 2)
+   against the same exchanges on the CPU (plain versions), bitwise.
 4. The main path: LAGS-SGD training of TinyLlama-1.1B at its published
-   width and depth (bf16 parameters), P=2 simulated workers, one
-   1024-token sequence each, ratio 1000, 3 steps each of ``dense`` and of
-   ``lags_dp`` with the kernel backend under ``topk_exact``,
-   ``topk_block`` and ``topk_hier``, through ``Session.simulator``.  Every
-   loss must be finite and every kernel of a configuration must launch in
-   it; the EF invariant is checked on one leaf.
+   width (bf16 parameters), one 1024-token sequence per simulated
+   worker, ratio 1000, 3 steps per configuration of ``SIM_CONFIGS``
+   through ``Session.simulator``: P=2 workers at the published depth for
+   ``dense`` and for ``lags_dp`` with the kernel backend under
+   ``topk_exact``, ``topk_block`` and ``topk_hier``; and the two-tier
+   ``lags_hier2`` with P=4 (2 pods x 2, inner ratio 100 under
+   ``topk_block``, outer ratio 1000 under ``topk_exact``) at 16 of the
+   22 layers, the depth at which its two f32 residuals per worker fit
+   the card.  Every loss must be finite and every kernel of a
+   configuration must launch in it; the EF invariant is checked on one
+   leaf (for ``lags_hier2`` on each tier).
 5. ``ef_accum_sparsify``'s own path, the entry point
    ``ops.ef_accum_sparsify`` as its users call it: two error-feedback
    threshold passes over every leaf of one full-size TinyLlama-1.1B
    gradient, the threshold from ``ops.hier_topk_threshold`` at ratio
    1000; every leaf's (selected, residual) equals the plain version's
    bit for bit, and ``selected + residual == acc``.
-6. The distributed data-parallel surface: one NCCL rank (world size 1),
-   full-size TinyLlama-1.1B, one 1024-token sequence (the same every
-   step), 3 steps each of the configurations of ``DIST_CONFIGS``
-   through ``Session(cfg, run, mesh=...).train_step()``: ``dense``,
-   ``lags_dp`` (kernel backend) and ``lags_dp`` + momentum correction
-   0.9, each ``off`` (the exchange after backward), ``wave`` (exchanges
-   launched by autograd hooks inside backprop) or ``async1`` (the
-   previous step's exchange launched before the forward), and ``slgs``
-   (kernel backend: one global top-k over the 1,100,048,384-element
-   whole-model vector) off and in its one wave.  Step 0 runs under
-   deterministic algorithms: step 0's exchanged mean and EF residual of
-   ``lags_dp`` and ``slgs`` must equal the simulation path's (P = 1) bit
-   for bit, every kernel launch of that exchange (for ``slgs`` the
-   268,567-row block view of the whole-model vector) must equal its
-   plain version on the same inputs bit for bit, step 0's parameters and residuals of each ``wave``
-   configuration must equal its ``off`` twin's, and the losses of each
-   ``async1`` configuration must be ``[L0, L0, L1]`` of its twin's
-   ``[L0, L1, ...]``.  Each step prints its time, peak memory and kernel
-   launches, and each ``wave`` step how long before the end of backward
-   each wave launched; ``ef_select_pack`` (and for ``slgs``
-   ``ef_block_candidates``) must launch.
+6. The distributed surface: one NCCL rank (world size 1), full-size
+   TinyLlama-1.1B, one 1024-token sequence (the same every step), 3
+   steps each of the configurations of ``DIST_CONFIGS`` through
+   ``Session(cfg, run, mesh=...).train_step()``: ``dense``, ``lags_dp``
+   (kernel backend) and ``lags_dp`` + momentum correction 0.9, each
+   ``off`` (the exchange after backward), ``wave`` (exchanges launched by
+   autograd hooks inside backprop) or ``async1`` (the previous step's
+   exchange launched before the forward); ``slgs`` (kernel backend: one
+   global top-k over the 1,100,048,384-element whole-model vector) off
+   and in its one wave; ``lags_hier2`` (kernel backend, the simulation
+   phase's tiers) off and ``wave``, and ``lags_hier`` (kernel backend),
+   on the ``make_mesh()`` of one rank: one pod, so the outer tier runs
+   over no axis.  Step 0 runs under deterministic algorithms: step 0's
+   exchanged mean and EF residuals (every tier's) of ``lags_dp``,
+   ``slgs``, ``lags_hier2`` and ``lags_hier`` must equal the simulation
+   path's (P = 1) bit for bit, every kernel launch of that exchange (for
+   ``slgs`` the 268,567-row block view of the whole-model vector) must
+   equal its plain version on the same inputs bit for bit, step 0's
+   parameters and residuals of each ``wave`` configuration must equal its
+   ``off`` twin's, and the losses of each ``async1`` configuration must
+   be ``[L0, L0, L1]`` of its twin's ``[L0, L1, ...]``.  Each step prints
+   its time, peak memory and kernel launches, and each ``wave`` step how
+   long before the end of backward each wave launched; the kernels of
+   ``DIST_EXPECTED`` must launch.
 7. Print the kernels' JSON line, the card line and the result line.
 
     python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
 
 runs phase 6 on 4 NCCL ranks, one process and one card each, 4
-sequences per global batch; after every step each rank's parameters
-must equal rank 0's bit for bit, with deterministic algorithms off (the
-replicas are never re-synchronised, so the exchange itself must give
-every rank the same bits).
+sequences per global batch: the flat configurations on the ("data",)
+mesh of 4, the hierarchy on the ("pod", "data") mesh of 2 x 2; after
+every step each rank's parameters must equal rank 0's bit for bit, with
+deterministic algorithms off (the replicas are never re-synchronised, so
+the exchange itself must give every rank the same bits).
 
 Any failure raises (non-zero exit).  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script exits 1 and prints no result.
@@ -89,12 +99,29 @@ REPLACES = {
     "ef_accum_sparsify": "src/repro/kernels/ef_sparsify.py:55",
 }
 SOURCE = "src/repro_torch/kernels/csrc/selection.cu"
-# kernels each main-path configuration must launch
-EXPECTED = {
-    ("dense", "topk_exact"): (),
-    ("lags_dp", "topk_exact"): ("ef_block_candidates", "ef_select_pack"),
-    ("lags_dp", "topk_block"): ("ef_select_pack",),
-    ("lags_dp", "topk_hier"): ("block_topk",),
+#: the main path's simulation configurations: label -> (RunConfig
+#: kwargs, simulated workers, layers (None = the published depth), the
+#: kernels it must launch)
+SIM_CONFIGS = {
+    "dense/topk_exact/xla": (dict(mode="dense"), 2, None, ()),
+    "lags_dp/topk_exact/kernel": (
+        dict(mode="lags_dp", compressor="topk_exact"), 2, None,
+        ("ef_block_candidates", "ef_select_pack")),
+    "lags_dp/topk_block/kernel": (
+        dict(mode="lags_dp", compressor="topk_block"), 2, None,
+        ("ef_select_pack",)),
+    "lags_dp/topk_hier/kernel": (
+        dict(mode="lags_dp", compressor="topk_hier"), 2, None,
+        ("block_topk",)),
+    # 2 pods x 2: the outer tier topk_exact (candidates + sort + gated
+    # pack), the inner tier topk_block (pack).  Two f32 residuals per
+    # worker (8 copies of the model at P = 4, old and new alive together
+    # in the exchange) do not fit 80 GB at 22 layers: 16 layers, full width
+    "lags_hier2/topk_exact+topk_block/kernel": (
+        dict(mode="lags_hier2", compressor="topk_exact",
+             inner_compressor="topk_block", ratio=1000.0, ratio_inner=100.0,
+             inner_workers=2), 4, 16,
+        ("ef_block_candidates", "ef_select_pack")),
 }
 
 
@@ -305,30 +332,39 @@ def timings(dev, cfg, p: int) -> dict:
 
 def small_reference(dev) -> None:
     """The kernel-backed exchange on the card == the same exchange on the
-    CPU (plain versions), bitwise, on small leaves with short tails."""
+    CPU (plain versions), bitwise, on small leaves with short tails:
+    lags_dp under each compressor (P = 2) and lags_hier2 (2 pods x 2)."""
     import torch
+    from repro_torch import tree
     from repro_torch.api import registry as R
     like = {"a": torch.zeros(100), "b": torch.zeros(40, 130),
             "c": torch.zeros(3, 700)}
-    gen = torch.Generator().manual_seed(5)
-    u = {k: torch.randn((2,) + tuple(v.shape), generator=gen)
-         for k, v in like.items()}
-    for comp in ("topk_exact", "topk_block", "topk_hier"):
+    cases = [("lags_dp", dict(compressor=comp), 2)
+             for comp in ("topk_exact", "topk_block", "topk_hier")]
+    cases.append(("lags_hier2", dict(compressor="topk_exact",
+                                     inner_compressor="topk_block",
+                                     ratio_inner=4.0, n_inner=2), 4))
+    for mode, kw, p in cases:
+        gen = torch.Generator().manual_seed(5)
+        u = {k: torch.randn((p,) + tuple(v.shape), generator=gen)
+             for k, v in like.items()}
         ex = R.build_exchange(R.ExchangeSpec(
-            mode="lags_dp", params_like=like, ratio=16.0, compressor=comp,
+            mode=mode, params_like=like, ratio=16.0,
             selection_backend="kernel", block_size=1024, sim=True,
-            n_workers=2))
-        e_cpu = ex.init({k: v for k, v in u.items()})
-        e_gpu = {k: v.to(dev) for k, v in e_cpu.items()}
+            n_workers=p, **kw))
+        e_cpu = ex.init(u)
+        e_gpu = tree.map(lambda v: v.to(dev), e_cpu)
         for _ in range(2):
             m_cpu, e_cpu = ex.exchange(u, e_cpu, None)
             m_gpu, e_gpu = ex.exchange({k: v.to(dev) for k, v in u.items()},
                                        e_gpu, None)
-            for k in like:
-                assert_bitwise(f"exchange {comp} {k}",
-                               (m_gpu[k].cpu(), e_gpu[k].cpu()),
-                               (m_cpu[k], e_cpu[k]))
-    print("small reference: kernel-backed exchange on the card == plain "
+            got = tree.leaves(m_gpu) + tree.leaves(e_gpu)
+            for i, (g, w) in enumerate(zip(got, tree.leaves(m_cpu)
+                                           + tree.leaves(e_cpu))):
+                assert_bitwise(f"exchange {mode} {kw} output {i}",
+                               (g.cpu(),), (w,))
+    print("small reference: kernel-backed exchanges (lags_dp under three "
+          "compressors, lags_hier2 2 pods x 2) on the card == plain "
           "versions on the CPU, bitwise")
 
 
@@ -381,9 +417,9 @@ def profile_step(trainer, batch, label: str, out_dir: Path) -> dict:
     return row
 
 
-def main_path(dev, cfg, p: int, seq: int, steps: int,
+def main_path(dev, cfg, seq: int, steps: int,
               profile_dir: Path | None = None) -> tuple[dict, dict]:
-    """Train ``steps`` steps in each configuration of ``EXPECTED``;
+    """Train ``steps`` steps in each configuration of ``SIM_CONFIGS``;
     returns (kernel launches summed over the run, per-step rows)."""
     import torch
     from repro_torch import api, kernels, tree
@@ -391,23 +427,24 @@ def main_path(dev, cfg, p: int, seq: int, steps: int,
     from repro_torch.models import transformer as T
 
     data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
-    batches = [data.worker_batches(t, p, 1, seq, device=dev)
-               for t in range(steps)]
     torch.cuda.empty_cache()
     totals = dict.fromkeys(kernels.WRAPPERS, 0)
     results = {}
 
-    def loss_fn(params, batch):
-        return T.loss_fn(params, cfg, batch, chunk=1024, loss_chunk=512)
+    for label, (kw, p, n_layers, expect) in SIM_CONFIGS.items():
+        c = cfg if n_layers is None else dataclasses.replace(
+            cfg, n_layers=n_layers)
+        batches = [data.worker_batches(t, p, 1, seq, device=dev)
+                   for t in range(steps)]
 
-    for (mode, comp), expect in EXPECTED.items():
-        backend = "xla" if mode == "dense" else "kernel"
-        label = f"{mode}/{comp}/{backend}"
-        model = T.Transformer(cfg, seed=0, device=dev)
+        def loss_fn(params, batch, c=c):
+            return T.loss_fn(params, c, batch, chunk=1024, loss_chunk=512)
+
+        model = T.Transformer(c, seed=0, device=dev)
         n_params = sum(x.numel() for x in tree.leaves(model.params))
-        run = api.RunConfig(mode=mode, compressor=comp,
-                            selection_backend=backend, lr=0.01)
-        trainer = api.Session(cfg, run, device=dev).simulator(
+        run = api.RunConfig(selection_backend="kernel" if expect else "xla",
+                            lr=0.01, **kw)
+        trainer = api.Session(c, run, device=dev).simulator(
             loss_fn, model.params, n_workers=p)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -439,13 +476,16 @@ def main_path(dev, cfg, p: int, seq: int, steps: int,
             raise AssertionError(f"{label}: kernels {missing} never launched")
         for k, v in counts.items():
             totals[k] += v
-        results[label] = {"params": n_params, "steps": rows}
-        if comp == "topk_exact" and mode == "lags_dp":
+        results[label] = {"params": n_params, "workers": p,
+                          "n_layers": c.n_layers, "steps": rows}
+        if label == "lags_dp/topk_exact/kernel":
             check_ef_invariant(trainer, dev)
+        if kw["mode"] == "lags_hier2":
+            check_ef_invariant_tiers(trainer, dev)
         if profile_dir is not None:
             results[label]["profile"] = profile_step(
                 trainer, batches[-1], label, profile_dir)
-        del trainer, model
+        del trainer, model, batches
         torch.cuda.empty_cache()
     return totals, results
 
@@ -477,6 +517,54 @@ def check_ef_invariant(trainer, dev) -> None:
         torch.use_deterministic_algorithms(False)
     print(f"EF invariant e + u == scatter(vals, idx) + residual holds "
           f"bitwise on embed/embedding ({tuple(e.shape)}, k={k})")
+
+
+def check_ef_invariant_tiers(trainer, dev) -> None:
+    """Each tier of lags_hier2 on the embedding leaf, with the live
+    residuals and a fresh update: the inner tier's ``e_in + u ==
+    scatter(values, indices) + residual`` per worker, and the outer
+    tier's ``e_out + m == ...`` per pod, ``m`` the pod means of the inner
+    picks; bit for bit."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import compressors as C
+    from repro_torch.core import lags
+    ex = trainer.exchange
+    ef = trainer.state["ef"]
+    i = tree.leaf_paths(ef["inner"]).index("embed/embedding")
+    e_in, e_out = tree.leaves(ef["inner"])[i], tree.leaves(ef["outer"])[i]
+    k_in, k_out = tree.leaves(ex.ks_inner)[i], tree.leaves(ex.ks)[i]
+    (icomp, ikw), (comp, kw) = ex._tiers()
+    p, n_in = e_in.shape[0], ex.n_inner
+    n_out, d = p // n_in, e_in[0].numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    u = 1e-3 * torch.randn(e_in.shape, generator=gen, device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        vals, idx, res = lags.local_select_ef(u, e_in, k_in, icomp, **ikw)
+        recon = res.reshape(p, -1) + C.decompress(vals, idx, d)
+        if not torch.equal(recon, (e_in + u).reshape(p, -1)):
+            raise AssertionError("inner-tier EF invariant broken")
+        m = torch.stack([lags._gathered_scatter_mean(
+            vals[o * n_in:(o + 1) * n_in], idx[o * n_in:(o + 1) * n_in], d,
+            n_in) for o in range(n_out)])
+        del vals, idx, res, recon, u
+        e_pod = e_out.reshape(n_out, n_in, d)[:, 0].contiguous()
+        vals, idx, res = lags.local_select_ef(m, e_pod, k_out, comp, **kw)
+        if not torch.equal(res + C.decompress(vals, idx, d), e_pod + m):
+            raise AssertionError("outer-tier EF invariant broken")
+        for o in range(n_out):
+            for w in range(o * n_in, (o + 1) * n_in):
+                if not torch.equal(e_out[w].reshape(-1), e_pod[o]):
+                    raise AssertionError("outer residual differs within a "
+                                         "pod")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"EF invariant acc == scatter(vals, idx) + residual holds bitwise "
+          f"on embed/embedding for both tiers (inner: {p} workers, k={k_in}; "
+          f"outer: {n_out} pods, k={k_out}); the outer residual is the same "
+          f"on every worker of a pod")
 
 
 def ef_accum_path(dev, cfg, seq: int) -> dict:
@@ -559,14 +647,26 @@ DIST_CONFIGS = {
     "slgs/kernel": dict(mode="slgs", selection_backend="kernel"),
     "slgs/kernel/wave": dict(mode="slgs", selection_backend="kernel",
                              pipeline="wave"),
+    # the hierarchy, on the (pod, data) mesh when there are several ranks
+    "lags_hier2/kernel": dict(mode="lags_hier2", selection_backend="kernel",
+                              inner_compressor="topk_block",
+                              ratio_inner=100.0),
+    "lags_hier2/kernel/wave": dict(
+        mode="lags_hier2", selection_backend="kernel",
+        inner_compressor="topk_block", ratio_inner=100.0, pipeline="wave"),
+    "lags_hier/kernel": dict(mode="lags_hier", selection_backend="kernel"),
 }
 TWINS = {"dense/wave": "dense", "lags_dp/kernel/wave": "lags_dp/kernel",
          "lags_dp/kernel/async1": "lags_dp/kernel",
          "lags_dp/kernel/async1/mc0.9": "lags_dp/kernel/mc0.9",
-         "slgs/kernel/wave": "slgs/kernel"}
+         "slgs/kernel/wave": "slgs/kernel",
+         "lags_hier2/kernel/wave": "lags_hier2/kernel"}
 # kernels each distributed configuration must launch, by mode
 DIST_EXPECTED = {"dense": (), "lags_dp": ("ef_select_pack",),
-                 "slgs": ("ef_block_candidates", "ef_select_pack")}
+                 "slgs": ("ef_block_candidates", "ef_select_pack"),
+                 "lags_hier2": ("ef_block_candidates", "ef_select_pack"),
+                 "lags_hier": ("ef_select_pack",)}
+HIER_MODES = ("lags_hier", "lags_hier2")
 
 
 def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
@@ -598,13 +698,23 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     totals = dict.fromkeys(kernels.WRAPPERS, 0)
     results, twins, errs = {}, {}, {}
     try:
-        mesh = M.make_mesh(device=dev.type)
+        flat_mesh = M.make_mesh(device=dev.type)
+        # two pods when the ranks split in two; one pod (no outer tier)
+        # otherwise, as on the reference's single-pod mesh
+        pods = 2 if world > 1 and world % 2 == 0 else 1
+        pod_mesh = (M.make_mesh(pod=pods, device=dev.type) if pods > 1
+                    else flat_mesh)
         for label, kw in DIST_CONFIGS.items():
             run = api.RunConfig(lr=0.01, **kw)
+            mesh = pod_mesh if run.mode in HIER_MODES else flat_mesh
             sess = api.Session(cfg, run, mesh=mesh)
             step_fn = sess.step_fn
             state, _ = sess.init_state(seed=0)
             waves = sess.meta["waves"]
+            if rank == 0:
+                print(f"distributed {label}: mesh "
+                      f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, "
+                      f"{sess.meta['n_workers']} workers")
             if waves is not None and rank == 0:
                 for i, w in enumerate(waves.waves):
                     print(f"distributed {label} wave {i}: {len(w.leaf_ids)} "
@@ -682,7 +792,9 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                 totals[k] += v
             results[label] = {"steps": rows, "launches": counts,
                               "n_waves": None if waves is None
-                              else waves.n_waves}
+                              else waves.n_waves,
+                              "mesh": dict(zip(mesh.mesh_dim_names,
+                                               mesh.mesh.shape))}
             del state, step_fn, sess
             torch.cuda.empty_cache()
     finally:
@@ -786,23 +898,26 @@ def held_to_plain(errs: dict, shapes: dict, chunk_rows: int = 1 << 15):
 
 
 def check_step0(sess, state, p0, batch) -> dict:
-    """Step 0 of the distributed lags_dp or slgs step against the
-    simulation path, bit for bit: the gradient is taken again at the
-    step's starting parameters (deterministic algorithms make it the
-    step's own), the distributed exchange and the same exchange's
-    simulation path (P = 1) run on the same updates; their means and
-    residuals must be equal, the residual must be the step's, and the
-    step's parameters must be ``p0 - mean``.  Every kernel launch of the
-    distributed exchange (the step's own inputs and shapes: 268,567 rows
-    of the whole-model vector for slgs) is held against its plain
-    version too (``held_to_plain``).  Returns each kernel's largest
-    absolute error there."""
+    """Step 0 of a distributed exchange mode against the simulation path,
+    bit for bit: the gradient is taken again at the step's starting
+    parameters (deterministic algorithms make it the step's own), and
+    the step's exchange (``meta["exchange"]``) runs over the step's axes
+    and on its simulation path (P = 1) on the same updates; their means
+    and residuals (every tier's) must be equal, the residuals must be the
+    step's, and the step's parameters must be ``p0 - mean``.  (At world
+    size 1 lags_hier's mean over the pod's ranks divides by 1, and with
+    no pod axis its exchange is the simulation path itself.)  Every
+    kernel launch of the distributed exchange (the step's own inputs and
+    shapes: 268,567 rows of the whole-model vector for slgs) is held
+    against its plain version too (``held_to_plain``).  Returns each
+    kernel's largest absolute error there."""
     import torch
     from repro_torch import tree
     from repro_torch.api import registry as R
-    from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
     run, meta = sess.run_config, sess.meta
+    ex, axes = meta["exchange"], meta["axes"]
+    tiers = R.get_exchange(meta["mode"]).ef_tiers
     treedef = tree.flatten(state["params"])[1]
     start = [x.clone().requires_grad_() for x in p0]
     loss, _ = T.loss_fn(tree.unflatten(treedef, start), sess.cfg, batch,
@@ -813,41 +928,51 @@ def check_step0(sess, state, p0, batch) -> dict:
         lr = torch.full((), run.lr, device=p0[0].device)
         u = [g.float().mul_(lr) for g in grads]
         del grads
-        ex = R.build_exchange(R.ExchangeSpec(
-            mode=meta["mode"], params_like=state["params"],
-            ratio=run.resolved_ratio(sess.cfg), block_size=run.block_size,
-            compressor=run.compressor,
-            selection_backend=run.selection_backend, sim=False))
-        zeros = [torch.zeros_like(x) for x in u]
-        axes = M.worker_axes(sess.mesh, meta["manual"])
+
+        def zeros(lead):
+            z = tree.unflatten(treedef, [torch.zeros(lead + tuple(x.shape),
+                                                     device=x.device)
+                                         for x in u])
+            return {t: tree.map(torch.zeros_like, z) for t in tiers} \
+                if tiers else z
+
+        def sim():
+            return ex.exchange(tree.unflatten(treedef, [x[None] for x in u]),
+                               zeros((1,)), None)
+
         errs, shapes = {}, {}
         with held_to_plain(errs, shapes):
-            m_d, e_d = ex.exchange(tree.unflatten(treedef, u),
-                                   tree.unflatten(treedef, zeros), axes)
-        del zeros
+            if axes is None:
+                m_d, e_d = sim()
+                e_d = tree.map(lambda x: x[0], e_d)
+            else:
+                m_d, e_d = ex.exchange(tree.unflatten(treedef, u), zeros(()),
+                                       axes)
         if not errs:
             raise AssertionError(f"step 0 of {meta['mode']}: no kernel "
                                  f"launched in the exchange")
-        m_s, e_s = ex.exchange(
-            tree.unflatten(treedef, [x[None] for x in u]),
-            tree.unflatten(treedef, [torch.zeros((1,) + x.shape,
-                                                 device=x.device)
-                                     for x in u]), None)
+        m_s, e_s = sim()
         del u
         nonzero = 0
-        for path, md, ms, ed, es, ef, p_start, p_new in zip(
+        for path, md, ms, p_start, p_new in zip(
                 tree.leaf_paths(m_d), tree.leaves(m_d), tree.leaves(m_s),
-                tree.leaves(e_d), tree.leaves(e_s), tree.leaves(state["ef"]),
                 p0, tree.leaves(state["params"])):
-            assert_bitwise(f"step 0 {path} mean / residual vs simulation",
-                           (md, ed[None]), (ms, es))
-            assert_bitwise(f"step 0 {path} residual vs the step's", (ef,),
-                           (es,))
+            assert_bitwise(f"step 0 {path} mean vs simulation", (md,), (ms,))
             assert_bitwise(f"step 0 {path} parameters vs p0 - mean",
                            (p_new,), ((p_start.float() - md).to(p_new.dtype),))
             nonzero += int((md != 0).sum())
-    what = (f"{type(ex).__name__} simulation path (P = 1), bitwise; the "
-            f"step's residual and parameters agree; {nonzero} nonzero "
+        n_resid = 0
+        for path, ed, es, ef in zip(
+                tree.leaf_paths(e_s), tree.leaves(e_d), tree.leaves(e_s),
+                tree.leaves(state["ef"])):
+            assert_bitwise(f"step 0 {path} residual vs simulation",
+                           (ed[None],), (es,))
+            assert_bitwise(f"step 0 {path} residual vs the step's", (ef,),
+                           (es,))
+            n_resid += 1
+    what = (f"{type(ex).__name__} simulation path (P = 1), bitwise "
+            f"({n_resid} residual leaves{', tiers ' + str(tiers) if tiers else ''});"
+            f" the step's residuals and parameters agree; {nonzero} nonzero "
             f"entries in the mean")
     if meta["mode"] == "slgs":
         d = sum(x.numel() for x in p0)
@@ -923,7 +1048,7 @@ def main(argv=None) -> int:
     times = timings(dev, cfg, p)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    totals, results = main_path(dev, cfg, p, seq, steps,
+    totals, results = main_path(dev, cfg, seq, steps,
                                 out_dir if args.profile else None)
     # each later path: counts set to 0 just before it, read just after
     path_counts, path_err = ef_accum_path(dev, cfg, seq)

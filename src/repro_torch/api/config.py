@@ -28,12 +28,17 @@ class RunConfig:
     ``train_mode`` / ``compression_ratio`` at build time."""
     mode: str | None = None
     ratio: float | None = None
+    # "lags_hier2": the intra-pod tier's ratio (None = 1.0, dense), and
+    # on the simulation surface how many of the P workers share a pod
+    # (P factors as (P // inner_workers) pods x inner_workers); the
+    # distributed step reads the mesh instead
     ratio_inner: float | None = None
     inner_workers: int | None = None
     compressor: str = "topk_exact"
     # "xla" (plain torch selection) or "kernel" (the CUDA kernels of
     # repro_torch.kernels), resolved per compressor via KERNEL_BACKED
     selection_backend: str = "xla"
+    # "lags_hier2": the intra-pod tier's compressor (None = compressor)
     inner_compressor: str | None = None
     block_size: int = 4096
     schedule: Any = None
@@ -111,6 +116,10 @@ class RunConfig:
         if cfg is not None:
             return float(cfg.compression_ratio)
         return 250.0
+
+    def resolved_ratio_inner(self) -> float:
+        """Inner-tier ratio (``lags_hier2``): ``None`` means dense (1.0)."""
+        return 1.0 if self.ratio_inner is None else float(self.ratio_inner)
 
     def lr_at(self, step):
         """Learning rate at ``step`` — the schedule wins."""

@@ -5,11 +5,12 @@ has it.
     def _build(spec: ExchangeSpec):
         return MyExchange(ks=spec.ks, ...)
 
-``dense``, ``lags_dp`` and ``slgs`` build on both surfaces: the
-simulation surface (``sim=True``) and the distributed data-parallel step
-(``sim=False``, where ``lags_dp`` runs ``BlockLAGSExchange``).  The
-reference's hierarchical modes are registered and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Every strategy of the reference builds on both surfaces: the simulation
+surface (``sim=True``) and the distributed step (``sim=False``, where
+``lags_dp`` and ``lags_hier`` run ``BlockLAGSExchange`` and
+``lags_hier2`` the two-tier ``SparseHierLAGSExchange``).  Schedules
+(the reference's ``TieredKs`` and ``resolve_schedule_ks``) are ROADMAP.md
+queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -35,8 +36,15 @@ class ExchangeSpec:
     block_size: int = 4096
     compressor: str = "topk_exact"
     selection_backend: str = "xla"   # "xla" | "kernel"
+    # lags_hier2 inner-tier compressor override (None = ``compressor``)
+    inner_compressor: str | None = None
     sim: bool = False
     n_workers: int = 1
+    # two-tier (lags_hier2) knobs: the intra-pod ratio, and how many of
+    # the n_workers share a pod (simulation; the distributed step reads
+    # the mesh)
+    ratio_inner: float = 1.0
+    n_inner: int = 1
     # distributed-only layout hint (see lags.BlockLAGSExchange)
     shard_dims: Any = None
     # DGC momentum correction factor (the velocity accumulates BEFORE
@@ -59,16 +67,25 @@ class ExchangeSpec:
         return extra
 
     def resolved_ks(self):
+        """The per-leaf budget tree of the (outer) sparse exchange."""
         if self.ks is not None:
             return self.ks
         return lags.ks_from_ratio(self.params_like, self.ratio)
 
-    def resolved_compressor(self) -> str:
+    def resolved_ks_inner(self):
+        """The intra-pod tier's budget tree (two-tier modes), from
+        ``ratio_inner`` (1.0 = dense inner tier)."""
+        return lags.ks_from_ratio(self.params_like, self.ratio_inner)
+
+    def resolved_compressor(self, *, inner: bool = False) -> str:
         """The compressor name the exchange runs: under the "kernel"
-        backend each name maps to its kernel variant."""
+        backend each name maps to its kernel variant.  ``inner=True``
+        resolves the lags_hier2 intra-pod tier (``inner_compressor``)."""
+        name = (self.inner_compressor or self.compressor) if inner \
+            else self.compressor
         if self.selection_backend == "kernel":
-            return C.kernel_backed(self.compressor)
-        return self.compressor
+            return C.kernel_backed(name)
+        return name
 
 
 #: Compressors that take the spec's ``block_size`` as a kwarg.
@@ -86,26 +103,40 @@ def _sel_kwargs(name: str, spec: ExchangeSpec) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeStrategy:
-    """A registered strategy: its factory and its EF-state layout.
+    """A registered strategy: its factory, its axis plan and its EF-state
+    layout.
+
+    ``axes`` says which mesh axes the distributed step's workers span:
+
+      * ``"data_manual"``: every rank of the data axes ('pod', 'data') is
+        a worker with its own gradient (dense, lags_dp, slgs, lags_hier2);
+      * ``"pod_auto"``: one worker per pod: the ranks of a pod take the
+        dense mean of their updates, then the exchange runs over 'pod'
+        (lags_hier; the reference's pure-auto GSPMD plan);
+      * ``"none"``: a single worker, no exchange axes.
 
     ``ef_tiers``: ``()`` = one residual tree; a non-empty tuple of tier
     names means the exchange's state is ``{tier: residual_tree}`` (the
-    reference's two-tier ``lags_hier2``), which the pipeline's state
-    plumbing (``pipeline.step.flatten_state``) must be told about.  Every
-    ported strategy runs manual over the data axis, so the reference's
-    ``axes`` plan has no counterpart here."""
+    two-tier ``lags_hier2``), which the state specs replicate once per
+    tier and the pipeline's ``flatten_state`` must be told about."""
     name: str
     factory: Callable[[ExchangeSpec], Any]
+    axes: str = "data_manual"
     ef_tiers: tuple = ()
 
 
 _EXCHANGES: dict[str, ExchangeStrategy] = {}
 
 
-def register_exchange(name: str, *, ef_tiers: tuple = ()):
+def register_exchange(name: str, *, axes: str = "data_manual",
+                      ef_tiers: tuple = ()):
     """Decorator: register ``factory(spec) -> exchange`` under ``name``."""
+    if axes not in ("data_manual", "pod_auto", "none"):
+        raise ValueError(f"unknown axes plan {axes!r}")
+
     def deco(factory):
         _EXCHANGES[name] = ExchangeStrategy(name=name, factory=factory,
+                                            axes=axes,
                                             ef_tiers=tuple(ef_tiers))
         return factory
     return deco
@@ -147,7 +178,6 @@ def _slgs_factory(spec: ExchangeSpec):
         compressor_name=name, compressor_kwargs=_sel_kwargs(name, spec))
 
 
-@register_exchange("lags_dp")
 def _lags_factory(spec: ExchangeSpec):
     """Layer-wise adaptive sparsification (the paper).
 
@@ -176,13 +206,32 @@ def _lags_factory(spec: ExchangeSpec):
         use_kernel=(spec.selection_backend == "kernel"))
 
 
-def _unported(mode: str, item: str, ef_tiers: tuple = ()):
-    def factory(spec):
-        raise NotImplementedError(
-            f"exchange mode {mode!r} is not ported yet (ROADMAP.md "
-            f"queue 1 item {item})")
-    register_exchange(mode, ef_tiers=ef_tiers)(factory)
+register_exchange("lags_dp")(_lags_factory)
+# lags_hier shares the exchange; what differs is the axis plan: one
+# worker per pod, whose update is the dense mean of its ranks', and the
+# sparse exchange across pods
+register_exchange("lags_hier", axes="pod_auto")(_lags_factory)
 
 
-_unported("lags_hier", "9: the hierarchy")
-_unported("lags_hier2", "9: the hierarchy", ef_tiers=("inner", "outer"))
+@register_exchange("lags_hier2", axes="data_manual",
+                   ef_tiers=("inner", "outer"))
+def _hier2_factory(spec: ExchangeSpec):
+    """Two-level sparse hierarchy: a sparse intra-pod exchange with its
+    own per-leaf ``ks_inner`` and residual, then the sparse cross-pod
+    exchange of the pod mean with a second residual.  One exchange class
+    serves both surfaces.  ``spec.inner_compressor`` (default
+    ``spec.compressor``) selects on each worker's own gradient, the
+    outer compressor on the pod mean; both resolve through
+    ``selection_backend``."""
+    outer_name = spec.resolved_compressor()
+    inner_name = spec.resolved_compressor(inner=True)
+    for name in (outer_name, inner_name):
+        C.get_compressor(name)      # an unported compressor raises here
+    return lags.SparseHierLAGSExchange(
+        ks=spec.resolved_ks(), ks_inner=spec.resolved_ks_inner(),
+        n_inner=max(1, int(spec.n_inner)),
+        compressor_name=outer_name,
+        compressor_kwargs=_sel_kwargs(outer_name, spec),
+        inner_compressor_name=(
+            inner_name if inner_name != outer_name else None),
+        inner_compressor_kwargs=_sel_kwargs(inner_name, spec))

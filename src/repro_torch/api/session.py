@@ -6,7 +6,8 @@ surfaces, as ``repro.api.session.Session`` composes them:
     # simulation (P workers on one device)
     sim = Session(cfg, run).simulator(loss_fn, params, n_workers=4)
 
-    # distributed, one process per worker (launch.mesh)
+    # distributed, one process per rank (launch.mesh); the hierarchy
+    # (lags_hier, lags_hier2) on a ("pod", "data") mesh: make_mesh(pod=2)
     M.init_process_group("tcp://localhost:29500", world_size, rank)
     sess = Session(cfg, run, mesh=M.make_mesh())
     step_fn, state_specs, meta = sess.train_step()

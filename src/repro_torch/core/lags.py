@@ -2,10 +2,12 @@
 
 ``DenseExchange`` (Dense-SGD baseline), ``LAGSExchange`` (the paper:
 per-layer top-k with per-layer error feedback), ``BlockLAGSExchange``
-(the same with a per-block budget: the production distributed path) and
+(the same with a per-block budget: the production distributed path),
 ``SLGSExchange`` (the single-layer baseline: one global top-k over the
-whole-model vector) share the bucket-stream interface of
-``repro.core.lags``:
+whole-model vector) and the hierarchies ``HierLAGSExchange`` (dense
+intra-pod mean, sparse across pods) and ``SparseHierLAGSExchange``
+(``lags_hier2``: sparse on both tiers, one residual per tier) share the
+bucket-stream interface of ``repro.core.lags``:
 
     init(updates_like)                     -> state (residual tree)
     exchange(updates, state, axis_names)   -> (mean_update, new_state)
@@ -32,11 +34,12 @@ surface the P workers of a leaf select in one call (one kernel launch,
 P·n_blocks rows): rows are independent, so this equals the reference's
 per-worker ``vmap``.
 
-``DenseExchange``, ``BlockLAGSExchange`` and ``SLGSExchange`` serve both
-surfaces; ``LAGSExchange`` serves the simulation surface (as in the
-reference, where the distributed ``lags_dp`` step builds
-``BlockLAGSExchange``).  Not ported yet: the hierarchical exchanges
-(ROADMAP.md queue 1 item 9) and tensor parallelism (item 7's tail).
+``DenseExchange``, ``BlockLAGSExchange``, ``SLGSExchange`` and
+``SparseHierLAGSExchange`` serve both surfaces; ``LAGSExchange`` serves
+the simulation surface (as in the reference, where the distributed
+``lags_dp`` step builds ``BlockLAGSExchange``); ``HierLAGSExchange``
+runs on one worker's leaves over its own axes.  Not ported yet: tensor
+parallelism (ROADMAP.md queue 1 item 7's tail).
 """
 from __future__ import annotations
 
@@ -113,13 +116,31 @@ def _gathered_scatter_mean(vals_all, idx_all, d: int, p) -> torch.Tensor:
 class Axes:
     """The distributed surface's worker axes: the names of the mesh axes
     the exchange runs over (the reference's manual ``axis_names``) and
-    the ``torch.distributed`` process group spanning them."""
+    the ``torch.distributed`` process group spanning them, its ranks in
+    the reference's worker order (outer axis major).  ``parts``: one
+    ``Axes`` per name when there are several, so that a tier of an
+    exchange can run over some of them (:meth:`sub`)."""
     names: tuple[str, ...]
     group: Any
+    parts: tuple = ()
 
     @property
     def size(self) -> int:
         return dist.get_world_size(self.group)
+
+    def sub(self, names) -> "Axes | None":
+        """The axes among these whose names are in ``names`` (None when
+        there is none)."""
+        keep = tuple(a for a in self.names if a in names)
+        if not keep:
+            return None
+        if keep == self.names:
+            return self
+        if len(keep) > 1 or len(self.parts) != len(self.names):
+            raise NotImplementedError(
+                f"axes {keep} of {self.names}: an exchange tier runs over "
+                f"one mesh axis or over all of them")
+        return self.parts[self.names.index(keep[0])]
 
 
 class Launched:
@@ -130,13 +151,19 @@ class Launched:
     new_state)``; it runs once.  ``keep`` holds the collectives' input
     tensors until then.
 
-    Rule for every ``launch_bucket``: it has read its ``updates`` (and
-    its ``state``) by the time it returns — copied them, packed them, or
-    enqueued the kernel that reads them on the current stream — and no
-    collective or ``finish`` reads them later.  The caller may write to
-    them once launch returns: under ``pipeline="async1"`` with momentum
-    correction the launched pending updates ARE the velocity tensors,
-    which the same step's velocity update then changes in place."""
+    Rule for every ``launch_bucket``: it has read its ``updates`` by the
+    time it returns — copied them, packed them, or enqueued the kernel
+    that reads them on the current stream — and no collective or
+    ``finish`` reads them later.  The caller may write to them once
+    launch returns: under ``pipeline="async1"`` with momentum correction
+    the launched pending updates ARE the velocity tensors, which the
+    same step's velocity update then changes in place.  ``finish`` may
+    read the launch's ``state`` (the EF residuals), which no caller
+    writes between launch and finish: every step takes the new residuals
+    from ``finish`` and never writes the old ones.  ``lags_hier2``'s
+    outer tier needs this: it selects on the pod mean, which exists only
+    once the inner tier's gathers are done, against the outer
+    residual."""
 
     def __init__(self, works: Sequence, finish: Callable[[], tuple],
                  keep: tuple = ()):
@@ -178,6 +205,19 @@ def _gather_picks_start(vals, idx, axes: Axes):
     vals_all, w_vals = _all_gather_start(vals, axes)
     idx_all, w_idx = _all_gather_start(idx, axes)
     return [w_vals, w_idx], (vals, idx), vals_all, idx_all
+
+
+def _sparse_mean_start(vals, idx, d: int, axes: Axes | None):
+    """Start the mean of one worker's sparse picks (vals, idx: (k,)) over
+    ``axes`` (the reference's ``_sparse_mean_over``): returns (works,
+    kept inputs, finish -> the dense (d,) mean).  ``axes=None`` is the
+    single worker: its picks decompressed."""
+    if axes is None:
+        return [], (), lambda: C.decompress(vals, idx, d)
+    works, keep, vals_all, idx_all = _gather_picks_start(vals, idx, axes)
+    p = axes.size
+    return works, keep, lambda: _gathered_scatter_mean(vals_all, idx_all,
+                                                       d, p)
 
 
 def _wave_ids(wave) -> tuple[int, ...]:
@@ -352,14 +392,10 @@ class SLGSExchange:
         if sim:
             mean = _gathered_scatter_mean(vals, idx, d, w)
             return _done(_split(mean, mean_shapes, dtypes), resids)
-        works, keep, vals_all, idx_all = _gather_picks_start(
-            vals[0], idx[0], axis_names)
-        p = axis_names.size
-
-        def finish():
-            mean = _gathered_scatter_mean(vals_all, idx_all, d, p)
-            return _split(mean, mean_shapes, dtypes), resids
-        return Launched(works, finish, keep)
+        works, keep, mean_of = _sparse_mean_start(vals[0], idx[0], d,
+                                                  axis_names)
+        return Launched(works, lambda: (
+            _split(mean_of(), mean_shapes, dtypes), resids), keep)
 
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
@@ -410,10 +446,14 @@ class BlockLAGSExchange:
     ``_select_rows`` kernel branch, reached only from outside
     ``_local_rows``, has no caller and no counterpart.
 
-    ``shard_dims``: per-leaf sharded dims (the reference's tensor-
-    parallel layout hint, a tree matching ``ks``).  Data parallelism
-    only: every leaf's must be empty; the reference's ``row_axes`` pin a
-    GSPMD layout and have no counterpart here."""
+    ``shard_dims``: per-leaf tuples of sharded dims, a tree matching
+    ``ks`` (the reference's layout hint; () or None = unsharded).  The
+    block view lays a leaf's sharded dims first before it flattens, as
+    the reference's does so that each device's rows stay local; this
+    decides which entries share a block.  The port's parameters stay
+    replicated: only ``lags_hier`` passes any (its FSDP dim over
+    'data').  The reference's ``row_axes`` pin a GSPMD layout and have
+    no counterpart here."""
     ks: Any
     block_size: int = 4096
     residual_dtype: torch.dtype = torch.float32
@@ -421,16 +461,6 @@ class BlockLAGSExchange:
     use_kernel: bool = False
     shard_dims: Any = None
     wave_granularity = "leaf"
-
-    def __post_init__(self):
-        # the per-leaf tuples are containers to tree.leaves, so any leaf
-        # left is a sharded dim index
-        if self.shard_dims is not None and any(
-                d is not None for d in tree.leaves(self.shard_dims)):
-            raise NotImplementedError(
-                f"BlockLAGSExchange: shard_dims={self.shard_dims!r} needs "
-                f"tensor parallelism, not ported yet (ROADMAP.md queue 1 "
-                f"item 7, its tensor-parallel tail)")
 
     def init(self, updates_like):
         return tree.map(lambda s: torch.zeros(
@@ -458,7 +488,7 @@ class BlockLAGSExchange:
         return (vals.reshape(w, n_blocks, k_b),
                 local.reshape(w, n_blocks, k_b), resid.reshape(w, -1))
 
-    def _launch_leaf(self, u, e, k: int, axis_names: Axes | None):
+    def _launch_leaf(self, u, e, k: int, sdims, axis_names: Axes | None):
         """Select and pack one leaf, then start its gather.  Returns
         (works, kept inputs, finish -> mean, residual)."""
         sim = axis_names is None
@@ -466,15 +496,36 @@ class BlockLAGSExchange:
         size = int(math.prod(param_shape))
         n_blocks, bs, k_b = self._geom(size, int(k))
         w = u.shape[0] if sim else 1
+        lead = len(u.shape) - len(param_shape)
+        sd = tuple(d for d in (sdims or ()) if 0 <= d < len(param_shape))
+        perm = (sd + tuple(i for i in range(len(param_shape))
+                           if i not in sd)) if sd else None
+
+        def to_flat(x):
+            if perm is not None:      # the sharded dims first
+                x = x.permute(tuple(range(lead))
+                              + tuple(lead + i for i in perm))
+            return x.reshape(w, size)
+
+        def from_flat(flat, shape_lead):
+            if perm is None:
+                return flat.reshape(shape_lead + param_shape)
+            n = len(shape_lead)
+            inv = sorted(range(len(perm)), key=perm.__getitem__)
+            x = flat.reshape(shape_lead + tuple(param_shape[i] for i in perm))
+            return x.permute(tuple(range(n))
+                             + tuple(n + i for i in inv)).contiguous()
+
         vals, local, resid_rows = self._local_rows(
-            u.reshape(w, size), e.reshape(w, size), n_blocks, bs, k_b)
-        resid = resid_rows[:, :size].reshape(e.shape)
+            to_flat(u), to_flat(e), n_blocks, bs, k_b)
+        resid = from_flat(resid_rows[:, :size],
+                          tuple(e.shape[:lead])).reshape(e.shape)
         dtype = u.dtype
 
         def mean_of(vals_all, local_all, p):
             mean = _row_scatter_mean(vals_all, local_all, n_blocks, bs,
                                      p)[:size]
-            return mean.reshape(param_shape).to(dtype)
+            return from_flat(mean, ()).to(dtype)
 
         if sim:
             mean = mean_of(vals, local, w)
@@ -489,11 +540,13 @@ class BlockLAGSExchange:
                       axis_names: Axes | None, *, key=None) -> Launched:
         """One wave: every leaf selected and packed (the ``ef_select_pack``
         kernel under ``use_kernel``) and its two gathers started."""
-        flat_k = tree.leaves(self.ks)
+        flat_k, treedef = tree.flatten(self.ks)
+        flat_s = (tree.flatten_up_to(treedef, self.shard_dims)
+                  if self.shard_dims is not None else [None] * len(flat_k))
         works, keep, resids, finishes = [], [], [], []
         for i, u, e in zip(_wave_ids(wave), updates, state):
             w, kept, resid, fin = self._launch_leaf(u, e, flat_k[i],
-                                                    axis_names)
+                                                    flat_s[i], axis_names)
             works += w
             keep.append(kept)
             resids.append(resid)
@@ -516,3 +569,232 @@ class BlockLAGSExchange:
             axis_names)
         return tree.unflatten(treedef, means), tree.unflatten(treedef,
                                                               resids)
+
+
+# ---------------------------------------------------------------------------
+# The hierarchies (beyond the paper, multi-pod): Lemma 1 holds for any
+# partition of the gradient into pieces, at each tier.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HierLAGSExchange:
+    """Hierarchical LAGS with a dense inner tier
+    (``repro.core.lags.HierLAGSExchange``): one worker's update is
+    averaged densely over ``inner_axes`` (the fast links), then selected
+    with error feedback and sparse-meaned over ``outer_axes`` (the slow
+    ones).
+
+    Leaves are one worker's, without a P axis; the exchange runs over
+    its own axes (``axis_names`` is ignored, as in the reference): each
+    an :class:`Axes` or None/``()`` for none.  With no axes it is a
+    local top-k.  The inner mean is what the selection reads, so a
+    launch waits for it; only the outer gathers are in flight after
+    it."""
+    ks: Any
+    inner_axes: Any = None
+    outer_axes: Any = None
+    compressor_name: str = "topk_exact"
+    residual_dtype: torch.dtype = torch.float32
+    name: str = "lags_hier"
+    compressor_kwargs: tuple = ()
+    wave_granularity = "leaf"
+
+    @property
+    def compressor(self) -> C.Compressor:
+        return C.get_compressor(self.compressor_name)
+
+    def init(self, updates_like):
+        return tree.map(lambda s: torch.zeros(
+            tuple(s.shape), dtype=self.residual_dtype, device=s.device),
+            updates_like)
+
+    def launch_bucket(self, wave, updates, state, axis_names=None, *,
+                      key=None) -> Launched:
+        kw = dict(self.compressor_kwargs)
+        comp = self.compressor
+        flat_k = tree.leaves(self.ks)
+        inner, outer = self.inner_axes or None, self.outer_axes or None
+        works, keep, resids, finishes = [], [], [], []
+        for i, u, e in zip(_wave_ids(wave), updates, state):
+            if inner is not None:     # the reference's _psum_mean
+                s = u.clone()
+                dist.all_reduce(s, op=dist.ReduceOp.SUM, group=inner.group)
+                u = s.div_(inner.size)
+            vals, idx, resid = local_select_ef(u[None], e[None], flat_k[i],
+                                               comp, **kw)
+            w, kept, fin = _sparse_mean_start(vals[0], idx[0], u.numel(),
+                                              outer)
+            works += w
+            keep.append(kept)
+            resids.append(resid[0])
+            finishes.append((fin, u.shape, u.dtype))
+        return Launched(works, lambda: (
+            [f().reshape(shape).to(dtype) for f, shape, dtype in finishes],
+            resids), tuple(keep))
+
+    def exchange_bucket(self, wave, updates, state, axis_names=None, *,
+                        key=None):
+        return self.launch_bucket(wave, updates, state, axis_names).finish()
+
+    def exchange(self, updates, state, axis_names=None, *, key=None):
+        flat_u, treedef = tree.flatten(updates)
+        means, resids = self.exchange_bucket(
+            tuple(range(len(flat_u))), flat_u, tree.leaves(state),
+            axis_names)
+        return tree.unflatten(treedef, means), tree.unflatten(treedef,
+                                                              resids)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseHierLAGSExchange:
+    """Sparse-intra-pod hierarchical LAGS (``lags_hier2``,
+    ``repro.core.lags.SparseHierLAGSExchange``).
+
+    Per leaf, per step:
+
+      1. inner tier: each worker accumulates its inner residual
+         (``acc_in = e_in + u``), selects ``ks_inner`` entries, and the
+         selections are scatter-meaned within the pod;
+      2. outer tier: the pod mean ``m`` lands on a second accumulator
+         (``acc_out = e_out + m``, the same on every worker of the pod),
+         ``ks`` entries are selected and scatter-meaned across pods.
+
+    Per-tier invariant: ``acc == scatter(values, indices) + residual``.
+    State is ``{"inner": tree, "outer": tree}`` in the per-worker layout;
+    the outer residual is replicated across the workers of a pod (same
+    data, deterministic selection), which keeps the distributed and the
+    simulation path bit for bit equal.
+
+    Simulation (``axis_names=None``): the leading P axis factors as
+    (n_outer, n_inner), outer-major.  Distributed: ``outer_axis`` of the
+    :class:`Axes` carries the cross-pod tier, every other axis the
+    intra-pod one; the inner picks' gathers start at launch, and
+    ``finish`` waits for them, selects the outer tier (reading the outer
+    residual, see :class:`Launched`) and runs the cross-pod gathers."""
+    ks: Any                        # outer-tier per-leaf k (cross-pod)
+    ks_inner: Any                  # inner-tier per-leaf k (intra-pod)
+    n_inner: int = 1               # leading-P factorization (simulation)
+    outer_axis: str = "pod"
+    compressor_name: str = "topk_exact"
+    residual_dtype: torch.dtype = torch.float32
+    name: str = "lags_hier2"
+    compressor_kwargs: tuple = ()
+    # inner-tier compressor override (None = compressor_name)
+    inner_compressor_name: str | None = None
+    inner_compressor_kwargs: tuple = ()
+    wave_granularity = "leaf"
+
+    @property
+    def compressor(self) -> C.Compressor:
+        return C.get_compressor(self.compressor_name)
+
+    @property
+    def inner_compressor(self) -> C.Compressor:
+        return C.get_compressor(self.inner_compressor_name
+                                or self.compressor_name)
+
+    def init(self, updates_like):
+        def zeros():
+            return tree.map(lambda s: torch.zeros(
+                tuple(s.shape), dtype=self.residual_dtype, device=s.device),
+                updates_like)
+        return {"inner": zeros(), "outer": zeros()}
+
+    def _tiers(self):
+        """((inner compressor, kwargs), (outer compressor, kwargs))."""
+        kw = dict(self.compressor_kwargs)
+        ikw = (dict(self.inner_compressor_kwargs)
+               if self.inner_compressor_name else kw)
+        return (self.inner_compressor, ikw), (self.compressor, kw)
+
+    def _sim_leaf(self, i, u, e_in, e_out, k_in, k_out):
+        (icomp, ikw), (comp, kw) = self._tiers()
+        p = u.shape[0]
+        n_in = max(1, int(self.n_inner))
+        if p % n_in:
+            raise ValueError(f"P={p} workers do not factor into n_inner="
+                             f"{n_in} per pod (leaf {i})")
+        n_out = p // n_in
+        d = _size(u[0])
+        vals, idx, resid_in = local_select_ef(u, e_in, k_in, icomp, **ikw)
+        # the pod means, each pod's workers scattered in rank order
+        m = torch.empty((n_out, d), dtype=vals.dtype, device=vals.device)
+        for o in range(n_out):
+            pod = slice(o * n_in, (o + 1) * n_in)
+            m[o] = _gathered_scatter_mean(vals[pod], idx[pod], d, n_in)
+        del vals, idx
+        # one outer accumulator per pod: the pod's first copy of e_out
+        lead = (n_out, n_in) + tuple(e_out.shape[1:])
+        e_pod = e_out.reshape(lead)[:, 0].contiguous()
+        vals2, idx2, resid_out = local_select_ef(
+            m.reshape((n_out,) + tuple(u.shape[1:])), e_pod, k_out, comp,
+            **kw)
+        del m, e_pod
+        mean = _gathered_scatter_mean(vals2, idx2, d, n_out)
+        resid_out = resid_out[:, None].expand(lead).reshape(e_out.shape)
+        return mean.reshape(u.shape[1:]).to(u.dtype), resid_in, resid_out
+
+    def launch_bucket(self, wave, updates, state,
+                      axis_names: Axes | None, *, key=None) -> Launched:
+        """One wave; ``state`` is ``{"inner": [...], "outer": [...]}``,
+        flat lists of the wave's residual leaves of each tier."""
+        ids = _wave_ids(wave)
+        ks_in, ks_out = tree.leaves(self.ks_inner), tree.leaves(self.ks)
+        legs = zip(ids, updates, state["inner"], state["outer"])
+        if axis_names is None:
+            out = [self._sim_leaf(i, u, ei, eo, ks_in[i], ks_out[i])
+                   for i, u, ei, eo in legs]
+            return _done([o[0] for o in out],
+                         {"inner": [o[1] for o in out],
+                          "outer": [o[2] for o in out]})
+        (icomp, ikw), (comp, kw) = self._tiers()
+        inner = axis_names.sub(tuple(a for a in axis_names.names
+                                     if a != self.outer_axis))
+        outer = axis_names.sub((self.outer_axis,))
+        works, keep, legs_in = [], [], []
+        for i, u, e_in, e_out in legs:
+            vals, idx, resid_in = local_select_ef(u[None], e_in[None],
+                                                  ks_in[i], icomp, **ikw)
+            w, kept, m_of = _sparse_mean_start(vals[0], idx[0], u.numel(),
+                                               inner)
+            works += w
+            keep.append(kept)
+            legs_in.append((i, u.shape, u.dtype, e_out, resid_in[0], m_of))
+
+        def finish():
+            # the outer tier: select on the pod mean, then the cross-pod
+            # gathers of every leaf, then their scatter-means
+            works2, keep2, outs = [], [], []
+            for i, shape, dtype, e_out, resid_in, m_of in legs_in:
+                m = m_of().reshape((1,) + tuple(shape))
+                vals2, idx2, resid_out = local_select_ef(
+                    m, e_out[None], ks_out[i], comp, **kw)
+                del m
+                w, kept, mean_of = _sparse_mean_start(
+                    vals2[0], idx2[0], e_out.numel(), outer)
+                works2 += w
+                keep2.append(kept)
+                outs.append((mean_of, shape, dtype, resid_in, resid_out[0]))
+            legs_in.clear()
+            for work in works2:
+                work.wait()
+            return ([f().reshape(shape).to(dtype)
+                     for f, shape, dtype, _, _ in outs],
+                    {"inner": [o[3] for o in outs],
+                     "outer": [o[4] for o in outs]})
+        return Launched(works, finish, tuple(keep))
+
+    def exchange_bucket(self, wave, updates, state,
+                        axis_names: Axes | None, *, key=None):
+        return self.launch_bucket(wave, updates, state, axis_names).finish()
+
+    def exchange(self, updates, state, axis_names: Axes | None,
+                 *, key=None):
+        flat_u, treedef = tree.flatten(updates)
+        means, ns = self.exchange_bucket(
+            tuple(range(len(flat_u))), flat_u,
+            {"inner": tree.leaves(state["inner"]),
+             "outer": tree.leaves(state["outer"])}, axis_names)
+        return (tree.unflatten(treedef, means),
+                {"inner": tree.unflatten(treedef, ns["inner"]),
+                 "outer": tree.unflatten(treedef, ns["outer"])})

@@ -1,11 +1,13 @@
 """Data-parallel mesh over ``torch.distributed``: the counterpart of
 ``repro.launch.mesh``.
 
-The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` with the
-dim name ``"data"`` over every rank of the default process group.  The
-backend follows the device: NCCL for ``cuda``, gloo for ``cpu``; a
-mismatch raises, with no fallback.  A ``model`` axis larger than 1
-(tensor parallelism) is not ported yet.
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over every
+rank of the default process group: 1-D ``("data",)``, or ``("pod",
+"data")`` when it has more than one pod (the reference's
+``make_host_mesh(pod=...)``), its ranks laid out pod-major.  The backend
+follows the device: NCCL for ``cuda``, gloo for ``cpu``; a mismatch
+raises, with no fallback.  A ``model`` axis larger than 1 (tensor
+parallelism) is not ported yet.
 
 Nothing on a machine tells a program of its cluster, so the caller
 starts the group itself (:func:`init_process_group`) with an address, a
@@ -47,12 +49,14 @@ def init_process_group(init_method: str, world_size: int, rank: int,
                             world_size=world_size, rank=rank)
 
 
-def make_mesh(data: int | None = None, model: int = 1, *, device="cuda"):
-    """The ("data",) mesh over the default process group.
+def make_mesh(data: int | None = None, model: int = 1, pod: int = 1, *,
+              device="cuda"):
+    """The ("data",) mesh over the default process group, or the
+    ("pod", "data") mesh when ``pod > 1``.
 
-    ``data`` defaults to the world size and must equal it; ``model`` must
-    be 1.  The group must already be initialised with the device's
-    backend."""
+    ``data`` defaults to the world size over ``pod``; ``pod·data`` must
+    equal the world size and ``model`` must be 1.  The group must
+    already be initialised with the device's backend."""
     if model != 1:
         raise NotImplementedError(
             f"model={model}: tensor parallelism is not ported yet "
@@ -66,9 +70,14 @@ def make_mesh(data: int | None = None, model: int = 1, *, device="cuda"):
         raise ValueError(f"a {dev.type} mesh needs the {want} backend; the "
                          f"process group runs {got}")
     world = dist.get_world_size()
-    data = world if data is None else data
-    if data != world:
-        raise ValueError(f"data={data} != world size {world}")
+    if pod < 1 or world % pod:
+        raise ValueError(f"pod={pod} does not divide the world size {world}")
+    data = world // pod if data is None else data
+    if pod * data != world:
+        raise ValueError(f"pod={pod} x data={data} != world size {world}")
+    if pod > 1:
+        return init_device_mesh(dev.type, (pod, data),
+                                mesh_dim_names=("pod", "data"))
     return init_device_mesh(dev.type, (data,), mesh_dim_names=("data",))
 
 
@@ -81,6 +90,13 @@ def device_of(mesh) -> torch.device:
 
 def data_axis_names(mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+def inner_axis_names(mesh) -> tuple[str, ...]:
+    """The intra-pod ('inner' tier) worker axes: the data axis the
+    hierarchical modes reduce (lags_hier) or sparsely exchange
+    (lags_hier2) within a pod."""
+    return tuple(a for a in mesh.mesh_dim_names if a == "data")
 
 
 def lags_axis_names(mesh, train_mode: str) -> tuple[str, ...]:
@@ -97,12 +113,22 @@ def n_workers(mesh, axes: tuple[str, ...]) -> int:
     return math.prod(mesh.size(names.index(a)) for a in axes)
 
 
-def worker_axes(mesh, names: tuple[str, ...]) -> lags.Axes:
-    """The exchange's :class:`~repro_torch.core.lags.Axes` for ``names``:
-    one mesh dim and its process group."""
-    if len(names) != 1:
+def worker_axes(mesh, names: tuple[str, ...]) -> lags.Axes | None:
+    """The exchange's :class:`~repro_torch.core.lags.Axes` for ``names``
+    (None when empty): one mesh dim and its process group, or every dim
+    of the mesh, whose group is the default one: ``init_device_mesh``
+    lays the ranks out row-major, the reference's outer-major worker
+    order."""
+    names = tuple(names)
+    if not names:
+        return None
+    if len(names) == 1:
+        return lags.Axes(names, mesh.get_group(names[0]))
+    if names != tuple(mesh.mesh_dim_names):
         raise NotImplementedError(
-            f"axes {names}: the exchange runs over exactly one mesh axis; "
-            f"several (the pod hierarchy) are not ported yet (ROADMAP.md "
-            f"queue 1 item 9)")
-    return lags.Axes(tuple(names), mesh.get_group(names[0]))
+            f"axes {names} of the mesh {mesh.mesh_dim_names}: the "
+            f"exchange runs over one mesh axis or over all of them")
+    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
+        raise ValueError("the mesh does not lay out every rank in order")
+    return lags.Axes(names, dist.group.WORLD,
+                     parts=tuple(worker_axes(mesh, (a,)) for a in names))

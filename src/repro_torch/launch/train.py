@@ -3,40 +3,53 @@
 
 Build steps through ``repro_torch.api`` (``Session(cfg, run,
 mesh=...).train_step()`` or ``build_train_step(cfg, mesh, run)``).  One
-process per worker; each runs the step on its own rank, as the
+process per rank; each runs the step on its own rank, as the
 reference's shard_map ``worker`` runs on its manual-axis shard:
 
   1. the gradient of the loss on this rank's rows of the global batch
-     (rank r takes rows [r·B/P, (r+1)·B/P), the simulation surface's
-     split);
-  2. ``u = lr·g`` in f32, or the DGC velocity ``mom = mc·mom + lr·g``
+     (rank r of the data axes takes rows [r·B/R, (r+1)·B/R) of R ranks,
+     pod-major: the simulation surface's split);
+  2. ``u = lr·g`` in f32; under the ``pod_auto`` axis plan (``lags_hier``)
+     the dense mean of ``u`` over the pod's ranks (the 'data' axis), the
+     reference's per-pod gradient; the DGC velocity ``mom = mc·mom + u``
      when ``momentum_correction`` mc > 0;
-  3. the exchange over the data axis: ``dense`` all-reduces the mean,
-     ``lags_dp`` runs ``BlockLAGSExchange`` (per-block top-k with error
-     feedback, the sparse (values, indices) all-gathered leaf by leaf),
-     ``slgs`` one global top-k over the whole-model vector;
+  3. the exchange over the strategy's worker axes: ``dense`` all-reduces
+     the mean, ``lags_dp`` runs ``BlockLAGSExchange`` (per-block top-k
+     with error feedback, the sparse (values, indices) all-gathered leaf
+     by leaf) and ``slgs`` one global top-k over the whole-model vector,
+     each over every rank of ('pod', 'data'); ``lags_hier2`` runs
+     ``SparseHierLAGSExchange`` over the same ranks, sparse within each
+     pod and then across pods; ``lags_hier`` runs ``BlockLAGSExchange``
+     over 'pod' (one worker per pod; on a single-pod mesh its
+     simulation path with P = 1, as the reference runs it);
   4. ``p <- (f32(p) − mean).to(p.dtype)``: plain SGD on pre-scaled
      deltas (Algorithm 1 line 10), not ``optim.SGD``.
 
 ``run.pipeline`` says when step 3 runs (``repro_torch.pipeline``):
 ``"off"`` after backward; ``"wave"`` inside backprop, each wave of leaves
 launched by autograd hooks as its gradients land and finished after
-backward (bitwise equal to ``"off"``); ``"async1"`` exchanges the
-PREVIOUS step's updates (``state["pending"]``, zeros at step 0): launched
-before the forward, finished after the backward, while this step's
-updates (the velocity under mc) become the new pending — one step of
-bounded staleness.
+backward (bitwise equal to ``"off"``; ``lags_hier`` runs its waves after
+backward, as the reference's pure-auto path does: its update needs the
+pod's mean first); ``"async1"`` exchanges the PREVIOUS step's updates
+(``state["pending"]``, zeros at step 0): launched before the forward,
+finished after the backward, while this step's updates (the velocity
+under mc) become the new pending — one step of bounded staleness.
 
-The loss is all-reduce-averaged.  State: ``{"params", "ef", "step"}``,
-plus ``"extra": {"mom"}`` when mc > 0 and ``"pending"`` under
-``async1``.  ``ef``, ``mom`` and ``pending`` hold this rank's worker
-slice, leaves (1, ...) f32 (the reference's per-worker state under its
-manual axes); ``step`` is a Python int.  The port updates the
-parameters and the velocity in place, which saves one copy of each;
-under ``async1`` with mc the pending leaves are the velocity's own.
+The loss is all-reduce-averaged over every rank.  State: ``{"params",
+"ef", "step"}``, plus ``"extra": {"mom"}`` when mc > 0 and ``"pending"``
+under ``async1``.  ``ef`` (one tree per tier, ``{"inner", "outer"}``, for
+``lags_hier2``), ``mom`` and ``pending`` hold this rank's worker slice,
+leaves (1, ...) f32 (the reference's per-worker state under its manual
+axes; under ``lags_hier`` the pod's, the same on each of its ranks);
+``step`` is a Python int.  The port updates the parameters and the
+velocity in place, which saves one copy of each; under ``async1`` with
+mc the pending leaves are the velocity's own.  The reference's
+``lags_hier`` shards the parameters over 'data' (FSDP); here they stay
+replicated (that memory layout is ROADMAP.md queue 1 item 7's tail), but
+its block exchange takes the FSDP layout's blocks (``_block_layout``).
 
-Not ported yet: ``health_every > 0`` (ROADMAP.md queue 1 item 12),
-``schedule`` (item 10) and the hierarchy (item 9).
+Not ported yet: ``health_every > 0`` (ROADMAP.md queue 1 item 12) and
+``schedule`` (item 10).
 """
 from __future__ import annotations
 
@@ -48,20 +61,67 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.api import registry as R
 from repro_torch.api.config import RunConfig, canonical_mode
+from repro_torch.core import lags
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
 from repro_torch.pipeline import buckets as WB
 from repro_torch.pipeline import step as WS
 from repro_torch.pipeline import waves as WW
+from repro_torch.sharding import rules
 from repro_torch.training.train_loop import Spec
 
 
 def _mode(cfg, mesh, method: str | None):
-    """(mode, manual axes): every ported strategy runs manual over the
-    data axes."""
+    """(mode, manual axes, worker axes) from the strategy's axis plan
+    (``ExchangeStrategy.axes``): ``data_manual`` strategies run over the
+    data axes ('pod', 'data'), every rank a worker; ``pod_auto``
+    (lags_hier) has one worker per pod, over 'pod' (no axis on a
+    single-pod mesh), and no manual axes; ``none`` has neither.  Unknown
+    modes raise."""
     mode = canonical_mode(method or cfg.train_mode)
-    R.get_exchange(mode)            # unknown modes raise here
-    return mode, M.data_axis_names(mesh)
+    plan = R.get_exchange(mode).axes
+    if plan == "pod_auto":
+        return mode, (), tuple(a for a in mesh.mesh_dim_names if a == "pod")
+    if plan == "data_manual":
+        manual = M.data_axis_names(mesh)
+        return mode, manual, manual
+    return mode, (), ()
+
+
+@dataclasses.dataclass(frozen=True)
+class _OneWorker:
+    """``exch`` over no worker axes (lags_hier on a single-pod mesh): its
+    simulation path with P = 1 on this rank's leaves, as the reference
+    runs the exchange with ``axis_names=None`` on a leading axis of 1."""
+    exch: object
+
+    @property
+    def wave_granularity(self) -> str:
+        return self.exch.wave_granularity
+
+    def launch_bucket(self, wave, updates, state, axis_names, *, key=None):
+        means, resids = self.exch.exchange_bucket(
+            wave, [u[None] for u in updates], [e[None] for e in state], None)
+        return lags._done(means, [e[0] for e in resids])
+
+    def exchange_bucket(self, wave, updates, state, axis_names, *, key=None):
+        return self.launch_bucket(wave, updates, state, axis_names).finish()
+
+
+def _block_layout(cfg, mesh, params_like, strat):
+    """The per-leaf dims the block exchange lays first (its
+    ``shard_dims``): under ``pod_auto`` the reference shards the
+    parameters over 'data' (FSDP), and its block view follows that
+    layout; the port keeps the parameters replicated but takes the same
+    block layout, so that lags_hier selects what the reference selects.
+    None elsewhere (the data-parallel layouts shard nothing)."""
+    if strat.axes != "pod_auto":
+        return None
+    sizes = {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+    specs = rules.tree_specs(params_like, T.logical_axes(cfg), sizes,
+                             fsdp_axis="data")
+    return rules.shard_dims_tree(params_like, specs,
+                                 M.inner_axis_names(mesh))
 
 
 def make_state_specs(cfg, mesh, *, method: str | None = None,
@@ -74,7 +134,7 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
     if pipeline not in WW.PIPELINE_MODES:
         raise ValueError(f"pipeline={pipeline!r} not in "
                          f"{WW.PIPELINE_MODES}")
-    mode, manual = _mode(cfg, mesh, method)
+    mode, manual, worker = _mode(cfg, mesh, method)
     dev = M.device_of(mesh)
     params = tree.map(lambda m: Spec(m.shape, m.dtype, dev),
                       T.abstract_params(cfg))
@@ -83,15 +143,19 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
         # this rank's worker slice of a per-worker f32 state
         return Spec((1,) + s.shape, torch.float32, dev)
 
-    state = {"params": params,
-             "ef": () if mode == "dense" else tree.map(local, params),
+    ef = () if mode == "dense" else tree.map(local, params)
+    tiers = R.get_exchange(mode).ef_tiers
+    if ef and tiers:
+        # two-tier exchanges: one residual tree per tier, same layout
+        ef = {t: ef for t in tiers}
+    state = {"params": params, "ef": ef,
              "step": Spec((), torch.int64, torch.device("cpu"))}
     if pipeline == "async1":
         state["pending"] = tree.map(local, params)
     if momentum_correction > 0.0:
         state["extra"] = {"mom": tree.map(local, params)}
-    meta = {"mode": mode, "manual": manual,
-            "n_workers": M.n_workers(mesh, manual), "pipeline": pipeline}
+    meta = {"mode": mode, "manual": manual, "worker_axes": worker,
+            "n_workers": M.n_workers(mesh, worker), "pipeline": pipeline}
     return state, meta
 
 
@@ -100,9 +164,11 @@ def build_train_step(cfg, mesh, run: RunConfig):
 
     ``step_fn(state, batch) -> (state, metrics)``: ``batch`` is the
     global batch ({"tokens", "labels"} (B, S) on this rank's device, the
-    same on every rank); ``metrics = {"loss"}``, the mean over workers.
-    ``meta`` carries ``mode``, ``n_workers``, ``manual``, ``ks``, ``run``
-    and ``waves`` (the ``WaveSchedule`` of a pipelined run, else None).
+    same on every rank); ``metrics = {"loss"}``, the mean over ranks.
+    ``meta`` carries ``mode``, ``n_workers``, ``manual``,
+    ``worker_axes``, ``ks``, ``run``, ``waves`` (the ``WaveSchedule`` of a
+    pipelined run, else None), ``exchange`` and ``axes`` (the exchange
+    the step runs and the ``lags.Axes`` it runs over, None for none).
     ``step_fn(state, batch, marks=[])`` under ``pipeline="wave"`` fills
     the list with each wave's launch marks (``pipeline.step.launch_leads``
     reads them); without it nothing is recorded."""
@@ -112,22 +178,32 @@ def build_train_step(cfg, mesh, run: RunConfig):
     state_specs, meta = make_state_specs(
         cfg, mesh, method=run.mode, pipeline=run.pipeline,
         momentum_correction=run.momentum_correction)
-    mode, manual = meta["mode"], meta["manual"]
-    p_workers = meta["n_workers"]
+    mode, worker = meta["mode"], meta["worker_axes"]
+    strat = R.get_exchange(mode)
     exch = R.build_exchange(R.ExchangeSpec(
         mode=mode, params_like=state_specs["params"],
         ratio=run.resolved_ratio(cfg), block_size=run.block_size,
         compressor=run.compressor, selection_backend=run.selection_backend,
-        sim=False, n_workers=p_workers,
+        inner_compressor=run.inner_compressor, sim=False,
+        n_workers=meta["n_workers"], ratio_inner=run.resolved_ratio_inner(),
+        n_inner=max(1, M.n_workers(mesh, M.inner_axis_names(mesh))),
+        shard_dims=_block_layout(cfg, mesh, state_specs["params"], strat),
         momentum_correction=run.momentum_correction))
+    # every rank of the data axes: the batch split and the loss mean
+    ranks = M.worker_axes(mesh, M.data_axis_names(mesh))
+    rank, n_ranks = dist.get_rank(ranks.group), ranks.size
+    axes = M.worker_axes(mesh, worker)
+    # pod_auto: the pod's update is the dense mean of its ranks'
+    inner = (M.worker_axes(mesh, M.inner_axis_names(mesh))
+             if strat.axes == "pod_auto" else None)
+    step_exch = exch if axes is not None else _OneWorker(exch)
     meta["ks"] = getattr(exch, "ks", None)
     meta["run"] = dataclasses.replace(run, mode=mode)
-    axes = M.worker_axes(mesh, manual)
-    rank = dist.get_rank(axes.group)
+    meta["exchange"], meta["axes"] = exch, axes
     dev = M.device_of(mesh)
     mc = float(run.momentum_correction)
     pipeline = run.pipeline
-    ef_tiers = R.get_exchange(mode).ef_tiers
+    ef_tiers = strat.ef_tiers
 
     # wave partition of the pipelined modes: a given schedule is re-bound
     # by leaf name against THIS params tree; otherwise the geometry
@@ -149,11 +225,38 @@ def build_train_step(cfg, mesh, run: RunConfig):
 
     def shard(x):
         b = x.shape[0]
-        if b % p_workers:
+        if b % n_ranks:
             raise ValueError(f"global batch {b} does not split over "
-                             f"{p_workers} workers")
-        per = b // p_workers
+                             f"{n_ranks} ranks")
+        per = b // n_ranks
         return x[rank * per:(rank + 1) * per]
+
+    def local(ef):
+        """This rank's worker slice of the EF state: flat leaves without
+        the leading 1 (one list per tier for two-tier exchanges)."""
+        if mode == "dense":
+            return ()
+        flat = WS.flatten_state(ef, ef_tiers)
+        if isinstance(flat, dict):
+            return {t: [e[0] for e in v] for t, v in flat.items()}
+        return [e[0] for e in flat]
+
+    def stacked(flat, treedef):
+        if mode == "dense":
+            return ()
+        if isinstance(flat, dict):
+            return {t: tree.unflatten(treedef, [e[None] for e in v])
+                    for t, v in flat.items()}
+        return tree.unflatten(treedef, [e[None] for e in flat])
+
+    def update_of(g, lr, mom):
+        """``u = lr·f32(g)``, the pod's mean of it under pod_auto, and
+        the velocity ``mom = mc·mom + u`` (in place) under mc."""
+        u = g.float().mul_(lr)
+        if inner is not None:
+            dist.all_reduce(u, op=dist.ReduceOp.SUM, group=inner.group)
+            u.div_(inner.size)
+        return u if mom is None else mom[0].mul_(mc).add_(u)
 
     def step(state, batch, *, marks: list | None = None):
         params = state["params"]
@@ -161,13 +264,12 @@ def build_train_step(cfg, mesh, run: RunConfig):
         local_batch = tree.map(shard, batch)
         lr = torch.as_tensor(run.lr_at(state["step"]), dtype=torch.float32,
                              device=dev)
-        ef_local = ([e[0] for e in tree.leaves(state["ef"])]
-                    if mode != "dense" else ())
+        ef_local = local(state["ef"])
         out = {k: v for k, v in state.items() if k not in ("ef", "step")}
-        if pipeline == "wave":
+        if pipeline == "wave" and inner is None:
             # each wave's exchange launches inside backprop (hooks)
             (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
-                lambda p: loss_fn(p, local_batch), exch, waves.waves,
+                lambda p: loss_fn(p, local_batch), step_exch, waves.waves,
                 params, WS.unflatten_state(ef_local, treedef), axes, lr=lr,
                 has_aux=True, tiers=ef_tiers, marks=marks)
             flat_mean = tree.leaves(mean_upd)
@@ -180,21 +282,17 @@ def build_train_step(cfg, mesh, run: RunConfig):
                 # forward and backward
                 pend = [x[0] for x in tree.leaves(state["pending"])]
                 with torch.no_grad():
-                    launched = WS.launch_waves(exch, waves.waves, pend,
+                    launched = WS.launch_waves(step_exch, waves.waves, pend,
                                                ef_local, axes)
                 del pend
             loss, _aux = loss_fn(params, local_batch)
             grads = list(torch.autograd.grad(loss, leaves))
+            moms = (tree.leaves(state["extra"]["mom"]) if mc > 0.0
+                    else [None] * len(grads))
             with torch.no_grad():
-                if mc > 0.0:
-                    # DGC momentum correction: the velocity accumulates
-                    # BEFORE sparsification, per worker (in place)
-                    updates = [m[0].mul_(mc).add_(g.float().mul_(lr))
-                               for m, g in zip(
-                                   tree.leaves(state["extra"]["mom"]),
-                                   grads)]
-                else:
-                    updates = [g.float().mul_(lr) for g in grads]
+                # DGC momentum correction: the velocity accumulates
+                # BEFORE sparsification, per worker (in place)
+                updates = [update_of(g, lr, m) for g, m in zip(grads, moms)]
                 del grads
                 if pipeline == "async1":
                     flat_mean, new_ef = WS.finish_waves(launched, waves.waves,
@@ -203,8 +301,15 @@ def build_train_step(cfg, mesh, run: RunConfig):
                     out["pending"] = (state["extra"]["mom"] if mc > 0.0
                                       else tree.unflatten(
                                           treedef, [u[None] for u in updates]))
+                elif pipeline == "wave":
+                    # lags_hier: the waves after backward (its update is
+                    # the pod's mean), as the reference's pure-auto path
+                    flat_mean, new_ef = WS.finish_waves(
+                        WS.launch_waves(step_exch, waves.waves, updates,
+                                        ef_local, axes),
+                        waves.waves, ef_local)
                 else:
-                    flat_mean, new_ef = exch.exchange_bucket(
+                    flat_mean, new_ef = step_exch.exchange_bucket(
                         tuple(range(len(leaves))), updates, ef_local, axes)
                 del updates
         del ef_local
@@ -213,10 +318,9 @@ def build_train_step(cfg, mesh, run: RunConfig):
                 p.copy_(p.float() - d)
             del flat_mean
             loss = loss.detach().clone()
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=axes.group)
-            loss = loss / axes.size
-        out["ef"] = (() if mode == "dense" else
-                     tree.unflatten(treedef, [e[None] for e in new_ef]))
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=ranks.group)
+            loss = loss / n_ranks
+        out["ef"] = stacked(new_ef, treedef)
         out["step"] = state["step"] + 1
         return out, {"loss": loss}
 

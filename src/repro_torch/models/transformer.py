@@ -74,6 +74,32 @@ def _shapes(cfg) -> dict:
     return out
 
 
+def logical_axes(cfg) -> dict:
+    """Each leaf's logical axis names, in the params' structure (the
+    reference's ``init_model`` axes tree): what ``sharding.rules`` maps
+    onto mesh axes."""
+    def stacked(*names):
+        return ("layers",) + names
+    ffn = {"w_up": stacked("embed", "ffn"), "w_down": stacked("ffn", "embed")}
+    if cfg.gated_ffn:
+        ffn["w_gate"] = stacked("embed", "ffn")
+    stack = {
+        "attn": {"wq": stacked("embed", "heads", "head_dim"),
+                 "wk": stacked("embed", "kv_heads", "head_dim"),
+                 "wv": stacked("embed", "kv_heads", "head_dim"),
+                 "wo": stacked("heads", "head_dim", "embed")},
+        "ffn": ffn,
+        "ln_attn": {"scale": stacked("embed")},
+        "ln_ffn": {"scale": stacked("embed")},
+    }
+    out = {"decoder": {"blocks": [stack], "tail": []},
+           "embed": {"embedding": ("vocab", "embed")},
+           "final_norm": {"scale": ("embed",)}}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {"w": ("embed", "vocab")}
+    return out
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters from ``seed`` (a ``torch.Generator`` on the
     device: the same distributions as the reference's init, not the same

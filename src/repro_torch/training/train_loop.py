@@ -14,7 +14,10 @@ Like the reference's ``SimTrainer``, it never reads ``run.pipeline``: the
 simulation surface always runs the monolithic post-backward exchange
 (``wave`` is bitwise equal to it; ``async1`` and the in-backprop waves
 are the distributed step's, ``repro_torch.launch.train``).  Every
-registered ported mode runs here: ``dense``, ``lags_dp`` and ``slgs``.
+registered mode runs here: ``dense``, ``lags_dp``, ``slgs``,
+``lags_hier`` (the per-leaf exchange over P workers, one per pod, as the
+reference's) and ``lags_hier2`` (P factors as pods × ``inner_workers``;
+the state's ``"ef"`` is ``{"inner", "outer"}``, from ``exchange.init``).
 """
 from __future__ import annotations
 
@@ -39,8 +42,11 @@ def _sim_spec(run: RunConfig, params, n_workers: int) -> R.ExchangeSpec:
                           ratio=run.resolved_ratio(),
                           compressor=run.compressor,
                           selection_backend=run.selection_backend,
+                          inner_compressor=run.inner_compressor,
                           block_size=run.block_size, sim=True,
                           n_workers=n_workers,
+                          ratio_inner=run.resolved_ratio_inner(),
+                          n_inner=run.inner_workers or 1,
                           momentum_correction=run.momentum_correction)
 
 

@@ -53,6 +53,30 @@ def leaves(tree) -> list:
     return flatten(tree)[0]
 
 
+def _up_to_into(node, x, out: list) -> None:
+    if node is None:
+        out.append(x)
+        return
+    kind, keys, children = node
+    if kind == "dict":
+        for k, c in zip(keys, children):
+            _up_to_into(c, x[k], out)
+        return
+    if len(x) != len(children):
+        raise ValueError("tree structures differ")
+    for c, v in zip(children, x):
+        _up_to_into(c, v, out)
+
+
+def flatten_up_to(treedef, tree) -> list:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef``, in
+    flatten order (``jax``'s ``treedef.flatten_up_to``): a tree of
+    per-leaf tuples gives one tuple per leaf."""
+    out: list = []
+    _up_to_into(treedef, tree, out)
+    return out
+
+
 def _paths_into(x, path: tuple, out: list) -> None:
     if isinstance(x, dict):
         for k in sorted(x):

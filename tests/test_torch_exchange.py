@@ -163,24 +163,33 @@ def test_ef_invariant_exact():
 
 @pytest.mark.parametrize("mode", ["lags_hier", "lags_hier2"])
 def test_unported_modes_raise_naming_roadmap(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _exchanges(mode, "topk_exact", "xla", 2)
+    """The hierarchy is ported; what it still lacks, a key-needing
+    compressor (either tier of lags_hier2), raises naming its item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        _exchanges(mode, "randk", "xla", 2)
+    assert _exchanges(mode, "topk_exact", "xla", 2)[0] is not None
 
 
 def test_distributed_surface_raises_naming_roadmap():
     """What the distributed surface still lacks raises, naming its
-    ROADMAP.md item: a ``model`` axis > 1 and sharded dims (tensor
-    parallelism)."""
+    ROADMAP.md item: a ``model`` axis > 1 (tensor parallelism).  Sharded
+    dims are a block layout the exchange now takes (lags_hier's FSDP
+    dim, ``test_torch_hier.py``); unsharded hints are the identity."""
     from repro_torch.launch import mesh as M
-    like = {"a": np.zeros((4,), np.float32)}
+    like = {"a": np.zeros((4, 6), np.float32)}
     with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):
         M.make_mesh(data=2, model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):
-        TR.build_exchange(TR.ExchangeSpec(mode="lags_dp", params_like=like,
-                                          shard_dims={"a": (0,)}))
-    # unsharded hints are the identity layout
-    TR.build_exchange(TR.ExchangeSpec(mode="lags_dp", params_like=like,
-                                      shard_dims={"a": ()}))
+    u = {"a": torch.from_numpy(_tree(2, 9)["b"][:, :4, :6].copy())}
+    outs = []
+    for sdims in ({"a": (1,)}, {"a": ()}, None):
+        ex = TR.build_exchange(TR.ExchangeSpec(
+            mode="lags_dp", params_like=like, ratio=3.0, block_size=6,
+            shard_dims=sdims, sim=False, n_workers=2))
+        outs.append(ex.exchange(u, ex.init(u), None))
+    # the identity layouts agree; the sharded dim laid first picks other
+    # blocks
+    assert torch.equal(outs[1][0]["a"], outs[2][0]["a"])
+    assert not torch.equal(outs[0][0]["a"], outs[1][0]["a"])
 
 
 # -- BlockLAGSExchange: the distributed lags_dp exchange -----------------

@@ -182,6 +182,42 @@ def test_slgs_on_the_card_equals_its_plain_version(cuda):
     assert counts["ef_select_pack"] == 2
 
 
+def test_hier2_on_the_card_equals_its_plain_version(cuda):
+    """The kernel-backed ``lags_hier2`` simulation exchange (2 pods x 2;
+    inner ``topk_block``: the pack kernel; outer ``topk_exact``:
+    candidates kernel, k-th candidate magnitude, gated pack kernel) on
+    the card == on the CPU (plain versions), bit for bit: mean and both
+    residuals, two steps with the residuals fed back, leaves with a
+    short tail block."""
+    from repro_torch.api import registry as R
+    like = {"a": torch.zeros(3, 5000), "b": torch.zeros(2**16 + 7),
+            "c": torch.zeros(2000)}
+    ex = R.build_exchange(R.ExchangeSpec(
+        mode="lags_hier2", params_like=like, ratio=100.0, ratio_inner=10.0,
+        compressor="topk_exact", inner_compressor="topk_block",
+        selection_backend="kernel", sim=True, n_workers=4, n_inner=2))
+    assert ex.compressor_name == "topk_hier_ef_kernel"
+    assert ex.inner_compressor_name == "topk_block_ef_kernel"
+    gen = torch.Generator().manual_seed(12)
+    e_cpu = ex.init({k: torch.zeros((4,) + tuple(v.shape))
+                     for k, v in like.items()})
+    e_gpu = tree.map(lambda v: v.to(cuda), e_cpu)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        u = {k: 1e-2 * torch.randn((4,) + tuple(v.shape), generator=gen)
+             for k, v in like.items()}
+        m_cpu, e_cpu = ex.exchange(u, e_cpu, None)
+        m_gpu, e_gpu = ex.exchange({k: v.to(cuda) for k, v in u.items()},
+                                   e_gpu, None)
+        _bitwise(tree.leaves(m_gpu) + tree.leaves(e_gpu),
+                 tree.leaves(m_cpu) + tree.leaves(e_cpu))
+    counts = kernels.launch_counts()
+    # per step: 3 inner packs; "a" and "b" candidates + gated pack, "c"
+    # (d <= block_size) one exact pack
+    assert counts["ef_select_pack"] == 2 * 6
+    assert counts["ef_block_candidates"] == 2 * 2
+
+
 def _nccl_world_of_one():
     import socket
     from repro_torch.launch import mesh as M
@@ -192,7 +228,8 @@ def _nccl_world_of_one():
     return M.make_mesh(device="cuda")
 
 
-@pytest.mark.parametrize("mode", ["dense", "lags_dp", "slgs"])
+@pytest.mark.parametrize("mode", ["dense", "lags_dp", "slgs", "lags_hier2",
+                                  "lags_hier"])
 def test_wave_step_equals_off_step_bitwise(cuda, mode):
     """Two distributed steps at world size 1 (NCCL) under deterministic
     algorithms: ``pipeline="wave"`` (exchanges launched by autograd hooks
@@ -213,7 +250,7 @@ def test_wave_step_equals_off_step_bitwise(cuda, mode):
             run = api.RunConfig(mode=mode, ratio=16.0, lr=0.1,
                                 selection_backend="kernel", block_size=1024,
                                 pipeline=pipeline, wave_target_bytes=2048,
-                                chunk=16, loss_chunk=16)
+                                chunk=16, loss_chunk=16, ratio_inner=4.0)
             sess = api.Session(cfg, run, mesh=mesh)
             state, _ = sess.init_state(
                 params=TT.Transformer(cfg, seed=0, device=cuda).params)

@@ -221,10 +221,12 @@ def test_cover_invariant():
 def test_plan_waves_and_the_hierarchy_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         TP.plan_waves([], None, 4, HW)
+    # the hierarchy is ported; a key-needing compressor still raises
     for mode in ("lags_hier", "lags_hier2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             TR.build_exchange(TR.ExchangeSpec(
-                mode=mode, params_like={"a": torch.zeros(4)}))
+                mode=mode, params_like={"a": torch.zeros(4)}, sim=True,
+                compressor="randk"))
 
 
 def test_package_exports_match_reference_less_overlap():

@@ -75,8 +75,10 @@ def test_trainer_refuses_params_on_another_device():
 
 
 @pytest.mark.parametrize("knob", [
-    {"measure_delta": True}, {"health_every": 5}, {"mode": "lags_hier"},
-    {"mode": "lags_hier2"}, {"schedule": object()},
+    {"measure_delta": True}, {"health_every": 5},
+    {"mode": "lags_hier", "compressor": "randk"},
+    {"mode": "lags_hier2", "inner_compressor": "randk"},
+    {"schedule": object()},
     {"compressor": "randk"}])
 def test_unported_knobs_raise_naming_roadmap(knob):
     cfg = tinyllama_1_1b.smoke_config()
