@@ -17,6 +17,18 @@
 3. Small-input reference: the kernel-backed exchanges on the card
    (``lags_dp`` under three compressors, ``lags_hier2`` with 2 pods x 2)
    against the same exchanges on the CPU (plain versions), bitwise.
+3a. The autotune pipeline (Eq. 18): ``profile_model`` of the real train
+   step at full width and depth on the world-size-1 NCCL mesh,
+   ``fit_hardware`` (measured FLOP/s; ``H100_NVLINK``'s α and β: one
+   rank has no wire), then ``plan_schedule`` at P = 2 (the simulation
+   path) and P = 4 (the distributed path, a what-if at world size 1:
+   ``validate_for``'s worker-count warning is printed), a
+   ``HierSchedule`` of pod 2 × data 2 (``plan_hier_schedule``: the inner
+   tier on the fitted wire, the outer on the paper's 1 Gbps Ethernet)
+   and ``plan_waves`` of the P = 4 plan; each saved and loaded back
+   equal, every leaf's (name, d, ratio, k, k_b) printed.
+   ``ef_select_pack`` is then timed at every k_b the block exchanges run
+   under the plans, on the largest leaf, beside ``torch.topk``.
 4. The main path: LAGS-SGD training of TinyLlama-1.1B at its published
    width (bf16 parameters), one 1024-token sequence per simulated
    worker, ratio 1000, 3 steps per configuration of ``SIM_CONFIGS``
@@ -26,9 +38,14 @@
    ``lags_hier2`` with P=4 (2 pods x 2, inner ratio 100 under
    ``topk_block``, outer ratio 1000 under ``topk_exact``) at 16 of the
    22 layers, the depth at which its two f32 residuals per worker fit
-   the card.  Every loss must be finite and every kernel of a
-   configuration must launch in it; the EF invariant is checked on one
-   leaf (for ``lags_hier2`` on each tier).
+   the card; and, under the P = 2 plan, ``lags_dp`` + kernel backend +
+   ``topk_exact`` with ``measure_delta`` (the Eq. 20 delta of every
+   leaf printed each step) and ``lags_dp`` + ``randk`` or
+   ``topk_sampled`` (xla backend: neither has a kernel variant; every
+   pick checked distinct, in range and equal to x[idx], every stream
+   drawing anew each step).  Every loss must be finite and every kernel
+   of a configuration must launch in it; the EF invariant is checked on
+   one leaf (for ``lags_hier2`` on each tier).
 5. ``ef_accum_sparsify``'s own path, the entry point
    ``ops.ef_accum_sparsify`` as its users call it: two error-feedback
    threshold passes over every leaf of one full-size TinyLlama-1.1B
@@ -47,7 +64,9 @@
    and in its one wave; ``lags_hier2`` (kernel backend, the simulation
    phase's tiers) off and ``wave``, and ``lags_hier`` (kernel backend),
    on the ``make_mesh()`` of one rank: one pod, so the outer tier runs
-   over no axis.  Step 0 runs under deterministic algorithms: step 0's
+   over no axis; and under the autotune phase's plans ``lags_dp``
+   (kernel backend, the P = 4 plan) off and in its planned waves, and
+   ``lags_hier2`` (the two-tier plan).  Step 0 runs under deterministic algorithms: step 0's
    exchanged mean and EF residuals (every tier's) of ``lags_dp``,
    ``slgs``, ``lags_hier2`` and ``lags_hier`` must equal the simulation
    path's (P = 1) bit for bit, every kernel launch of that exchange (for
@@ -68,7 +87,11 @@ sequences per global batch: the flat configurations on the ("data",)
 mesh of 4, the hierarchy on the ("pod", "data") mesh of 2 x 2; after
 every step each rank's parameters must equal rank 0's bit for bit, with
 deterministic algorithms off (the replicas are never re-synchronised, so
-the exchange itself must give every rank the same bits).
+the exchange itself must give every rank the same bits).  Its schedules
+come from the autotune pipeline over the 4 ranks: every rank profiles
+(the real step and ``time_collectives``); rank 0 prints the wire
+samples and the fitted α and β (the source of ``H100_NVLINK``), plans,
+and sends the plans to every rank.
 
 Any failure raises (non-zero exit).  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script exits 1 and prints no result.
@@ -122,7 +145,23 @@ SIM_CONFIGS = {
              inner_compressor="topk_block", ratio=1000.0, ratio_inner=100.0,
              inner_workers=2), 4, 16,
         ("ef_block_candidates", "ef_select_pack")),
+    # the adaptive ratios: the P = 2 plan of the autotune phase drives
+    # every leaf's budget ("sim" resolves to it); planned-dense leaves
+    # keep everything without a selection
+    "lags_dp/topk_exact/kernel/sched": (
+        dict(mode="lags_dp", compressor="topk_exact", schedule="sim",
+             measure_delta=True), 2, None,
+        ("ef_block_candidates", "ef_select_pack")),
+    # the sampling compressors have no kernel variant (as in the
+    # reference): the xla backend, the same plan
+    "lags_dp/randk/xla/sched": (
+        dict(mode="lags_dp", compressor="randk", schedule="sim"), 2, None,
+        ()),
+    "lags_dp/topk_sampled/xla/sched": (
+        dict(mode="lags_dp", compressor="topk_sampled", schedule="sim"), 2,
+        None, ()),
 }
+SAMPLERS = ("randk", "topk_sampled")
 
 
 def card_line() -> str:
@@ -330,6 +369,180 @@ def timings(dev, cfg, p: int) -> dict:
     return out
 
 
+def block_kb(d: int, k: int, block_size: int = 4096) -> int:
+    """``BlockLAGSExchange``'s per-block budget of a leaf of d with k."""
+    bs = min(block_size, d)
+    return max(1, min(bs, -(-k * bs // d)))
+
+
+def make_plans(cfg, prof, hw, out_dir: Path, tag: str, world: int) -> dict:
+    """Eq. 18 per leaf over a measured profile and a fitted ``hw``: the
+    P = 2 plan of the simulation path ("sim"), the P = 4 plan of the
+    distributed path ("flat"), a two-tier plan of pod 2 × data 2
+    ("hier": the inner tier on ``hw``'s wire, the outer on the paper's
+    1 Gbps Ethernet with ``hw``'s compute) and the planned waves of the
+    flat plan.  Each schedule is saved, loaded back and held equal to
+    itself; every leaf's (name, d, ratio, k, k_b) is printed; the
+    worker-count warning of a P = 4 plan run on ``world`` ranks is
+    printed, not suppressed."""
+    import warnings
+    from repro_torch import tree
+    from repro_torch.autotune import planner, profiler
+    from repro_torch.autotune import schedule as S
+    from repro_torch.core import comm_model as cm
+    from repro_torch.models import transformer as T
+    from repro_torch.pipeline import buckets as WB
+    from repro_torch.pipeline import waves as W
+    from repro_torch.runtime import hier as H
+    leaves = prof.leaves
+    outer_hw = dataclasses.replace(hw, name="eth_1gbps_wire",
+                                   alpha=cm.ETH_1GBPS.alpha,
+                                   beta=cm.ETH_1GBPS.beta)
+    kw = dict(arch=prof.arch, shape=prof.shape)
+    plans = {"sim": planner.plan_schedule(leaves, 2, hw, **kw),
+             "flat": planner.plan_schedule(leaves, 4, hw, **kw),
+             "hier": H.plan_hier_schedule(
+                 leaves, p_inner=2, p_outer=2, hw_inner=hw,
+                 hw_outer=outer_hw, train_mode="lags_hier2", **kw)}
+    plans["waves"] = W.plan_waves(
+        leaves, plans["flat"], 4, hw, pipeline="wave",
+        t_forward=prof.t_step_dense * (1 - profiler.BWD_FRACTION),
+        flat_names=tree.leaf_paths(T.abstract_params(cfg)))
+    for name in ("sim", "flat", "hier"):
+        path = out_dir / f"schedule_{tag}_{name}.json"
+        plans[name].save(str(path))
+        if S.load_any(str(path)) != plans[name]:
+            raise AssertionError(f"schedule {name}: the JSON round trip "
+                                 f"changed it")
+    if WB.WaveSchedule.from_json(plans["waves"].to_json()) != plans["waves"]:
+        raise AssertionError("planned waves: the JSON round trip changed "
+                             "them")
+    print(f"autotune {tag}: sim (P=2), flat (P=4) and hier (2 x 2) "
+          f"schedules and {plans['waves'].n_waves} planned waves, each "
+          f"equal to itself after save and load")
+    tables = (("sim", plans["sim"]), ("flat", plans["flat"]),
+              ("hier/inner", plans["hier"].inner),
+              ("hier/outer", plans["hier"].outer))
+    for name, sched in tables:
+        print(f"autotune {tag} {name} (P={sched.n_workers}, wire "
+              f"{sched.hardware['name']}): " + "; ".join(
+                  f"{lp.name} d={lp.d} ratio={lp.ratio:g} k={lp.k} "
+                  f"k_b={block_kb(lp.d, lp.k)}" for lp in sched.leaves))
+    for mode, name in (("lags_dp", "flat"), ("lags_hier2", "hier")):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            S.validate_for(plans[name], mode, n_workers=world)
+        for w in caught:
+            print(f"autotune {tag}: validate_for({name}, {mode!r}, "
+                  f"n_workers={world}) warns: {w.message}")
+    return plans
+
+
+def plans_json(plans: dict) -> dict:
+    return {name: plans[name].to_json() for name in plans}
+
+
+def plans_from_json(obj: dict) -> dict:
+    from repro_torch.autotune import schedule as S
+    from repro_torch.pipeline import buckets as WB
+    out = {name: S.schedule_from_json(obj[name])
+           for name in ("sim", "flat", "hier")}
+    out["waves"] = WB.WaveSchedule.from_json(obj["waves"])
+    return out
+
+
+def autotune_phase(dev, cfg, seq: int, out_dir: Path) -> tuple[dict, dict]:
+    """The autotune pipeline on one card: ``profile_model`` of the real
+    train step (dense and lags_dp, one 1024-token sequence, on the
+    world-size-1 NCCL mesh: no wire samples), ``fit_hardware`` (the
+    measured FLOP/s, ``H100_NVLINK``'s α and β), then ``make_plans``.
+    Returns (plans, the phase's record)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.autotune import costfit, profiler
+    from repro_torch.launch import mesh as M
+    M.init_process_group(f"tcp://localhost:{free_port()}", 1, 0,
+                         device=dev.type)
+    try:
+        t0 = time.perf_counter()
+        prof = profiler.profile_model(cfg, M.make_mesh(device=dev.type),
+                                      seq=seq, global_batch=1, iters=3,
+                                      arch=cfg.name,
+                                      shape_name=f"train_1x{seq}")
+        prof_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    (out_dir / "profile_1card.json").write_text(prof.to_json())
+    hw = costfit.fit_hardware(prof)
+    print(f"autotune: profile of {prof.arch} {prof.shape} in {prof_s:.1f} "
+          f"s: dense step {prof.t_step_dense:.4f} s, lags_dp step "
+          f"{prof.t_step_lags:.4f} s, {prof.flops_per_step:.4e} FLOPs per "
+          f"dense step, {len(prof.comm_samples)} wire samples (one rank); "
+          f"fitted {hw}")
+    plans = make_plans(cfg, prof, hw, out_dir, "1card", world=1)
+    return plans, {"profile": json.loads(prof.to_json()),
+                   "hardware": dataclasses.asdict(hw), "profile_s": prof_s,
+                   "plans": plans_json(plans)}
+
+
+def planned_pack_timings(dev, cfg, plans: dict) -> list:
+    """``ef_select_pack`` at every k_b < bs the block exchanges run under
+    the plans (the flat plan's ``BlockLAGSExchange`` leaves, the two-tier
+    plan's inner ``topk_block`` tier), on the largest scheduled leaf (one
+    worker's stacked FFN weight, as the distributed step launches it),
+    beside ``torch.topk`` at the same k on the precomputed magnitudes;
+    each kernel output bitwise equal to the plain version's."""
+    import torch
+    from repro_torch.kernels import ef_sparsify, ref
+    d = cfg.n_layers * cfg.d_model * cfg.d_ff
+    bs = 4096
+    n = -(-d // bs)
+    kbs = sorted({block_kb(lp.d, lp.k) for sched in (
+        plans["flat"], plans["hier"].inner) for lp in sched.leaves
+        if lp.d >= bs and block_kb(lp.d, lp.k) < bs}
+        | {block_kb(d, max(1, round(d / cfg.compression_ratio)))})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    g = torch.randn((n, bs), generator=gen, device=dev)
+    e = 0.01 * torch.randn((n, bs), generator=gen, device=dev)
+    lr = torch.ones((), device=dev)
+    mag = (e + g).abs()
+    rows = []
+    for k in kbs:
+        iters = 3 if k <= 64 else 1
+        ms = cuda_ms(lambda: ef_sparsify.ef_select_pack(g, e, lr, None, k),
+                     iters)
+        plain_ms = cuda_ms(lambda: ref.ef_select_pack_ref(g, e, lr, None, k),
+                           1)
+        library_ms = cuda_ms(lambda: torch.topk(mag, k, dim=1), iters)
+        err = assert_bitwise(f"ef_select_pack rows {n}x{bs} k={k}",
+                             ef_sparsify.ef_select_pack(g, e, lr, None, k),
+                             ref.ef_select_pack_ref(g, e, lr, None, k))
+        # the selection itself needs ~3 operations per entry (accumulate,
+        # magnitude, compare against a threshold found by a radix
+        # select); the kernel's k arg-max passes do k·bs per row, the
+        # floor of its own algorithm, recorded beside the bound
+        nbytes, ops = n * bs * 12 + n * k * 8, 3 * n * bs
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        bound_ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms,
+                                                             "operations")
+        argmax_ms = k * n * bs / F32_OPS_PER_S * 1e3
+        rows.append({"k": k, "shape": [n, bs], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "argmax_passes_ms": argmax_ms,
+                     "max_abs_err": err})
+        print(f"planned k_b: ef_select_pack rows {n}x{bs} k={k}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"{bound_ms / ms:.3f} of the bound (its k arg-max passes "
+              f"alone: {argmax_ms:.4f} ms at the f32 peak); bitwise equal "
+              f"to the plain version")
+    del g, e, mag
+    torch.cuda.empty_cache()
+    return rows
+
+
 def small_reference(dev) -> None:
     """The kernel-backed exchange on the card == the same exchange on the
     CPU (plain versions), bitwise, on small leaves with short tails:
@@ -417,10 +630,75 @@ def profile_step(trainer, batch, label: str, out_dir: Path) -> dict:
     return row
 
 
-def main_path(dev, cfg, seq: int, steps: int,
+def resolve(kw: dict, plans: dict) -> dict:
+    """A configuration's run kwargs with its ``schedule`` and ``waves``
+    names replaced by the autotune phase's artifacts."""
+    return {k: (plans[v] if k in ("schedule", "waves") else v)
+            for k, v in kw.items()}
+
+
+@contextlib.contextmanager
+def sampler_checks(name: str, draws: dict):
+    """While active, every pick of the sampling compressor ``name`` is
+    checked as it is made (min(k, d) distinct indices in [0, d), values
+    equal to x[idx]) and every index draw is recorded under its stream's
+    (leaf, worker) with its step and first 8 indices, so that the caller
+    can show each step drew anew.  Yields the count of picks."""
+    import torch
+    from repro_torch.core import compressors as C
+    entry, real_draw = C.REGISTRY[name], C._sample_indices
+    count = {"picks": 0}
+
+    def compress(x, k, **kw):
+        vals, idx = entry.compress(x, k, **kw)
+        d, il = x.shape[-1], idx.long()
+        if il.numel() != min(k, d) or int(il.min()) < 0 \
+                or int(il.max()) >= d:
+            raise AssertionError(f"{name}: {il.numel()} picks of k={k} "
+                                 f"outside [0, {d})")
+        if torch.unique(il).numel() != il.numel():
+            raise AssertionError(f"{name}: repeated indices")
+        if not torch.equal(vals, x[il]):
+            raise AssertionError(f"{name}: values are not x[idx]")
+        count["picks"] += 1
+        return vals, idx
+
+    def draw(key, d, n, replace, device):
+        out = real_draw(key, d, n, replace, device)
+        step, coord = key.path[0], key.path[1:]
+        draws.setdefault(coord, []).append((step, out[:8].cpu()))
+        return out
+
+    C.REGISTRY[name] = dataclasses.replace(entry, compress=compress)
+    C._sample_indices = draw
+    try:
+        yield count
+    finally:
+        C.REGISTRY[name] = entry
+        C._sample_indices = real_draw
+
+
+def check_fresh_draws(label: str, draws: dict, steps: int) -> int:
+    """Every (leaf, worker) stream drew once per step, and no two steps
+    drew the same first indices."""
+    import torch
+    for coord, seen in draws.items():
+        if [t for t, _ in seen] != list(range(steps)):
+            raise AssertionError(f"{label}: stream {coord} drew at steps "
+                                 f"{[t for t, _ in seen]}")
+        for i in range(steps):
+            for j in range(i):
+                if torch.equal(seen[i][1], seen[j][1]):
+                    raise AssertionError(f"{label}: stream {coord} drew the "
+                                         f"same indices at steps {j}, {i}")
+    return len(draws)
+
+
+def main_path(dev, cfg, seq: int, steps: int, plans: dict,
               profile_dir: Path | None = None) -> tuple[dict, dict]:
-    """Train ``steps`` steps in each configuration of ``SIM_CONFIGS``;
-    returns (kernel launches summed over the run, per-step rows)."""
+    """Train ``steps`` steps in each configuration of ``SIM_CONFIGS``
+    (``plans``: the autotune phase's schedules); returns (kernel launches
+    summed over the run, per-step rows)."""
     import torch
     from repro_torch import api, kernels, tree
     from repro_torch.data import synthetic
@@ -432,6 +710,7 @@ def main_path(dev, cfg, seq: int, steps: int,
     results = {}
 
     for label, (kw, p, n_layers, expect) in SIM_CONFIGS.items():
+        kw = resolve(kw, plans)
         c = cfg if n_layers is None else dataclasses.replace(
             cfg, n_layers=n_layers)
         batches = [data.worker_batches(t, p, 1, seq, device=dev)
@@ -446,14 +725,32 @@ def main_path(dev, cfg, seq: int, steps: int,
                             lr=0.01, **kw)
         trainer = api.Session(c, run, device=dev).simulator(
             loss_fn, model.params, n_workers=p)
+        names = tree.leaf_paths(model.params)
+        sampler = kw.get("compressor") if kw.get("compressor") in SAMPLERS \
+            else None
+        draws: dict = {}
+
+        def checks():
+            return (sampler_checks(sampler, draws) if sampler
+                    else contextlib.nullcontext({}))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         rows = []
         for t in range(steps):
             t0 = time.perf_counter()
-            loss = float(trainer.step(batches[t])["loss"])   # device sync
+            with checks() as picked:
+                metrics = trainer.step(batches[t])
+                loss = float(metrics["loss"])                # device sync
             step_s = time.perf_counter() - t0
+            if "delta_per_leaf" in metrics:
+                deltas = metrics["delta_per_leaf"].tolist()
+                if not all(math.isfinite(x) for x in deltas):
+                    raise AssertionError(f"{label} step {t}: delta {deltas}")
+                print(f"main {label} step {t}: Eq. 20 delta per leaf "
+                      + ", ".join(f"{n} {x:.4f}" for n, x in
+                                  zip(names, deltas))
+                      + f"; max {max(deltas):.4f}")
             counts = kernels.launch_counts()
             mem = torch.cuda.max_memory_allocated()
             held = torch.cuda.memory_allocated()
@@ -464,6 +761,10 @@ def main_path(dev, cfg, seq: int, steps: int,
                          "max_memory_allocated": mem,
                          "memory_allocated_after": held, "allocator": alloc,
                          "launches": counts})
+            if "delta_per_leaf" in metrics:
+                rows[-1]["delta_per_leaf"] = dict(zip(names, deltas))
+            if sampler:
+                rows[-1]["sampled_picks"] = picked["picks"]
             print(f"main {label} step {t}: loss {loss:.6f} step_s "
                   f"{step_s:.4f} max_memory_allocated {mem / 2**30:.3f} GiB "
                   f"(held after the step {held / 2**30:.3f} GiB, allocator "
@@ -474,11 +775,17 @@ def main_path(dev, cfg, seq: int, steps: int,
         missing = [k for k in expect if counts[k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels {missing} never launched")
+        if sampler:
+            n_streams = check_fresh_draws(label, draws, steps)
+            print(f"main {label}: every {sampler} pick held min(k, d) "
+                  f"distinct indices in range with values x[idx]; "
+                  f"{n_streams} (leaf, worker) streams each drew anew in "
+                  f"every one of {steps} steps")
         for k, v in counts.items():
             totals[k] += v
         results[label] = {"params": n_params, "workers": p,
                           "n_layers": c.n_layers, "steps": rows}
-        if label == "lags_dp/topk_exact/kernel":
+        if label.startswith("lags_dp/topk_exact/kernel"):
             check_ef_invariant(trainer, dev)
         if kw["mode"] == "lags_hier2":
             check_ef_invariant_tiers(trainer, dev)
@@ -655,8 +962,19 @@ DIST_CONFIGS = {
         mode="lags_hier2", selection_backend="kernel",
         inner_compressor="topk_block", ratio_inner=100.0, pipeline="wave"),
     "lags_hier/kernel": dict(mode="lags_hier", selection_backend="kernel"),
+    # the adaptive ratios: "flat" is the P = 4 plan, "hier" the 2 x 2
+    # two-tier plan, "waves" the flat plan's planned waves
+    "lags_dp/kernel/sched": dict(mode="lags_dp", selection_backend="kernel",
+                                 schedule="flat"),
+    "lags_dp/kernel/sched/wave": dict(
+        mode="lags_dp", selection_backend="kernel", schedule="flat",
+        pipeline="wave", waves="waves"),
+    "lags_hier2/kernel/sched": dict(
+        mode="lags_hier2", selection_backend="kernel",
+        inner_compressor="topk_block", schedule="hier"),
 }
 TWINS = {"dense/wave": "dense", "lags_dp/kernel/wave": "lags_dp/kernel",
+         "lags_dp/kernel/sched/wave": "lags_dp/kernel/sched",
          "lags_dp/kernel/async1": "lags_dp/kernel",
          "lags_dp/kernel/async1/mc0.9": "lags_dp/kernel/mc0.9",
          "slgs/kernel/wave": "slgs/kernel",
@@ -669,9 +987,39 @@ DIST_EXPECTED = {"dense": (), "lags_dp": ("ef_select_pack",),
 HIER_MODES = ("lags_hier", "lags_hier2")
 
 
+def ranks_plans(cfg, seq: int, mesh, world: int, rank: int,
+                out_dir: Path) -> dict:
+    """The autotune pipeline on ``world`` NCCL ranks: every rank profiles
+    (the real step over the mesh, and the collective sweep); rank 0 fits
+    α and β from its samples, plans, and sends the plans to every rank,
+    which all run the same schedules."""
+    import torch.distributed as dist
+    from repro_torch.autotune import costfit, profiler
+    prof = profiler.profile_model(cfg, mesh, seq=seq, global_batch=world,
+                                  iters=3, arch=cfg.name,
+                                  shape_name=f"train_{world}x{seq}")
+    obj = [None]
+    if rank == 0:
+        (out_dir / f"profile_{world}ranks.json").write_text(prof.to_json())
+        for smp in prof.comm_samples:
+            print(f"autotune {world} ranks: {smp.kind} {int(smp.nbytes)} B "
+                  f"over {smp.p} ranks: {smp.t * 1e6:.2f} us")
+        alpha, beta = costfit.fit_alpha_beta(prof.comm_samples)
+        hw = costfit.fit_hardware(prof, name="h100_nvlink_fit")
+        print(f"autotune {world} ranks: fitted alpha {alpha!r} s, beta "
+              f"{beta!r} s/B ({1 / beta / 1e9:.2f} GB/s); dense step "
+              f"{prof.t_step_dense:.4f} s, lags_dp step "
+              f"{prof.t_step_lags:.4f} s; {hw}")
+        obj = [plans_json(make_plans(cfg, prof, hw, out_dir,
+                                     f"{world}ranks", world))]
+    dist.broadcast_object_list(obj, src=0)
+    return plans_from_json(obj[0])
+
+
 def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
-                rank: int = 0, init_method: str | None = None
-                ) -> tuple[dict, dict, dict]:
+                rank: int = 0, init_method: str | None = None,
+                plans: dict | None = None,
+                out_dir: Path | None = None) -> tuple[dict, dict, dict]:
     """The data-parallel surface on ``world`` NCCL ranks (this process is
     ``rank``; one sequence per rank, the same global batch every step):
     ``steps`` steps of each configuration of ``DIST_CONFIGS``.  One rank:
@@ -681,7 +1029,9 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     its ``off`` twin bit for bit, and each ``async1`` configuration's
     losses against ``[L0, L0, L1]`` of its twin.  Several ranks: after
     every step each rank's parameters must equal rank 0's bit for bit.
-    Returns (launch counts summed over the run, per-step rows, each
+    ``plans``: the schedules of the autotune phase; None (``--ranks``)
+    runs that phase here, over the ranks (``ranks_plans``, writing its
+    artifacts to ``out_dir``).  Returns (launch counts summed over the run, per-step rows, each
     kernel's largest absolute error against its plain version in the
     step-0 checks)."""
     import torch
@@ -704,8 +1054,11 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
         pods = 2 if world > 1 and world % 2 == 0 else 1
         pod_mesh = (M.make_mesh(pod=pods, device=dev.type) if pods > 1
                     else flat_mesh)
+        if plans is None:
+            plans = ranks_plans(cfg, seq, flat_mesh, world, rank, out_dir)
+            torch.cuda.empty_cache()
         for label, kw in DIST_CONFIGS.items():
-            run = api.RunConfig(lr=0.01, **kw)
+            run = api.RunConfig(lr=0.01, **resolve(kw, plans))
             mesh = pod_mesh if run.mode in HIER_MODES else flat_mesh
             sess = api.Session(cfg, run, mesh=mesh)
             step_fn = sess.step_fn
@@ -1048,7 +1401,9 @@ def main(argv=None) -> int:
     times = timings(dev, cfg, p)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    totals, results = main_path(dev, cfg, seq, steps,
+    plans, autotune = autotune_phase(dev, cfg, seq, out_dir)
+    planned = planned_pack_timings(dev, cfg, plans)
+    totals, results = main_path(dev, cfg, seq, steps, plans,
                                 out_dir if args.profile else None)
     # each later path: counts set to 0 just before it, read just after
     path_counts, path_err = ef_accum_path(dev, cfg, seq)
@@ -1059,7 +1414,8 @@ def main(argv=None) -> int:
         times["ef_accum_sparsify_bf16"]["max_abs_err"])
     for name in REPLACES:
         errs[name] = max(errs[name], times[name]["max_abs_err"])
-    dist_totals, dist_results, dist_errs = distributed(dev, cfg, seq, steps)
+    dist_totals, dist_results, dist_errs = distributed(dev, cfg, seq, steps,
+                                                       plans=plans)
     for name, err in dist_errs.items():
         errs[name] = max(errs[name], err)
     for k, v in dist_totals.items():
@@ -1077,7 +1433,8 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
-         "timings": times, "main": results, "distributed": dist_results,
+         "timings": times, "autotune": autotune, "planned_pack": planned,
+         "main": results, "distributed": dist_results,
          **kernels_line}, indent=1))
     print(json.dumps(kernels_line))
     print(card_line())
@@ -1115,7 +1472,7 @@ def ranks_main(world: int) -> int:
                     stderr=subprocess.STDOUT, text=True))
         # a rank that fails leaves the others waiting in a collective:
         # stop them all then, or at the deadline
-        deadline = time.monotonic() + 600
+        deadline = time.monotonic() + 900
         while time.monotonic() < deadline:
             codes = [p.poll() for p in procs]
             if all(c is not None for c in codes) or any(codes):
@@ -1144,10 +1501,11 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
     import torch
     torch.cuda.set_device(args.rank)
     dev = torch.device("cuda", args.rank)
-    totals, results, _ = distributed(dev, cfg, seq, steps, world=args.ranks,
-                                     rank=args.rank, init_method=args.init)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    totals, results, _ = distributed(dev, cfg, seq, steps, world=args.ranks,
+                                     rank=args.rank, init_method=args.init,
+                                     out_dir=out_dir)
     (out_dir / f"chip_smoke_rank{args.rank}.json").write_text(json.dumps(
         {"card": card_line(), "torch": torch.__version__,
          "world": args.ranks, "rank": args.rank, "seq": seq,

@@ -3,7 +3,7 @@
 
 Pure data: construction checks only the values.  The training surface
 raises ``NotImplementedError`` for knobs this slice has not ported
-(:meth:`RunConfig.unported`).
+(:meth:`RunConfig.unported`: ``health_every > 0``).
 """
 from __future__ import annotations
 
@@ -41,6 +41,9 @@ class RunConfig:
     # "lags_hier2": the intra-pod tier's compressor (None = compressor)
     inner_compressor: str | None = None
     block_size: int = 4096
+    # optional autotuned per-leaf plan (repro_torch.autotune Schedule /
+    # HierSchedule, or anything with a ``ks_tree(params_like)`` method),
+    # checked against the mode and mesh by ``autotune.schedule.validate_for``
     schedule: Any = None
     # optimizer
     lr: float = 0.01
@@ -67,9 +70,9 @@ class RunConfig:
     loss_chunk: int = 512
     donate: bool = True
     # instrumentation
-    measure_delta: bool = False
+    measure_delta: bool = False        # Eq. 20 metric, simulation only
     health_every: int = 0
-    seed: int = 0
+    seed: int = 0                      # stream of key-needing compressors
 
     def __post_init__(self):
         if self.mode is not None:
@@ -95,10 +98,6 @@ class RunConfig:
         """The knobs set here that this slice has not ported, each with
         its ROADMAP.md item."""
         out = []
-        if self.schedule is not None:
-            out.append("schedule (ROADMAP.md queue 1 item 10)")
-        if self.measure_delta:
-            out.append("measure_delta (ROADMAP.md queue 1 item 10)")
         if self.health_every > 0:
             out.append("health_every > 0 (ROADMAP.md queue 1 item 12)")
         return out
@@ -126,3 +125,10 @@ class RunConfig:
         if self.lr_schedule is not None:
             return self.lr_schedule(step)
         return self.lr
+
+    def key_at(self, step: int):
+        """The step's stream for key-needing compressors: ``Key(seed)``
+        with the step folded in, the one derivation both surfaces use;
+        the exchanges fold in leaf and worker themselves."""
+        from repro_torch.core.compressors import Key   # lazy: pure data
+        return Key(int(self.seed)).fold_in(int(step))

@@ -8,9 +8,10 @@ has it.
 Every strategy of the reference builds on both surfaces: the simulation
 surface (``sim=True``) and the distributed step (``sim=False``, where
 ``lags_dp`` and ``lags_hier`` run ``BlockLAGSExchange`` and
-``lags_hier2`` the two-tier ``SparseHierLAGSExchange``).  Schedules
-(the reference's ``TieredKs`` and ``resolve_schedule_ks``) are ROADMAP.md
-queue 1 item 10.
+``lags_hier2`` the two-tier ``SparseHierLAGSExchange``).  An autotuned
+schedule reaches a factory through :func:`resolve_schedule_ks` (the
+per-leaf k tree, or a :class:`TieredKs` for the two-tier modes) as
+``ExchangeSpec.ks``.
 """
 from __future__ import annotations
 
@@ -27,12 +28,24 @@ from repro_torch.core import lags
 
 
 @dataclasses.dataclass(frozen=True)
+class TieredKs:
+    """Two-tier per-leaf budgets (deliberately not a tree):
+    ``resolve_schedule_ks`` packs a ``HierSchedule``'s two k trees into
+    one for the strategies that consume both tiers (``ef_tiers``, i.e.
+    ``lags_hier2``); either may be None, and that tier then falls back
+    to the spec's scalar ratio."""
+    inner: Any = None
+    outer: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ExchangeSpec:
     """Everything a strategy factory may need to build an exchange."""
     mode: str
     params_like: Any                 # tree of tensors (shapes read)
     ratio: float = 250.0
-    ks: Any = None                   # per-leaf k^(l) override
+    ks: Any = None                   # per-leaf k^(l) override (schedule),
+                                     # or a TieredKs for two-tier modes
     block_size: int = 4096
     compressor: str = "topk_exact"
     selection_backend: str = "xla"   # "xla" | "kernel"
@@ -67,14 +80,18 @@ class ExchangeSpec:
         return extra
 
     def resolved_ks(self):
-        """The per-leaf budget tree of the (outer) sparse exchange."""
-        if self.ks is not None:
-            return self.ks
+        """The per-leaf budget tree of the (outer) sparse exchange:
+        the schedule's, or from the scalar ratio."""
+        ks = self.ks.outer if isinstance(self.ks, TieredKs) else self.ks
+        if ks is not None:
+            return ks
         return lags.ks_from_ratio(self.params_like, self.ratio)
 
     def resolved_ks_inner(self):
-        """The intra-pod tier's budget tree (two-tier modes), from
-        ``ratio_inner`` (1.0 = dense inner tier)."""
+        """The intra-pod tier's budget tree (two-tier modes): the
+        schedule's inner tier, or from ``ratio_inner`` (1.0 = dense)."""
+        if isinstance(self.ks, TieredKs) and self.ks.inner is not None:
+            return self.ks.inner
         return lags.ks_from_ratio(self.params_like, self.ratio_inner)
 
     def resolved_compressor(self, *, inner: bool = False) -> str:
@@ -160,6 +177,31 @@ def build_exchange(spec: ExchangeSpec):
     return get_exchange(spec.mode).factory(spec)
 
 
+def resolve_schedule_ks(schedule, mode: str, params_like, *,
+                        n_workers: int | None = None):
+    """Validate and ingest an autotuned schedule, the one sequence both
+    surfaces run (``validate_for``, then ``ks_tree``).  Returns the
+    per-leaf k tree, a :class:`TieredKs` for the strategies registered
+    with ``ef_tiers``, or None when there is nothing to ingest (no
+    schedule, or the dense mode)."""
+    if schedule is None or mode == "dense":
+        return None
+    from repro_torch.autotune import schedule as SCH
+    SCH.validate_for(schedule, mode, n_workers=n_workers)
+    strat = _EXCHANGES.get(canonical_mode(mode))
+    if strat is not None and strat.ef_tiers:
+        tiers = getattr(schedule, "tiers", None)
+        if tiers is not None:        # HierSchedule: both tiers consumed
+            return TieredKs(inner=tiers["inner"].ks_tree(params_like),
+                            outer=tiers["outer"].ks_tree(params_like))
+        if getattr(schedule, "tier", "") == "inner":
+            # a lone inner-tier plan budgets the intra-pod exchange
+            # only; the outer tier falls back to the scalar ratio
+            return TieredKs(inner=schedule.ks_tree(params_like))
+        return TieredKs(outer=schedule.ks_tree(params_like))
+    return schedule.ks_tree(params_like)
+
+
 @register_exchange("dense")
 def _dense_factory(spec: ExchangeSpec):
     """Vanilla S-SGD baseline: dense mean over workers."""
@@ -172,7 +214,6 @@ def _slgs_factory(spec: ExchangeSpec):
     ``k_total = round(d_total / ratio)`` on both surfaces."""
     d_total = sum(lags._size(x) for x in tree.leaves(spec.params_like))
     name = spec.resolved_compressor()
-    C.get_compressor(name)          # an unported compressor raises here
     return lags.SLGSExchange(
         k_total=max(1, int(round(d_total / spec.ratio))),
         compressor_name=name, compressor_kwargs=_sel_kwargs(name, spec))
@@ -189,7 +230,6 @@ def _lags_factory(spec: ExchangeSpec):
     ks = spec.resolved_ks()
     if spec.sim:
         name = spec.resolved_compressor()
-        C.get_compressor(name)      # an unported compressor raises here
         return lags.LAGSExchange(ks=ks, compressor_name=name,
                                  compressor_kwargs=_sel_kwargs(name, spec))
     if spec.compressor not in ("topk_exact", "topk_block",
@@ -225,8 +265,6 @@ def _hier2_factory(spec: ExchangeSpec):
     ``selection_backend``."""
     outer_name = spec.resolved_compressor()
     inner_name = spec.resolved_compressor(inner=True)
-    for name in (outer_name, inner_name):
-        C.get_compressor(name)      # an unported compressor raises here
     return lags.SparseHierLAGSExchange(
         ks=spec.resolved_ks(), ks_inner=spec.resolved_ks_inner(),
         n_inner=max(1, int(spec.n_inner)),

@@ -34,6 +34,12 @@ surface the P workers of a leaf select in one call (one kernel launch,
 P·n_blocks rows): rows are independent, so this equals the reference's
 per-worker ``vmap``.
 
+``key`` (``RunConfig.key_at(step)``, a ``compressors.Key``) feeds the
+key-needing compressors (``randk``, ``topk_sampled``), which select
+worker by worker: each leaf and worker folds its coordinates into it
+(:func:`_leaf_key`, :func:`_worker_keys`) exactly as the reference
+folds them into its JAX key, so both surfaces draw the same picks.
+
 ``DenseExchange``, ``BlockLAGSExchange``, ``SLGSExchange`` and
 ``SparseHierLAGSExchange`` serve both surfaces; ``LAGSExchange`` serves
 the simulation surface (as in the reference, where the distributed
@@ -66,34 +72,75 @@ def ks_from_ratio(params, ratio: float) -> Any:
     return tree.map(lambda x: max(1, int(round(_size(x) / c))), params)
 
 
-def local_select(acc: torch.Tensor, k: int, compressor: C.Compressor, **kw):
+def ks_from_ratios_tree(params, ratios_tree) -> Any:
+    """k^(l) = max(1, round(d^(l) / c^(l))) with a per-leaf ratio tree."""
+    return tree.map(lambda x, c: max(1, int(round(_size(x) / float(c)))),
+                    params, ratios_tree)
+
+
+# -- per-(step, leaf, worker) random streams of key-needing compressors ----
+
+def _leaf_key(key, leaf_no: int, worker=None) -> C.Key:
+    """The stream of one leaf (and one worker): ``key`` (the step's,
+    ``RunConfig.key_at``; None = the fixed ``Key(0)``) with the GLOBAL
+    leaf index folded in, then ``worker``, the full linear coordinate of
+    whoever selects.  The hierarchies fold the (outer, inner) coordinate
+    for the intra-pod tier, where each worker selects on its own update,
+    but only the pod's for the cross-pod tier, whose accumulator is the
+    same on every worker of a pod, so that they draw the same picks."""
+    k = (key if key is not None else C.Key(0)).fold_in(leaf_no)
+    return k if worker is None else k.fold_in(worker)
+
+
+def _worker_keys(key, leaf_no: int, p: int, base: int = 0) -> list:
+    """The streams of workers ``base .. base + p - 1`` of one leaf on the
+    simulation surface: worker w draws what the distributed surface's
+    ``_leaf_key(key, leaf_no, w)`` draws."""
+    lk = _leaf_key(key, leaf_no)
+    return [lk.fold_in(w) for w in range(base, base + p)]
+
+
+def _worker_index(axes) -> int:
+    """This rank's linear worker coordinate over ``axes`` (the rank in
+    their group, outer axis major); 0 with no axes."""
+    return 0 if axes is None else dist.get_rank(axes.group)
+
+
+def local_select(acc: torch.Tensor, k: int, compressor: C.Compressor,
+                 keys=None, **kw):
     """Per worker: top-k of the accumulated update.  ``acc``: (P, ...).
     Returns (values (P, k'), indices (P, k'), residual (P, ...)) with
-    residual = acc - TopK(acc)."""
+    residual = acc - TopK(acc).  A key-needing compressor selects worker
+    by worker, worker w with stream ``keys[w]`` (None: ``Key(0)`` for
+    every worker, the reference's default)."""
     flat = acc.reshape(acc.shape[0], -1)
-    vals, idx = compressor(flat, k, **kw)
+    if compressor.needs_key:
+        keys = keys if keys is not None else [C.Key(0)] * flat.shape[0]
+        picks = [compressor(x, k, key=kk, **kw) for x, kk in zip(flat, keys)]
+        vals = torch.stack([v for v, _ in picks])
+        idx = torch.stack([i for _, i in picks])
+    else:
+        vals, idx = compressor(flat, k, **kw)
     dense_sel = C.decompress(vals, idx, flat.shape[-1])
     return vals, idx, (flat - dense_sel).reshape(acc.shape)
 
 
 def local_select_ef(u: torch.Tensor, e: torch.Tensor, k: int,
-                    compressor: C.Compressor, **kw):
+                    compressor: C.Compressor, keys=None, **kw):
     """EF accumulate + select for the P workers of one leaf, fused when
     the compressor has a ``fused_select`` kernel (``acc = e + u`` never
-    materializes); otherwise ``local_select(e + u, ...)``.  Either way
+    materializes); otherwise ``local_select(e + u, ...)``, with one
+    stream per worker (``keys``) for a key-needing compressor.  Either
+    way
 
         e + u == scatter(values, indices) + residual
     """
-    if compressor.needs_key:
-        raise NotImplementedError(
-            "key-needing compressors are not ported yet (ROADMAP.md "
-            "queue 1 item 10)")
-    if compressor.fused_select is not None:
+    if compressor.fused_select is not None and not compressor.needs_key:
         p = u.shape[0]
         vals, idx, resid = compressor.fused_select(
             u.reshape(p, -1), e.reshape(p, -1), k, **kw)
         return vals, idx, resid.reshape(e.shape)
-    return local_select(e + u.to(e.dtype), k, compressor, **kw)
+    return local_select(e + u.to(e.dtype), k, compressor, keys=keys, **kw)
 
 
 def _gathered_scatter_mean(vals_all, idx_all, d: int, p) -> torch.Tensor:
@@ -258,7 +305,8 @@ class DenseExchange:
 
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
-        return self.launch_bucket(wave, updates, state, axis_names).finish()
+        return self.launch_bucket(wave, updates, state, axis_names,
+                                  key=key).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):
@@ -294,11 +342,12 @@ class LAGSExchange:
     def launch_bucket(self, wave, updates, state,
                       axis_names: Axes | None, *, key=None) -> Launched:
         return _done(*self.exchange_bucket(wave, updates, state,
-                                           axis_names))
+                                           axis_names, key=key))
 
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
-        """One wave: flat lists of the wave's leaves, global-id keyed."""
+        """One wave: flat lists of the wave's leaves, global-id keyed
+        (the leaf's stream too)."""
         _sim_only(axis_names)
         kw = dict(self.compressor_kwargs)
         comp = self.compressor
@@ -306,7 +355,9 @@ class LAGSExchange:
         means, resids = [], []
         for i, u, e in zip(_wave_ids(wave), updates, state):
             p = u.shape[0]
-            vals, idx, resid = local_select_ef(u, e, flat_k[i], comp, **kw)
+            keys = _worker_keys(key, i, p) if comp.needs_key else None
+            vals, idx, resid = local_select_ef(u, e, flat_k[i], comp,
+                                               keys=keys, **kw)
             mean = _gathered_scatter_mean(vals, idx, _size(u[0]), p)
             means.append(mean.reshape(u.shape[1:]))
             resids.append(resid)
@@ -317,7 +368,7 @@ class LAGSExchange:
         flat_u, treedef = tree.flatten(updates)
         means, resids = self.exchange_bucket(
             tuple(range(len(flat_u))), flat_u, tree.leaves(state),
-            axis_names)
+            axis_names, key=key)
         return tree.unflatten(treedef, means), tree.unflatten(treedef,
                                                               resids)
 
@@ -384,8 +435,13 @@ class SLGSExchange:
         u_vec = torch.cat([u.reshape(w, -1) for u in updates], dim=1)
         e_vec = torch.cat([e.reshape(w, -1).float() for e in state], dim=1)
         d = u_vec.shape[1]
+        comp = self.compressor
+        keys = None
+        if comp.needs_key:      # the one "leaf" is the packed vector, id 0
+            keys = (_worker_keys(key, 0, w) if sim
+                    else [_leaf_key(key, 0, _worker_index(axis_names))])
         vals, idx, resid_vec = local_select_ef(
-            u_vec, e_vec, self.k_total, self.compressor,
+            u_vec, e_vec, self.k_total, comp, keys=keys,
             **dict(self.compressor_kwargs))
         del u_vec, e_vec
         resids = _split(resid_vec if sim else resid_vec[0], e_shapes)
@@ -399,14 +455,15 @@ class SLGSExchange:
 
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
-        return self.launch_bucket(wave, updates, state, axis_names).finish()
+        return self.launch_bucket(wave, updates, state, axis_names,
+                                  key=key).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):
         flat_u, treedef = tree.flatten(updates)
         means, resids = self.exchange_bucket(
             tuple(range(len(flat_u))), flat_u, tree.leaves(state),
-            axis_names)
+            axis_names, key=key)
         return tree.unflatten(treedef, means), tree.unflatten(treedef,
                                                               resids)
 
@@ -480,11 +537,14 @@ class BlockLAGSExchange:
         flat leaves (W, size).  Returns (vals (W, n_blocks, k_b), local
         idx, residual rows (W, n_blocks·bs))."""
         w = u_flat.shape[0]
-        select = (kops.ef_select_pack_rows if self.use_kernel
-                  else ref.ef_select_pack_ref)
-        vals, local, resid = select(kops.block_view(u_flat, n_blocks, bs),
-                                    kops.block_view(e_flat, n_blocks, bs),
-                                    1.0, None, k_b)
+        g_rows = kops.block_view(u_flat, n_blocks, bs)
+        e_rows = kops.block_view(e_flat, n_blocks, bs)
+        if k_b == bs:      # every entry kept (a leaf planned dense)
+            vals, local, resid = kops.keep_all_rows(g_rows, e_rows, 1.0)
+        else:
+            select = (kops.ef_select_pack_rows if self.use_kernel
+                      else ref.ef_select_pack_ref)
+            vals, local, resid = select(g_rows, e_rows, 1.0, None, k_b)
         return (vals.reshape(w, n_blocks, k_b),
                 local.reshape(w, n_blocks, k_b), resid.reshape(w, -1))
 
@@ -559,14 +619,15 @@ class BlockLAGSExchange:
         """One wave: flat lists of the wave's leaves, global-id keyed.
         Block top-k is deterministic; ``key`` is accepted for interface
         uniformity."""
-        return self.launch_bucket(wave, updates, state, axis_names).finish()
+        return self.launch_bucket(wave, updates, state, axis_names,
+                                  key=key).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):
         flat_u, treedef = tree.flatten(updates)
         means, resids = self.exchange_bucket(
             tuple(range(len(flat_u))), flat_u, tree.leaves(state),
-            axis_names)
+            axis_names, key=key)
         return tree.unflatten(treedef, means), tree.unflatten(treedef,
                                                               resids)
 
@@ -620,8 +681,12 @@ class HierLAGSExchange:
                 s = u.clone()
                 dist.all_reduce(s, op=dist.ReduceOp.SUM, group=inner.group)
                 u = s.div_(inner.size)
+            # the dense inner mean is the same on every worker of the
+            # pod: the stream folds only the pod's coordinate
+            keys = ([_leaf_key(key, i, _worker_index(outer))]
+                    if comp.needs_key else None)
             vals, idx, resid = local_select_ef(u[None], e[None], flat_k[i],
-                                               comp, **kw)
+                                               comp, keys=keys, **kw)
             w, kept, fin = _sparse_mean_start(vals[0], idx[0], u.numel(),
                                               outer)
             works += w
@@ -634,13 +699,14 @@ class HierLAGSExchange:
 
     def exchange_bucket(self, wave, updates, state, axis_names=None, *,
                         key=None):
-        return self.launch_bucket(wave, updates, state, axis_names).finish()
+        return self.launch_bucket(wave, updates, state, axis_names,
+                                  key=key).finish()
 
     def exchange(self, updates, state, axis_names=None, *, key=None):
         flat_u, treedef = tree.flatten(updates)
         means, resids = self.exchange_bucket(
             tuple(range(len(flat_u))), flat_u, tree.leaves(state),
-            axis_names)
+            axis_names, key=key)
         return tree.unflatten(treedef, means), tree.unflatten(treedef,
                                                               resids)
 
@@ -707,7 +773,7 @@ class SparseHierLAGSExchange:
                if self.inner_compressor_name else kw)
         return (self.inner_compressor, ikw), (self.compressor, kw)
 
-    def _sim_leaf(self, i, u, e_in, e_out, k_in, k_out):
+    def _sim_leaf(self, i, u, e_in, e_out, k_in, k_out, key):
         (icomp, ikw), (comp, kw) = self._tiers()
         p = u.shape[0]
         n_in = max(1, int(self.n_inner))
@@ -716,7 +782,10 @@ class SparseHierLAGSExchange:
                              f"{n_in} per pod (leaf {i})")
         n_out = p // n_in
         d = _size(u[0])
-        vals, idx, resid_in = local_select_ef(u, e_in, k_in, icomp, **ikw)
+        # inner tier: each worker's own stream (the full coordinate)
+        keys = _worker_keys(key, i, p) if icomp.needs_key else None
+        vals, idx, resid_in = local_select_ef(u, e_in, k_in, icomp,
+                                              keys=keys, **ikw)
         # the pod means, each pod's workers scattered in rank order
         m = torch.empty((n_out, d), dtype=vals.dtype, device=vals.device)
         for o in range(n_out):
@@ -726,9 +795,14 @@ class SparseHierLAGSExchange:
         # one outer accumulator per pod: the pod's first copy of e_out
         lead = (n_out, n_in) + tuple(e_out.shape[1:])
         e_pod = e_out.reshape(lead)[:, 0].contiguous()
+        # outer tier: pod o's stream; past the inner workers' (p + o)
+        # when the inner tier is sparse, so that the tiers draw apart,
+        # and LAGSExchange's over the pods (o) when it is dense
+        keys = (_worker_keys(key, i, n_out, 0 if int(k_in) >= d else p)
+                if comp.needs_key else None)
         vals2, idx2, resid_out = local_select_ef(
             m.reshape((n_out,) + tuple(u.shape[1:])), e_pod, k_out, comp,
-            **kw)
+            keys=keys, **kw)
         del m, e_pod
         mean = _gathered_scatter_mean(vals2, idx2, d, n_out)
         resid_out = resid_out[:, None].expand(lead).reshape(e_out.shape)
@@ -742,7 +816,7 @@ class SparseHierLAGSExchange:
         ks_in, ks_out = tree.leaves(self.ks_inner), tree.leaves(self.ks)
         legs = zip(ids, updates, state["inner"], state["outer"])
         if axis_names is None:
-            out = [self._sim_leaf(i, u, ei, eo, ks_in[i], ks_out[i])
+            out = [self._sim_leaf(i, u, ei, eo, ks_in[i], ks_out[i], key)
                    for i, u, ei, eo in legs]
             return _done([o[0] for o in out],
                          {"inner": [o[1] for o in out],
@@ -751,10 +825,14 @@ class SparseHierLAGSExchange:
         inner = axis_names.sub(tuple(a for a in axis_names.names
                                      if a != self.outer_axis))
         outer = axis_names.sub((self.outer_axis,))
+        me, p = _worker_index(axis_names), axis_names.size
+        pod = _worker_index(outer)
         works, keep, legs_in = [], [], []
         for i, u, e_in, e_out in legs:
+            keys = ([_leaf_key(key, i, me)] if icomp.needs_key else None)
             vals, idx, resid_in = local_select_ef(u[None], e_in[None],
-                                                  ks_in[i], icomp, **ikw)
+                                                  ks_in[i], icomp, keys=keys,
+                                                  **ikw)
             w, kept, m_of = _sparse_mean_start(vals[0], idx[0], u.numel(),
                                                inner)
             works += w
@@ -767,8 +845,12 @@ class SparseHierLAGSExchange:
             works2, keep2, outs = [], [], []
             for i, shape, dtype, e_out, resid_in, m_of in legs_in:
                 m = m_of().reshape((1,) + tuple(shape))
+                # the pod's stream, shifted as on the simulation path
+                base = 0 if int(ks_in[i]) >= e_out.numel() else p
+                keys = ([_leaf_key(key, i, base + pod)] if comp.needs_key
+                        else None)
                 vals2, idx2, resid_out = local_select_ef(
-                    m, e_out[None], ks_out[i], comp, **kw)
+                    m, e_out[None], ks_out[i], comp, keys=keys, **kw)
                 del m
                 w, kept, mean_of = _sparse_mean_start(
                     vals2[0], idx2[0], e_out.numel(), outer)
@@ -786,7 +868,8 @@ class SparseHierLAGSExchange:
 
     def exchange_bucket(self, wave, updates, state,
                         axis_names: Axes | None, *, key=None):
-        return self.launch_bucket(wave, updates, state, axis_names).finish()
+        return self.launch_bucket(wave, updates, state, axis_names,
+                                  key=key).finish()
 
     def exchange(self, updates, state, axis_names: Axes | None,
                  *, key=None):
@@ -794,7 +877,7 @@ class SparseHierLAGSExchange:
         means, ns = self.exchange_bucket(
             tuple(range(len(flat_u))), flat_u,
             {"inner": tree.leaves(state["inner"]),
-             "outer": tree.leaves(state["outer"])}, axis_names)
+             "outer": tree.leaves(state["outer"])}, axis_names, key=key)
         return (tree.unflatten(treedef, means),
                 {"inner": tree.unflatten(treedef, ns["inner"]),
                  "outer": tree.unflatten(treedef, ns["outer"])})

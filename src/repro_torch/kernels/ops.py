@@ -2,7 +2,10 @@
 it: block views and padding, the clamp of global indices to ``d - 1``,
 the ``d <= block_size`` exact degeneracy, and stage 2 of the
 hierarchical selection (the k-th candidate magnitude, plain torch with a
-stable sort).
+stable sort).  One addition: a budget that keeps every entry (k >= d,
+or k_b = bs) skips the selection (:func:`keep_all_rows`), since a single
+row of a large leaf does not fit the kernel's shared memory and a
+k_b = bs pack costs bs arg-max passes per row for nothing.
 
 Every function takes vectors with any leading axes, ``(..., d)``, and
 selects along the last one: the P workers of the simulation surface run
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ef_sparsify as _ef
+from repro_torch.kernels import ref
 from repro_torch.kernels.block_topk import block_topk
 
 
@@ -78,6 +82,20 @@ def ef_accum_sparsify(g, e, lr, thr):
     return _ef.ef_accum_sparsify(g, e, lr, thr)
 
 
+def keep_all_rows(g_rows, e_rows, lr):
+    """The ungated pack at k = bs, where every entry is kept, without a
+    selection: (vals = acc (n, bs) f32 in index order, local idx
+    arange(bs) int32, residual zeros).  The kernel's payload is ordered
+    by magnitude instead; the scatter of either gives the same mean bit
+    for bit (one row's indices are distinct) and its residual is
+    acc − acc = +0, so the exchanges' mean and residual do not depend on
+    the order.  The accumulate rounds as the kernel's does."""
+    acc = ref._accumulate(g_rows, e_rows, lr)
+    n, bs = acc.shape
+    idx = torch.arange(bs, dtype=torch.int32, device=acc.device)
+    return acc, idx.expand(n, bs), torch.zeros_like(acc)
+
+
 def ef_select_pack_rows(g_rows, e_rows, lr, thr, k: int):
     """Fused EF accumulate + per-row top-``k`` + payload pack on a block
     view; ``thr=None`` disables the gate.  Returns (vals (n, k) f32,
@@ -96,9 +114,11 @@ def ef_block_pack(g, e, lr, k: int, *, block_size: int = 4096):
     bs = min(block_size, d)
     n_blocks = -(-d // bs)
     k_b = max(1, min(bs, -(-k * bs // d)))
-    vals, local, res = ef_select_pack_rows(
-        block_view(g, n_blocks, bs), block_view(e, n_blocks, bs), lr, None,
-        k_b)
+    g_rows, e_rows = block_view(g, n_blocks, bs), block_view(e, n_blocks, bs)
+    if k_b == bs:                       # every entry kept: no selection
+        vals, local, res = keep_all_rows(g_rows, e_rows, lr)
+    else:
+        vals, local, res = ef_select_pack_rows(g_rows, e_rows, lr, None, k_b)
     idx = global_index(local, n_blocks, bs, d)
     res = res.reshape(-1, n_blocks * bs)[:, :d]
     return (vals.reshape(lead + (-1,)), idx.reshape(lead + (-1,)),
@@ -112,14 +132,20 @@ def ef_hier_pack(g, e, lr, k: int, *, block_size: int = 4096, r: int = 4):
     At most ``r`` entries per block pass the gate; threshold ties may keep
     slightly more than k (the bias stays in the EF residual).  For
     ``d <= block_size`` (or ``k >= d``) the one block degenerates to an
-    exact fused top-k.  Returns (vals f32, global idx int32 in [0, d),
-    residual (..., d) f32), the first two of shape (..., n_blocks·r)."""
+    exact fused top-k; ``k >= d`` keeps every entry with no selection
+    (:func:`keep_all_rows`: values in index order, the residual zeros).
+    Returns (vals f32, global idx int32 in [0, d), residual (..., d)
+    f32), the first two of shape (..., n_blocks·r) (``k >= d``: d)."""
     lead, d = g.shape[:-1], g.shape[-1]
-    if d <= block_size or k >= d:
-        kk = min(k, d)
+    if k >= d:
+        vals, idx, res = keep_all_rows(g.reshape(-1, d), e.reshape(-1, d),
+                                       lr)
+        return (vals.reshape(lead + (d,)), idx.reshape(lead + (d,)),
+                res.reshape(lead + (d,)))
+    if d <= block_size:
         vals, local, res = ef_select_pack_rows(
-            g.reshape(-1, d), e.reshape(-1, d), lr, None, kk)
-        return (vals.reshape(lead + (kk,)), local.reshape(lead + (kk,)),
+            g.reshape(-1, d), e.reshape(-1, d), lr, None, k)
+        return (vals.reshape(lead + (k,)), local.reshape(lead + (k,)),
                 res.reshape(lead + (d,)))
     bs = block_size
     n_blocks = -(-d // bs)

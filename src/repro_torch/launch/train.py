@@ -48,8 +48,14 @@ mc the pending leaves are the velocity's own.  The reference's
 replicated (that memory layout is ROADMAP.md queue 1 item 7's tail), but
 its block exchange takes the FSDP layout's blocks (``_block_layout``).
 
-Not ported yet: ``health_every > 0`` (ROADMAP.md queue 1 item 12) and
-``schedule`` (item 10).
+``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
+the scalar ratio's per-leaf budgets, through
+``registry.resolve_schedule_ks`` (``validate_for`` first, the
+simulation surface's path).  Each exchange gets the step's stream
+``run.key_at(step)`` (under ``async1`` the previous step's, whose
+updates it exchanges), as the reference's.
+
+Not ported yet: ``health_every > 0`` (ROADMAP.md queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -101,7 +107,8 @@ class _OneWorker:
 
     def launch_bucket(self, wave, updates, state, axis_names, *, key=None):
         means, resids = self.exch.exchange_bucket(
-            wave, [u[None] for u in updates], [e[None] for e in state], None)
+            wave, [u[None] for u in updates], [e[None] for e in state], None,
+            key=key)
         return lags._done(means, [e[0] for e in resids])
 
     def exchange_bucket(self, wave, updates, state, axis_names, *, key=None):
@@ -166,7 +173,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
     global batch ({"tokens", "labels"} (B, S) on this rank's device, the
     same on every rank); ``metrics = {"loss"}``, the mean over ranks.
     ``meta`` carries ``mode``, ``n_workers``, ``manual``,
-    ``worker_axes``, ``ks``, ``run``, ``waves`` (the ``WaveSchedule`` of a
+    ``worker_axes``, ``ks``, ``schedule``, ``run``, ``waves`` (the ``WaveSchedule`` of a
     pipelined run, else None), ``exchange`` and ``axes`` (the exchange
     the step runs and the ``lags.Axes`` it runs over, None for none).
     ``step_fn(state, batch, marks=[])`` under ``pipeline="wave"`` fills
@@ -180,9 +187,13 @@ def build_train_step(cfg, mesh, run: RunConfig):
         momentum_correction=run.momentum_correction)
     mode, worker = meta["mode"], meta["worker_axes"]
     strat = R.get_exchange(mode)
+    ks_override = R.resolve_schedule_ks(run.schedule, mode,
+                                        state_specs["params"],
+                                        n_workers=meta["n_workers"])
     exch = R.build_exchange(R.ExchangeSpec(
         mode=mode, params_like=state_specs["params"],
-        ratio=run.resolved_ratio(cfg), block_size=run.block_size,
+        ratio=run.resolved_ratio(cfg), ks=ks_override,
+        block_size=run.block_size,
         compressor=run.compressor, selection_backend=run.selection_backend,
         inner_compressor=run.inner_compressor, sim=False,
         n_workers=meta["n_workers"], ratio_inner=run.resolved_ratio_inner(),
@@ -198,6 +209,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
              if strat.axes == "pod_auto" else None)
     step_exch = exch if axes is not None else _OneWorker(exch)
     meta["ks"] = getattr(exch, "ks", None)
+    meta["schedule"] = run.schedule
     meta["run"] = dataclasses.replace(run, mode=mode)
     meta["exchange"], meta["axes"] = exch, axes
     dev = M.device_of(mesh)
@@ -265,13 +277,14 @@ def build_train_step(cfg, mesh, run: RunConfig):
         lr = torch.as_tensor(run.lr_at(state["step"]), dtype=torch.float32,
                              device=dev)
         ef_local = local(state["ef"])
+        key = run.key_at(state["step"])
         out = {k: v for k, v in state.items() if k not in ("ef", "step")}
         if pipeline == "wave" and inner is None:
             # each wave's exchange launches inside backprop (hooks)
             (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
                 lambda p: loss_fn(p, local_batch), step_exch, waves.waves,
                 params, WS.unflatten_state(ef_local, treedef), axes, lr=lr,
-                has_aux=True, tiers=ef_tiers, marks=marks)
+                key=key, has_aux=True, tiers=ef_tiers, marks=marks)
             flat_mean = tree.leaves(mean_upd)
             new_ef = WS.flatten_state(new_ef_local, ef_tiers)
             del mean_upd, new_ef_local
@@ -279,11 +292,12 @@ def build_train_step(cfg, mesh, run: RunConfig):
             launched = None
             if pipeline == "async1":
                 # the previous step's exchange runs against this step's
-                # forward and backward
+                # forward and backward, with that step's stream
                 pend = [x[0] for x in tree.leaves(state["pending"])]
                 with torch.no_grad():
-                    launched = WS.launch_waves(step_exch, waves.waves, pend,
-                                               ef_local, axes)
+                    launched = WS.launch_waves(
+                        step_exch, waves.waves, pend, ef_local, axes,
+                        key=run.key_at(state["step"] - 1))
                 del pend
             loss, _aux = loss_fn(params, local_batch)
             grads = list(torch.autograd.grad(loss, leaves))
@@ -306,11 +320,12 @@ def build_train_step(cfg, mesh, run: RunConfig):
                     # the pod's mean), as the reference's pure-auto path
                     flat_mean, new_ef = WS.finish_waves(
                         WS.launch_waves(step_exch, waves.waves, updates,
-                                        ef_local, axes),
+                                        ef_local, axes, key=key),
                         waves.waves, ef_local)
                 else:
                     flat_mean, new_ef = step_exch.exchange_bucket(
-                        tuple(range(len(leaves))), updates, ef_local, axes)
+                        tuple(range(len(leaves))), updates, ef_local, axes,
+                        key=key)
                 del updates
         del ef_local
         with torch.no_grad():

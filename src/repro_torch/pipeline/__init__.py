@@ -10,9 +10,8 @@ Modules:
 
   * ``buckets`` — ``Wave`` / ``WaveSchedule`` artifacts (JSON, binding,
     ``bucketing.bucket_stats`` views);
-  * ``waves``   — planning: geometry-only ``default_waves`` and
-    ``predict_pipeline`` (``plan_waves`` raises: ROADMAP.md queue 1
-    item 10);
+  * ``waves``   — planning: geometry-only ``default_waves``,
+    measurement-driven ``plan_waves`` and ``predict_pipeline``;
   * ``step``    — execution: in-backprop ``wave_backward`` hooks and
     post-backward ``waved_exchange`` regrouping.
 

@@ -16,8 +16,11 @@ overlaps the whole exchange with the next step's compute.
 Strategies that select over the whole-model vector (``slgs``,
 ``wave_granularity == "model"``) get a single wave in flatten order.
 
-``plan_waves``, the measurement-driven partition, needs the autotune
-planner and is not ported yet (ROADMAP.md queue 1 item 10).
+``plan_waves`` is the measurement-driven partition: the same
+backprop-ordered ``profiler.LeafSample`` list the ratio planner takes
+(measured ``t_backward``), each leaf's exchange priced with
+``planner.leaf_comm_time`` at the schedule's ratio, per-wave readiness
+times and the predicted timeline written into the artifact.
 """
 from __future__ import annotations
 
@@ -117,9 +120,63 @@ def default_waves(params_like, ks: Any = None, *,
     return ws
 
 
-def plan_waves(*args, **kwargs) -> WaveSchedule:
-    """Measurement-driven wave partition: not ported yet."""
-    raise NotImplementedError(
-        "plan_waves prices each leaf with the autotune planner, not "
-        "ported yet (ROADMAP.md queue 1 item 10); use default_waves or "
-        "pass RunConfig(waves=...)")
+def plan_waves(leaves: Sequence, sched, p: int, hw, *,
+               t_forward: float = 0.0, pipeline: str = "wave",
+               granularity: str = "leaf",
+               target_bytes: int | None = None,
+               flat_names: Sequence[str] | None = None) -> WaveSchedule:
+    """Measurement-driven wave partition + predicted timeline.
+
+    ``leaves``: backprop-ordered ``profiler.LeafSample``-likes (``name``,
+    ``d``, ``t_backward``).  ``sched``: the planned ratio ``Schedule``
+    (``None`` prices every leaf dense).  ``flat_names``: leaf names in
+    flatten order, to bind global ids; defaults to the reversed-backprop
+    identity (exactly how ``profiler.backprop_leaves`` is built)."""
+    from repro_torch.autotune import planner
+
+    n = len(leaves)
+    if flat_names is not None:
+        index = {nm: i for i, nm in enumerate(flat_names)}
+        ids = [index[leaf.name] for leaf in leaves]
+    else:
+        ids = list(range(n - 1, -1, -1))
+    ratio = ({lp.name: lp.ratio for lp in sched.leaves} if sched is not None
+             else {})
+    ks = [None if ratio.get(leaf.name, 1.0) <= 1.0
+          else max(1, int(round(leaf.d / ratio[leaf.name])))
+          for leaf in leaves]
+    nbytes = [_leaf_nbytes(leaf.d, k) for leaf, k in zip(leaves, ks)]
+    t_c = [planner.leaf_comm_time(leaf.d, ratio.get(leaf.name, 1.0), p, hw)
+           for leaf in leaves]
+    # readiness clock: forward, then backward leaf by leaf
+    clock = t_forward
+    ready = []
+    for leaf in leaves:
+        clock += max(0.0, leaf.t_backward)
+        ready.append(clock)
+    if granularity == "model":
+        # whole-model selection (slgs): one wave, FLATTEN order, ready
+        # only once the entire backward pass has finished
+        by_id = sorted(range(n), key=lambda pos: ids[pos])
+        waves = (Wave(leaf_ids=tuple(ids[pos] for pos in by_id),
+                      names=tuple(leaves[pos].name for pos in by_id),
+                      nbytes=sum(nbytes), t_comm=sum(t_c),
+                      t_ready=max(ready, default=t_forward)),)
+    else:
+        groups = _group(nbytes, target_bytes or latency_matched_bytes(hw))
+        waves = tuple(
+            Wave(leaf_ids=tuple(ids[pos] for pos in g),
+                 names=tuple(leaves[pos].name for pos in g),
+                 nbytes=sum(nbytes[pos] for pos in g),
+                 t_comm=sum(t_c[pos] for pos in g),
+                 t_ready=ready[g[-1]])
+            for g in groups)
+    t_backward = sum(max(0.0, leaf.t_backward) for leaf in leaves)
+    predicted = predict_pipeline(waves, t_forward=t_forward,
+                                 t_backward=t_backward, pipeline=pipeline)
+    ws = WaveSchedule(waves=waves, pipeline=pipeline, predicted=predicted,
+                      meta={"source": "planned", "granularity": granularity,
+                            "n_workers": int(p),
+                            "hardware": getattr(hw, "name", None)})
+    ws.validate_cover(n)
+    return ws

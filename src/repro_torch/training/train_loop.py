@@ -18,6 +18,16 @@ registered mode runs here: ``dense``, ``lags_dp``, ``slgs``,
 ``lags_hier`` (the per-leaf exchange over P workers, one per pod, as the
 reference's) and ``lags_hier2`` (P factors as pods × ``inner_workers``;
 the state's ``"ef"`` is ``{"inner", "outer"}``, from ``exchange.init``).
+
+``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
+the scalar ratio's budgets through ``registry.resolve_schedule_ks``,
+the distributed step's ingestion path.  Each step passes
+``run.key_at(step)`` to the exchange, so key-needing compressors draw
+fresh indices every step.  ``run.measure_delta`` under ``lags_dp``
+adds the Eq. 20 metric of every leaf on ``acc = e + u`` before the
+exchange (``delta_max``, ``delta_mean``, ``delta_per_leaf`` in flatten
+order), its RandK draws from ``Key(17)`` with the step and the leaf
+folded in, as the reference's.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ import torch
 from repro_torch import resolve_device, tree
 from repro_torch.api import registry as R
 from repro_torch.api.config import RunConfig
+from repro_torch.core import assumption
+from repro_torch.core import compressors as C
 from repro_torch.optim import optimizers as opt
 
 
@@ -38,8 +50,11 @@ class Spec:
 
 
 def _sim_spec(run: RunConfig, params, n_workers: int) -> R.ExchangeSpec:
-    return R.ExchangeSpec(mode=run.resolved_mode(), params_like=params,
-                          ratio=run.resolved_ratio(),
+    mode = run.resolved_mode()
+    ks = R.resolve_schedule_ks(run.schedule, mode, params,
+                               n_workers=n_workers)
+    return R.ExchangeSpec(mode=mode, params_like=params,
+                          ratio=run.resolved_ratio(), ks=ks,
                           compressor=run.compressor,
                           selection_backend=run.selection_backend,
                           inner_compressor=run.inner_compressor,
@@ -93,9 +108,25 @@ class SimTrainer:
         return torch.as_tensor(self.run_config.lr_at(step),
                                dtype=torch.float32, device=self.device)
 
+    def _delta(self, updates, ef, step: int) -> dict:
+        """Eq. 20 per leaf on ``acc = e + u`` (``delta_metric_tree``'s
+        streams, one leaf's accumulator alive at a time)."""
+        key = C.Key(17).fold_in(step)
+        ks = tree.leaves(self.exchange.ks)
+        deltas = []
+        for i, (u, e) in enumerate(zip(updates, tree.leaves(ef))):
+            acc = (e + u).reshape(u.shape[0], -1)
+            deltas.append(assumption.delta_metric(acc, int(ks[i]),
+                                                  key.fold_in(i)))
+            del acc
+        flat = torch.stack(deltas)
+        return {"delta_max": flat.max(), "delta_mean": flat.mean(),
+                "delta_per_leaf": flat}
+
     def step(self, batch) -> dict:
         """One training step on ``batch`` (leaves (P, ...)); returns the
-        metrics as device tensors: the mean loss over workers and lr."""
+        metrics as device tensors: the mean loss over workers, lr and,
+        under ``measure_delta``, the Eq. 20 metrics."""
         state = self.state
         params = state["params"]
         leaves, treedef = tree.flatten(params)
@@ -124,9 +155,14 @@ class SimTrainer:
                         u[w].mul_(lr)
             del grads
             losses.append(loss.detach())
+        metrics = {"loss": torch.stack(losses).mean(), "lr": lr}
         with torch.no_grad():
+            if self.run_config.measure_delta and self.mode == "lags_dp":
+                metrics.update(self._delta(updates, state["ef"],
+                                           state["step"]))
             mean_update, new_ef = self.exchange.exchange(
-                tree.unflatten(treedef, updates), state["ef"], None)
+                tree.unflatten(treedef, updates), state["ef"], None,
+                key=self.run_config.key_at(state["step"]))
             del updates
             deltas, new_opt = self.optimizer.update(mean_update,
                                                     state["opt"], params,
@@ -135,7 +171,7 @@ class SimTrainer:
             opt.apply_deltas(params, deltas)
         self.state = {"params": params, "ef": new_ef, "mom": state["mom"],
                       "opt": new_opt, "step": state["step"] + 1}
-        return {"loss": torch.stack(losses).mean(), "lr": lr}
+        return metrics
 
     def run(self, data_fn, n_steps: int, log_every: int = 0):
         """data_fn(step) -> per-worker batch tree with leading (P,) axis."""
@@ -143,6 +179,6 @@ class SimTrainer:
         for t in range(n_steps):
             metrics = self.step(data_fn(t))
             if log_every and (t % log_every == 0 or t == n_steps - 1):
-                history.append({k: float(v) for k, v in metrics.items()}
-                               | {"step": t})
+                history.append({k: (v.tolist() if v.ndim else float(v))
+                                for k, v in metrics.items()} | {"step": t})
         return history

@@ -34,7 +34,20 @@ Contracts:
     and ``dense``/``slgs`` async1 + mc 0.9 (the pending updates are the
     velocity tensors, which the step then updates in place) match the
     reference's ``build_train_step`` at the tolerances above, the
-    ``async1`` pending updates too.
+    ``async1`` pending updates too;
+  * the adaptive ratios: ``lags_dp`` under a schedule the reference
+    planned (mixed ratios, planned-dense leaves among them; its JSON
+    loaded by each package), ``off`` and in the reference's planned
+    waves (``plan_waves``), 3 steps against the reference's
+    ``build_train_step`` at the tolerances above;
+  * key-needing compressors on the distributed surface: ``randk`` through
+    ``slgs`` (the flat mesh) and ``randk`` / ``topk_sampled`` through
+    ``lags_hier2`` (pod 2 × data 2; sparse and dense inner tier), two
+    steps with each step's stream: every rank's draws, mean and residuals
+    equal the simulation path's bit for bit (CPU generators on both);
+  * ``autotune.profiler.profile_model`` of the real step over the four
+    ranks (dense and lags_dp steps, the collective sweep): a profile the
+    reference reads, whose fit and plan match the reference's.
 """
 import os
 import subprocess
@@ -73,6 +86,13 @@ WAVE_PARITY = {"dense": ("dense", "xla"), "lags_dp_xla": ("lags_dp", "xla"),
                "lags_dp_kernel": ("lags_dp", "kernel"),
                "slgs": ("slgs", "kernel")}
 WAVE_BYTES = 2048
+# against the reference under its own schedule: name -> pipeline
+SCHED_MODES = {"sched": "off", "sched_wave": "wave"}
+# sampled exchanges: name -> (mode, compressor, pods, inner ratio)
+SAMPLED = {"slgs_randk": ("slgs", "randk", 1, 1.0),
+           "hier2_randk": ("lags_hier2", "randk", 2, 4.0),
+           "hier2_sampled": ("lags_hier2", "topk_sampled", 2, 1.0)}
+SAMPLE_SEED = 3
 # exchange leaves: a short tail block, a one-element tail, many blocks
 EX_LEAVES = {"a": (100,), "b": (257,), "c": (50, 100)}
 EX_KS = {"a": 3, "b": 9, "c": 40}
@@ -133,6 +153,29 @@ for name, (mode, mc, pipeline, fixed) in PIPE_MODES.items():
     for i, x in enumerate(jax.tree.leaves(state.get("extra", {}))):
         out[f"{name}/mom{i}"] = np.asarray(x)
     out[f"{name}/n_waves"] = meta["waves"].n_waves if meta["waves"] else 0
+from repro.autotune import schedule as JSCH
+from repro.pipeline import buckets as JWB
+sched = JSCH.Schedule.from_json(str(inp["schedule"]))
+planned = JWB.WaveSchedule.from_json(str(inp["waves"]))
+for name, pipeline in SCHED_MODES.items():
+    run = api.RunConfig(mode="lags_dp", donate=False, pipeline=pipeline,
+                        schedule=sched, waves=planned, **RUN_KW)
+    step, _, meta = api.build_train_step(cfg, mesh, run)
+    state, _ = TR.init_state(cfg, mesh, method="lags_dp", pipeline=pipeline)
+    flat, treedef = jax.tree.flatten(state["params"])
+    state["params"] = jax.tree.unflatten(treedef, [
+        jax.device_put(inp[f"param{i}"], x.sharding)
+        for i, x in enumerate(flat)])
+    with compat.set_mesh(mesh):
+        for t in range(STEPS):
+            batch = {"tokens": inp["tokens"][t], "labels": inp["labels"][t]}
+            state, metrics = step(state, batch)
+            out[f"{name}/loss{t}"] = float(metrics["loss"])
+    for part in ("params", "ef"):
+        for i, x in enumerate(jax.tree.leaves(state[part])):
+            out[f"{name}/{part}{i}"] = np.asarray(x)
+    out[f"{name}/n_waves"] = meta["waves"].n_waves if meta["waves"] else 0
+    out[f"{name}/ks"] = np.asarray(jax.tree.leaves(meta["ks"]))
 np.savez(sys.argv[2], **out)
 print("OK jax")
 """
@@ -237,6 +280,41 @@ for name, (mode, backend) in WAVE_PARITY.items():
     for pipeline in ("off", "wave"):
         train(f"parity/{name}/{pipeline}", 2, False, 2, mode=mode,
               selection_backend=backend, pipeline=pipeline)
+
+# the adaptive ratios: the reference's schedule and planned waves
+from repro_torch.autotune import profiler as TPR
+from repro_torch.autotune import schedule as TSCH
+from repro_torch.api import registry as TR
+from repro_torch.pipeline import buckets as TWB
+sched = TSCH.Schedule.from_json(str(inp["schedule"]))
+planned = TWB.WaveSchedule.from_json(str(inp["waves"]))
+for name, pipeline in SCHED_MODES.items():
+    train(name, STEPS, False, STEPS, mode="lags_dp", pipeline=pipeline,
+          schedule=sched, waves=planned, selection_backend="kernel")
+
+# key-needing compressors: this rank's draws, means and residuals
+pod_mesh = M.make_mesh(pod=2, device="cpu")
+like = {k: torch.zeros(s) for k, s in EX_LEAVES.items()}
+for name, (mode, comp, pods, ratio_inner) in SAMPLED.items():
+    m = pod_mesh if pods > 1 else mesh
+    ex = TR.build_exchange(TR.ExchangeSpec(
+        mode=mode, params_like=like, ratio=8.0, compressor=comp, sim=False,
+        n_workers=WORLD, ratio_inner=ratio_inner))
+    e = ex.init(like)
+    run = api.RunConfig(seed=SAMPLE_SEED)
+    for t in range(2):
+        u = {k: torch.from_numpy(inp[f"u{t}/{k}"][rank]) for k in EX_LEAVES}
+        mean, e = ex.exchange(u, e, M.worker_axes(m, M.data_axis_names(m)),
+                              key=run.key_at(t))
+        for i, x in enumerate(tree.leaves(mean)):
+            out[f"{name}/{t}/mean{i}"] = x.numpy()
+        for i, x in enumerate(tree.leaves(e)):
+            out[f"{name}/{t}/ef{i}"] = x.numpy()
+
+# the autotune profile of the real step over the four ranks
+prof = TPR.profile_model(cfg, mesh, seq=S, global_batch=B, iters=1,
+                         comm_sizes=(4096, 1 << 16, 1 << 20))
+out["profile"] = np.array(prof.to_json())
 np.savez(out_path, **out)
 dist.destroy_process_group()
 print("OK rank", rank)
@@ -246,7 +324,8 @@ print("OK rank", rank)
 def _constants() -> str:
     return "".join(f"{name} = {globals()[name]!r}\n" for name in (
         "WORLD", "STEPS", "SMALL", "MODES", "RUN_KW", "EX_LEAVES", "EX_KS",
-        "EX_BLOCK", "PIPE_MODES", "WAVE_PARITY", "WAVE_BYTES"))
+        "EX_BLOCK", "PIPE_MODES", "WAVE_PARITY", "WAVE_BYTES", "SCHED_MODES",
+        "SAMPLED", "SAMPLE_SEED", "B", "S"))
 
 
 def _exchange_inputs(rng):
@@ -278,6 +357,9 @@ def runs(tmp_path_factory):
            for i, p in enumerate(jax.tree.leaves(params))}
     inp.update(tokens=toks[..., :-1], labels=toks[..., 1:],
                **_exchange_inputs(rng))
+    sched, waves = _reference_plan(cfg)
+    inp.update(schedule=np.array(sched.to_json()),
+               waves=np.array(waves.to_json()))
     np.savez(tmp / "in.npz", **inp)
 
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
@@ -308,6 +390,22 @@ def runs(tmp_path_factory):
     jres = dict(np.load(tmp / "jax.npz"))
     ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
     return inp, jres, ranks
+
+
+def _reference_plan(cfg):
+    """The reference's P = 4 plan of the shrunken model on the paper's
+    1 Gbps wire from an apportioned 10 ms backward (ratios 1 to 1000),
+    and its planned waves (several at a 2 KiB target)."""
+    from repro.autotune import planner, profiler
+    from repro.core import comm_model as cm
+    from repro.pipeline import waves as W
+    leaves = profiler.apportion_backward(
+        profiler.backprop_leaves(cfg, B * S / WORLD), 0.01)
+    sched = planner.plan_schedule(leaves, WORLD, cm.ETH_1GBPS,
+                                  arch="small", shape="test")
+    waves = W.plan_waves(leaves, sched, WORLD, cm.ETH_1GBPS,
+                         target_bytes=WAVE_BYTES)
+    return sched, waves
 
 
 def _bits(x) -> np.ndarray:
@@ -457,3 +555,110 @@ def test_pipelined_and_slgs_three_steps_match_jax(runs, name):
                 np.testing.assert_allclose(res[key][0], jres[key][r],
                                            rtol=1e-4, atol=1e-5,
                                            err_msg=f"{key} rank {r}")
+
+
+@pytest.mark.parametrize("name", list(SCHED_MODES))
+def test_scheduled_lags_dp_three_steps_match_jax(runs, name):
+    """The reference's schedule (mixed ratios, dense leaves among them)
+    through both packages' distributed ``lags_dp``, ``off`` and in the
+    planned waves: the same per-leaf k's and wave count, losses rtol
+    1e-5, parameters and residuals rtol 1e-4 atol 1e-5, parameters equal
+    on every rank, bit for bit."""
+    inp, jres, ranks = runs
+    from repro_torch.autotune import schedule as TSCH
+    sched = TSCH.Schedule.from_json(str(inp["schedule"]))
+    ratios = {lp.ratio for lp in sched.leaves}
+    assert 1.0 in ratios and len(ratios) > 2, ratios
+    import dataclasses
+    from repro_torch import tree as ttree
+    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(tinyllama_1_1b.smoke_config(), **SMALL)
+    assert ttree.leaves(sched.ks_tree(TT.abstract_params(cfg))) == [
+        int(k) for k in jres[f"{name}/ks"]]
+    got = ranks[0]
+    np.testing.assert_allclose(
+        [got[f"{name}/loss{t}"] for t in range(STEPS)],
+        [jres[f"{name}/loss{t}"] for t in range(STEPS)], rtol=1e-5)
+    assert got[f"{name}/n_waves"] == jres[f"{name}/n_waves"]
+    assert (jres[f"{name}/n_waves"] > 1) == (name == "sched_wave")
+    for part, n in (("params", 12), ("ef", 12)):
+        keys = [k for k in jres if k.startswith(f"{name}/{part}")]
+        assert len(keys) == n
+        for key in keys:
+            for r, res in enumerate(ranks):
+                want = jres[key] if part == "params" else jres[key][r]
+                have = res[key] if part == "params" else res[key][0]
+                np.testing.assert_allclose(have, want, rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{key} rank {r}")
+            if part == "params":
+                for res in ranks[1:]:
+                    np.testing.assert_array_equal(res[key], got[key])
+
+
+@pytest.mark.parametrize("name", list(SAMPLED))
+def test_sampled_exchanges_draw_as_the_simulation_path(runs, name):
+    """Each rank's ``randk`` / ``topk_sampled`` picks (its stream folds
+    the step, the leaf and its worker coordinate; the cross-pod tier the
+    pod's) give the simulation path's mean and this worker's residuals
+    bit for bit, two steps."""
+    from repro_torch import api as tapi
+    from repro_torch import tree as ttree
+    from repro_torch.api import registry as TR
+    inp, _, ranks = runs
+    mode, comp, pods, ratio_inner = SAMPLED[name]
+    like = {k: torch.zeros(s) for k, s in EX_LEAVES.items()}
+    ex = TR.build_exchange(TR.ExchangeSpec(
+        mode=mode, params_like=like, ratio=8.0, compressor=comp, sim=True,
+        n_workers=WORLD, n_inner=WORLD // pods, ratio_inner=ratio_inner))
+    e = ex.init({k: torch.zeros((WORLD,) + s) for k, s in EX_LEAVES.items()})
+    run = tapi.RunConfig(seed=SAMPLE_SEED)
+    for t in range(2):
+        u = {k: torch.from_numpy(inp[f"u{t}/{k}"]) for k in EX_LEAVES}
+        mean, e = ex.exchange(u, e, None, key=run.key_at(t))
+        for r, res in enumerate(ranks):
+            for i, x in enumerate(ttree.leaves(mean)):
+                np.testing.assert_array_equal(
+                    _bits(res[f"{name}/{t}/mean{i}"]), _bits(x.numpy()),
+                    err_msg=f"{name} mean {i} rank {r} step {t}")
+            for i, x in enumerate(ttree.leaves(e)):
+                np.testing.assert_array_equal(
+                    _bits(res[f"{name}/{t}/ef{i}"]), _bits(x[r].numpy()),
+                    err_msg=f"{name} residual {i} rank {r} step {t}")
+    assert any(float(x.abs().sum()) > 0 for x in ttree.leaves(e))
+
+
+def test_profile_of_the_real_step_over_four_ranks(runs):
+    """``profile_model`` over the four gloo ranks: a profile the
+    reference parses, with measured dense and lags_dp steps, FLOPs of
+    the dense step, wire samples of both collectives at every size over
+    4 workers; the fit and the plan over it equal the reference's."""
+    from repro.autotune import costfit as JF
+    from repro.autotune import planner as JP
+    from repro.autotune import profiler as JPR
+    from repro.core import comm_model as JCM
+    from repro_torch.autotune import costfit as TF
+    from repro_torch.autotune import planner as TP
+    from repro_torch.autotune import profiler as TPR
+    from repro_torch.core import comm_model as TCM
+    _, _, ranks = runs
+    for res in ranks:
+        prof = TPR.ModelProfile.from_json(str(res["profile"]))
+        jprof = JPR.ModelProfile.from_json(str(res["profile"]))
+        assert prof.n_workers == WORLD and prof.mesh_shape == (WORLD,)
+        assert prof.t_step_dense > 0 and prof.t_step_lags > 0
+        assert prof.flops_per_step > 0 and prof.hbm_bytes_per_step == 0
+        assert prof.tokens_per_worker == B * S / WORLD
+        assert [(c.kind, c.nbytes, c.p) for c in prof.comm_samples] == [
+            (k, float(n), WORLD) for n in (4096, 1 << 16, 1 << 20)
+            for k in ("allgather", "allreduce")]
+        assert len(prof.leaves) == 12
+        base = dict(name="b", alpha=1e-5, beta=1e-10, flops=1e12,
+                    hbm_bw=1e11)
+        thw = TF.fit_hardware(prof, base=TCM.Hardware(**base))
+        jhw = JF.fit_hardware(jprof, base=JCM.Hardware(**base))
+        assert thw.alpha > 0 and thw.beta > 0
+        assert abs(thw.alpha - jhw.alpha) <= 1e-12 * jhw.alpha
+        assert abs(thw.beta - jhw.beta) <= 1e-12 * jhw.beta
+        assert TP.plan_schedule(prof.leaves, WORLD, thw).to_json() == \
+            JP.plan_schedule(jprof.leaves, WORLD, jhw).to_json()

@@ -268,3 +268,112 @@ def test_wave_step_equals_off_step_bitwise(cuda, mode):
     assert out["off"][0] == out["wave"][0]
     for part in (1, 2):
         _bitwise(out["wave"][part], out["off"][part])
+
+
+def test_keep_all_budget_at_full_width_runs_on_the_card(cuda):
+    """A leaf planned dense (ratio 1, k = d) at TinyLlama-1.1B's width:
+    one layer's FFN weight, 2048 x 5632 = 11,534,336 entries, a single
+    row far past the pack kernel's shared memory.  It used to raise on
+    the card; now the kernel path keeps every entry without a selection
+    (``ops.keep_all_rows``, no launch), as ``lags_dp`` (simulation),
+    ``slgs`` and ``BlockLAGSExchange`` at k_b = bs run it, and its mean
+    and residual equal the CPU plain path's (the sort-based selection of
+    the xla backend) bit for bit."""
+    from repro_torch.api import registry as R
+    from repro_torch.core import lags as L
+    like = {"w": torch.zeros(2048, 5632), "n": torch.zeros(2048)}
+    gen = torch.Generator().manual_seed(13)
+    u = {k: 1e-2 * torch.randn((2,) + tuple(v.shape), generator=gen)
+         for k, v in like.items()}
+    e0 = {k: 1e-3 * torch.randn((2,) + tuple(v.shape), generator=gen)
+          for k, v in like.items()}
+    for mode in ("lags_dp", "slgs"):
+        on = {}
+        for backend, dev in (("kernel", cuda), ("xla", torch.device("cpu"))):
+            ex = R.build_exchange(R.ExchangeSpec(
+                mode=mode, params_like=like, ratio=1.0,
+                selection_backend=backend, sim=True, n_workers=2))
+            kernels.reset_launch_counts()
+            on[backend] = ex.exchange(
+                {k: v.to(dev) for k, v in u.items()},
+                {k: v.to(dev) for k, v in e0.items()}, None)
+            if backend == "kernel":
+                assert kernels.launch_counts()["ef_select_pack"] == 0
+        _bitwise(tree.leaves(on["kernel"]), tree.leaves(on["xla"]))
+        assert not any(e.any() for e in tree.leaves(on["kernel"][1]))
+    ks = L.ks_from_ratio(like, 1.0)
+    out = {}
+    for use_kernel, dev in ((True, cuda), (False, torch.device("cpu"))):
+        ex = L.BlockLAGSExchange(ks=ks, use_kernel=use_kernel)
+        out[use_kernel] = ex.exchange({k: v.to(dev) for k, v in u.items()},
+                                      {k: v.to(dev) for k, v in e0.items()},
+                                      None)
+    _bitwise(tree.leaves(out[True]), tree.leaves(out[False]))
+
+
+def _mixed_schedule(cfg, p):
+    """A plan of ``cfg`` at P = ``p`` on the paper's 1 Gbps wire from an
+    apportioned 10 ms backward: ratios 1 to 1000."""
+    from repro_torch.autotune import planner, profiler
+    from repro_torch.core import comm_model as cm
+    leaves = profiler.apportion_backward(profiler.backprop_leaves(cfg, 32.0),
+                                         0.01)
+    sched = planner.plan_schedule(leaves, p, cm.ETH_1GBPS, arch="smoke")
+    ratios = {lp.ratio for lp in sched.leaves}
+    assert 1.0 in ratios and len(ratios) > 2
+    return sched
+
+
+def test_scheduled_step_on_each_surface(cuda):
+    """One step under a mixed schedule (planned-dense leaves among them)
+    on each surface: the kernel-backed SimTrainer (P = 2) on the card
+    tracks the CPU, and the distributed step (NCCL, world size 1) takes
+    the plan's k's, launches the pack kernel for the sparse leaves and
+    keeps every entry of the dense ones."""
+    import torch.distributed as dist
+    torch.use_deterministic_algorithms(False)
+    cfg = dataclasses.replace(tinyllama_1_1b.smoke_config(), n_layers=2)
+    sched = _mixed_schedule(cfg, 2)
+    toks = torch.randint(0, cfg.vocab, (2, 1, 33),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = TT.Transformer(cfg, seed=0, device="cpu")
+        model.to(dev)
+        run = api.RunConfig(mode="lags_dp", lr=0.1, schedule=sched,
+                            selection_backend="kernel")
+        tr = api.Session(cfg, run, device=dev).simulator(
+            lambda p, b: TT.loss_fn(p, cfg, b, chunk=16, loss_chunk=16),
+            model.params, n_workers=2)
+        assert tree.leaves(tr.exchange.ks) == [
+            sched.by_name[n].k for n in tree.leaf_paths(model.params)]
+        loss = float(tr.step({k: v.to(dev) for k, v in batch.items()})
+                     ["loss"])
+        out[dev] = (loss, [p.detach().cpu() for p in tree.leaves(
+            model.params)])
+    assert out["cpu"][0] == pytest.approx(out["cuda"][0], rel=1e-4)
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    mesh = _nccl_world_of_one()
+    try:
+        sess = api.Session(cfg, api.RunConfig(
+            mode="lags_dp", lr=0.1, schedule=sched,
+            selection_backend="kernel", chunk=16, loss_chunk=16), mesh=mesh)
+        with pytest.warns(UserWarning, match="planned for 2 workers"):
+            step_fn = sess.step_fn
+        assert tree.leaves(sess.meta["ks"]) == [
+            sched.by_name[n].k for n in tree.leaf_paths(
+                sess.state_specs["params"])]
+        state, _ = sess.init_state(
+            params=TT.Transformer(cfg, seed=0, device=cuda).params)
+        kernels.reset_launch_counts()
+        state, metrics = step_fn(state, {k: v[0].to(cuda)
+                                         for k, v in batch.items()})
+        assert torch.isfinite(metrics["loss"])
+        # one pack per leaf whose per-block budget is below its block
+        n_sparse = sum(1 for lp in sched.leaves if -(-lp.k * min(
+            4096, lp.d) // lp.d) < min(4096, lp.d))
+        assert kernels.launch_counts()["ef_select_pack"] == n_sparse
+    finally:
+        dist.destroy_process_group()

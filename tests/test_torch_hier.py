@@ -22,7 +22,9 @@ Contracts:
     ``lags_hier`` match the reference's ``SimTrainer`` at
     ``test_torch_train.py``'s tolerances (losses rtol 1e-5; parameters
     and residuals rtol 1e-4 atol 1e-5);
-  * a key-needing compressor raises, naming ROADMAP.md item 10;
+  * a key-needing compressor (either tier) builds under the xla backend
+    and raises under the kernel one, as in the reference (the sampled
+    exchanges themselves: ``test_torch_sampling.py``);
   * ``lags_hier``'s block layout: ``BlockLAGSExchange(shard_dims=...)``
     equals the reference's bit for bit, and the port's logical axes,
     FSDP specs and laid-first dims equal the reference's on the same
@@ -386,12 +388,22 @@ def test_sim_trainer_three_steps_match_jax(mode, p, backend, extra):
 
 @pytest.mark.parametrize("knob", ["compressor", "inner_compressor"])
 def test_key_needing_compressor_raises_naming_item_10(knob):
+    """randk in either tier: ported on both surfaces under the xla
+    backend (its tier's compressor needs a key), and under the kernel
+    backend it raises as the reference's does (no kernel variant)."""
     like = {k: torch.zeros(s) for k, s in LEAVES.items()}
+    jlike = {k: np.zeros(s, np.float32) for k, s in LEAVES.items()}
     for sim in (True, False):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-            TR.build_exchange(TR.ExchangeSpec(
-                mode="lags_hier2", params_like=like, sim=sim,
-                **{knob: "randk"}))
+        ex = TR.build_exchange(TR.ExchangeSpec(
+            mode="lags_hier2", params_like=like, sim=sim, ratio_inner=4.0,
+            **{knob: "randk"}))
+        tier = ex.compressor if knob == "compressor" else ex.inner_compressor
+        assert tier.name == "randk" and tier.needs_key
+        for build, params in ((TR, like), (JR, jlike)):
+            with pytest.raises(ValueError, match="no kernel-backed"):
+                build.build_exchange(build.ExchangeSpec(
+                    mode="lags_hier2", params_like=params, sim=sim,
+                    selection_backend="kernel", **{knob: "randk"}))
 
 
 def test_registry_axis_plans_and_spec_match_reference():

@@ -219,14 +219,32 @@ def test_cover_invariant():
 
 
 def test_plan_waves_and_the_hierarchy_raise_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        TP.plan_waves([], None, 4, HW)
-    # the hierarchy is ported; a key-needing compressor still raises
+    """``plan_waves`` is ported (the full parity sweep is in
+    ``test_torch_adaptive.py``): on a small leaf list it gives the
+    reference's artifact; a key-needing compressor in the hierarchy
+    raises only under the kernel backend, as in the reference."""
+    from repro.autotune import profiler as JPR
+    from repro_torch.autotune import profiler as TPR
+    leaves = [("c", 4000, 0.002), ("b", 20, 0.001), ("a", 900, 0.003)]
+    tl = [TPR.LeafSample(n, d, 4.0 * d, t) for n, d, t in leaves]
+    jl = [JPR.LeafSample(n, d, 4.0 * d, t) for n, d, t in leaves]
+    from repro_torch.core import comm_model as TCM
+    thw = TCM.Hardware(**dataclasses.asdict(HW))
+    for pipeline in ("wave", "async1"):
+        tw = TP.plan_waves(tl, None, 4, thw, pipeline=pipeline,
+                           target_bytes=8000)
+        jw = JW.plan_waves(jl, None, 4, HW, pipeline=pipeline,
+                           target_bytes=8000)
+        assert tw.to_json() == jw.to_json() and tw.n_waves == 2
     for mode in ("lags_hier", "lags_hier2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        ex = TR.build_exchange(TR.ExchangeSpec(
+            mode=mode, params_like={"a": torch.zeros(4)}, sim=True,
+            compressor="randk"))
+        assert ex.compressor.needs_key
+        with pytest.raises(ValueError, match="no kernel-backed"):
             TR.build_exchange(TR.ExchangeSpec(
                 mode=mode, params_like={"a": torch.zeros(4)}, sim=True,
-                compressor="randk"))
+                compressor="randk", selection_backend="kernel"))
 
 
 def test_package_exports_match_reference_less_overlap():
