@@ -7,7 +7,8 @@
    from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit (rows of 4096 plus a short and an odd row length, f32 and bf16
-   inputs, k in {1, 4, 5, bs}, threshold gate on and off; for
+   inputs, k in {1, 4, 5, 8, 16, 64, 512, bs - 1, bs} up to bs: both the
+   arg-max and the radix path; threshold gate on and off; for
    ``ef_accum_sparsify`` flat vectors of 100 to 2^22 + 5 elements, four
    (lr, thr) pairs and a misaligned view), then time it at the main
    path's largest shape beside its byte bound, its plain version and
@@ -26,9 +27,16 @@
    ``HierSchedule`` of pod 2 × data 2 (``plan_hier_schedule``: the inner
    tier on the fitted wire, the outer on the paper's 1 Gbps Ethernet)
    and ``plan_waves`` of the P = 4 plan; each saved and loaded back
-   equal, every leaf's (name, d, ratio, k, k_b) printed.
-   ``ef_select_pack`` is then timed at every k_b the block exchanges run
-   under the plans, on the largest leaf, beside ``torch.topk``.
+   equal, every leaf's (name, d, ratio, k, k_b, and for a sparse leaf
+   Eq. 18's t_spar at the fitted device-memory rate) printed; the
+   profile's device-memory bytes per dense step and the rate fitted from
+   them are printed too.  ``ef_select_pack`` and ``block_topk`` are then
+   timed at a fixed sweep of k_b (5 to 2048) and at every k_b the block
+   exchanges run under the plans, on the largest leaf, beside
+   ``torch.topk`` and the byte bound, with the path each launch took; at
+   k_b up to 64 both paths are timed, the numbers that place the
+   crossover; every output of the three per-row kernels is held bitwise
+   to its plain version at every k_b.
 4. The main path: LAGS-SGD training of TinyLlama-1.1B at its published
    width (bf16 parameters), one 1024-token sequence per simulated
    worker, ratio 1000, 3 steps per configuration of ``SIM_CONFIGS``
@@ -233,7 +241,8 @@ def parity(dev) -> dict:
             thr = torch.full((), 0.5, device=dev)
             thr_groups = torch.tensor([0.5, 1.5], device=dev) \
                 if n % 2 == 0 else thr
-            for k in (1, 4, 5, bs):
+            for k in sorted({k for k in (1, 4, 5, 8, 16, 64, 512)
+                             if k < bs} | {bs - 1, bs}):
                 tag = f"n={n} bs={bs} {dtype} k={k}"
                 errs["block_topk"] = max(errs["block_topk"], assert_bitwise(
                     f"block_topk {tag}", block_topk(g, k),
@@ -389,6 +398,7 @@ def make_plans(cfg, prof, hw, out_dir: Path, tag: str, world: int) -> dict:
     from repro_torch import tree
     from repro_torch.autotune import planner, profiler
     from repro_torch.autotune import schedule as S
+    from repro_torch.core import adaptive
     from repro_torch.core import comm_model as cm
     from repro_torch.models import transformer as T
     from repro_torch.pipeline import buckets as WB
@@ -423,11 +433,19 @@ def make_plans(cfg, prof, hw, out_dir: Path, tag: str, world: int) -> dict:
     tables = (("sim", plans["sim"]), ("flat", plans["flat"]),
               ("hier/inner", plans["hier"].inner),
               ("hier/outer", plans["hier"].outer))
+
+    def leaf_row(lp) -> str:
+        row = (f"{lp.name} d={lp.d} ratio={lp.ratio:g} k={lp.k} "
+               f"k_b={block_kb(lp.d, lp.k)}")
+        if lp.ratio > 1:        # Eq. 18's selection time at the fitted rate
+            t_spar = adaptive.sparsification_overhead(lp.d, hw)
+            row += f" t_spar={t_spar:.4e} s"
+        return row
+
     for name, sched in tables:
         print(f"autotune {tag} {name} (P={sched.n_workers}, wire "
-              f"{sched.hardware['name']}): " + "; ".join(
-                  f"{lp.name} d={lp.d} ratio={lp.ratio:g} k={lp.k} "
-                  f"k_b={block_kb(lp.d, lp.k)}" for lp in sched.leaves))
+              f"{sched.hardware['name']}): "
+              + "; ".join(leaf_row(lp) for lp in sched.leaves))
     for mode, name in (("lags_dp", "flat"), ("lags_hier2", "hier")):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -477,68 +495,113 @@ def autotune_phase(dev, cfg, seq: int, out_dir: Path) -> tuple[dict, dict]:
     hw = costfit.fit_hardware(prof)
     print(f"autotune: profile of {prof.arch} {prof.shape} in {prof_s:.1f} "
           f"s: dense step {prof.t_step_dense:.4f} s, lags_dp step "
-          f"{prof.t_step_lags:.4f} s, {prof.flops_per_step:.4e} FLOPs per "
-          f"dense step, {len(prof.comm_samples)} wire samples (one rank); "
-          f"fitted {hw}")
+          f"{prof.t_step_lags:.4f} s, {prof.flops_per_step:.4e} FLOPs and "
+          f"{prof.hbm_bytes_per_step:.4e} device-memory bytes per dense "
+          f"step, {len(prof.comm_samples)} wire samples (one rank); fitted "
+          f"hbm_bw {hw.hbm_bw:.4e} B/s (the bytes over the dense step), "
+          f"{hw}")
     plans = make_plans(cfg, prof, hw, out_dir, "1card", world=1)
     return plans, {"profile": json.loads(prof.to_json()),
                    "hardware": dataclasses.asdict(hw), "profile_s": prof_s,
                    "plans": plans_json(plans)}
 
 
-def planned_pack_timings(dev, cfg, plans: dict) -> list:
-    """``ef_select_pack`` at every k_b < bs the block exchanges run under
-    the plans (the flat plan's ``BlockLAGSExchange`` leaves, the two-tier
-    plan's inner ``topk_block`` tier), on the largest scheduled leaf (one
-    worker's stacked FFN weight, as the distributed step launches it),
-    beside ``torch.topk`` at the same k on the precomputed magnitudes;
-    each kernel output bitwise equal to the plain version's."""
+#: the fixed k_b sweep of the pack timings, beside the planned k_b
+SWEEP_KB = (5, 16, 32, 64, 128, 256, 512, 1024, 2048)
+#: k_b at which both paths are timed, to place the crossover
+CROSSOVER_KB = (1, 2, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32, 48, 64)
+
+
+def planned_pack_timings(dev, cfg, plans: dict | None) -> list:
+    """``ef_select_pack`` and ``block_topk`` at the fixed sweep
+    ``SWEEP_KB`` and at every planned k_b < bs (the flat plan's
+    ``BlockLAGSExchange`` leaves, the two-tier plan's inner
+    ``topk_block`` tier, the unscheduled budget at ratio 1000), on the
+    largest scheduled leaf (one worker's stacked FFN weight, as the
+    distributed step launches it): each beside ``torch.topk`` at the same
+    k on the precomputed magnitudes and its byte bound, with the path its
+    launch took (k arg-max passes below ``RADIX_MIN_K``, radix select from
+    it).  At ``CROSSOVER_KB`` both paths are timed, forced through
+    ``radix_min_k``.  Every output (the pack with the gate off and on,
+    ``ef_block_candidates``, ``block_topk`` on acc) is held bitwise to
+    the plain version at every k."""
     import torch
     from repro_torch.kernels import ef_sparsify, ref
+    from repro_torch.kernels.block_topk import RADIX_MIN_K, block_topk
     d = cfg.n_layers * cfg.d_model * cfg.d_ff
     bs = 4096
     n = -(-d // bs)
-    kbs = sorted({block_kb(lp.d, lp.k) for sched in (
-        plans["flat"], plans["hier"].inner) for lp in sched.leaves
-        if lp.d >= bs and block_kb(lp.d, lp.k) < bs}
-        | {block_kb(d, max(1, round(d / cfg.compression_ratio)))})
+    planned = {block_kb(d, max(1, round(d / cfg.compression_ratio)))}
+    if plans is not None:
+        planned |= {block_kb(lp.d, lp.k) for sched in (
+            plans["flat"], plans["hier"].inner) for lp in sched.leaves
+            if lp.d >= bs and block_kb(lp.d, lp.k) < bs}
+    kbs = sorted(set(SWEEP_KB) | set(CROSSOVER_KB) | planned)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     g = torch.randn((n, bs), generator=gen, device=dev)
     e = 0.01 * torch.randn((n, bs), generator=gen, device=dev)
     lr = torch.ones((), device=dev)
-    mag = (e + g).abs()
+    # ~50 entries of a row pass |acc| >= 2.5: from k_b 64 on, gated picks
+    thr = torch.full((), 2.5, device=dev)
+    acc = e + g
+    mag = acc.abs()
+    forced = {"argmax": bs + 1, "radix": 1}
+
+    def bound(nbytes):
+        # a selection by threshold needs ~3 operations per entry
+        # (accumulate, magnitude, compare): far below the f32 rate
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = 3 * n * bs / F32_OPS_PER_S * 1e3
+        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
     rows = []
     for k in kbs:
-        iters = 3 if k <= 64 else 1
-        ms = cuda_ms(lambda: ef_sparsify.ef_select_pack(g, e, lr, None, k),
-                     iters)
-        plain_ms = cuda_ms(lambda: ref.ef_select_pack_ref(g, e, lr, None, k),
-                           1)
-        library_ms = cuda_ms(lambda: torch.topk(mag, k, dim=1), iters)
-        err = assert_bitwise(f"ef_select_pack rows {n}x{bs} k={k}",
-                             ef_sparsify.ef_select_pack(g, e, lr, None, k),
-                             ref.ef_select_pack_ref(g, e, lr, None, k))
-        # the selection itself needs ~3 operations per entry (accumulate,
-        # magnitude, compare against a threshold found by a radix
-        # select); the kernel's k arg-max passes do k·bs per row, the
-        # floor of its own algorithm, recorded beside the bound
-        nbytes, ops = n * bs * 12 + n * k * 8, 3 * n * bs
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        bound_ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms,
-                                                             "operations")
-        argmax_ms = k * n * bs / F32_OPS_PER_S * 1e3
-        rows.append({"k": k, "shape": [n, bs], "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": by, "argmax_passes_ms": argmax_ms,
-                     "max_abs_err": err})
-        print(f"planned k_b: ef_select_pack rows {n}x{bs} k={k}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-              f"{bound_ms / ms:.3f} of the bound (its k arg-max passes "
-              f"alone: {argmax_ms:.4f} ms at the f32 peak); bitwise equal "
-              f"to the plain version")
-    del g, e, mag
+        path = "radix" if k >= RADIX_MIN_K else "argmax"
+        iters = 10 if path == "radix" or k <= 16 else 3
+        pack = {p: (lambda m=m: ef_sparsify.ef_select_pack(
+            g, e, lr, None, k, radix_min_k=m)) for p, m in forced.items()}
+        topk = {p: (lambda m=m: block_topk(acc, k, radix_min_k=m))
+                for p, m in forced.items()}
+        err = 0.0
+        for t in (None, thr):
+            err = max(err, assert_bitwise(
+                f"ef_select_pack rows {n}x{bs} k={k} thr={t}",
+                ef_sparsify.ef_select_pack(g, e, lr, t, k),
+                ref.ef_select_pack_ref(g, e, lr, t, k)))
+        err = max(err, assert_bitwise(
+            f"ef_block_candidates rows {n}x{bs} k={k}",
+            ef_sparsify.ef_block_candidates(g, e, lr, k),
+            ref.ef_block_candidates_ref(g, e, lr, k)))
+        err = max(err, assert_bitwise(
+            f"block_topk rows {n}x{bs} k={k}", block_topk(acc, k),
+            ref.block_topk_ref(acc, k)))
+        library_ms = cuda_ms(lambda: torch.topk(mag, k, dim=1), 3)
+        row = {"k": k, "shape": [n, bs], "path": path,
+               "planned": k in planned, "library_ms": library_ms,
+               "max_abs_err": err}
+        for name, fns, nbytes in (
+                ("ef_select_pack", pack, n * bs * 12 + n * k * 8),
+                ("block_topk", topk, n * bs * 4 + n * k * 8)):
+            ms = cuda_ms(fns[path], iters)
+            b_ms, by = bound(nbytes)
+            both = {}
+            if k in CROSSOVER_KB:
+                for p, fn in fns.items():
+                    assert_bitwise(f"{name} rows {n}x{bs} k={k} {p} path",
+                                   fn(), fns[path]())
+                    both[p] = ms if p == path else cuda_ms(fn, iters)
+            row[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": by,
+                         "share": b_ms / ms, "paths_ms": both}
+            print(f"pack sweep{' (planned)' if row['planned'] else ''}: "
+                  f"{name} rows {n}x{bs} k={k} {path} path: kernel "
+                  f"{ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound"
+                  + ("".join(f"; {p} {t:.4f} ms" for p, t in both.items())
+                     if both else "")
+                  + "; every output bitwise equal to the plain version")
+        rows.append(row)
+    del g, e, acc, mag
     torch.cuda.empty_cache()
     return rows
 
@@ -606,8 +669,8 @@ def profile_step(trainer, batch, label: str, out_dir: Path) -> dict:
     groups: dict[str, float] = {}
     for name, ms, _ in kernels:
         low = name.lower()
-        group = ("selection kernels" if ("block_topk_kernel" in low
-                                         or "ef_select_kernel" in low)
+        group = ("selection kernels" if ("block_topk" in low
+                                         or "ef_select" in low)
                  else "matmul" if any(w in low for w in (
                      "gemm", "cutlass", "nvjet", "xmma", "cublas"))
                  else "sort" if ("sort" in low or "radix" in low)

@@ -12,8 +12,9 @@ with the ring collectives composing messages as
 and (α, β) drop out of an ordinary least-squares line fit.  The compute
 rate is the profiled dense step's FLOPs (``torch.utils.flop_counter``)
 over its measured wall-clock — an *effective* (not peak) rate, which is
-what Eq. 18 budgets should be solved against; the port's profile has no
-memory-traffic count, so the device-memory rate stays the base's.
+what Eq. 18 budgets should be solved against; the device-memory rate is
+likewise the dense step's counted bytes (``profiler.ByteCounterMode``)
+over the same time.
 """
 from __future__ import annotations
 

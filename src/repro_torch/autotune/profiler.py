@@ -10,13 +10,15 @@ Two kinds of measurement feed the fit and plan stages:
   * **train-step micro-steps** — the production step of
     ``launch.train.build_train_step`` (dense and the config's LAGS mode),
     timed over a few steps, each ended by a device sync (the reference's
-    ``block_until_ready``).  The dense step's FLOPs come from
-    ``torch.utils.flop_counter.FlopCounterMode`` over one more step
-    (there is no compiled cost analysis); its memory traffic is not
-    counted (``hbm_bytes_per_step`` stays 0, so ``costfit`` keeps the
-    base's bandwidth), and the per-kind collective bytes of the LAGS
-    step (``collective_bytes_lags``) stay empty until ``launch/hlo``'s
-    counterpart (ROADMAP.md queue 1 item 13).
+    ``block_until_ready``).  There is no compiled cost analysis, so one
+    more dense step runs under two dispatch modes at once:
+    ``torch.utils.flop_counter.FlopCounterMode`` counts its FLOPs and
+    :class:`ByteCounterMode` its device-memory bytes
+    (``hbm_bytes_per_step``, the counterpart of XLA's "bytes accessed",
+    from which ``costfit`` fits the device-memory rate).  The per-kind
+    collective bytes of the LAGS step (``collective_bytes_lags``) stay
+    empty until ``launch/hlo``'s counterpart (ROADMAP.md queue 1 item
+    13e).
 
 Per-leaf backward times are apportioned from the measured step: total
 backward ≈ 2/3 of the dense step (fwd:bwd FLOPs 1:2 for matmul-dominated
@@ -33,6 +35,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.autotune import schedule as S
 from repro_torch.core import lags
@@ -60,6 +64,60 @@ def _timed(fn, device: torch.device, *, warmup: int = 1,
         ts.append(time.perf_counter() - t0)
     ts.sort()
     return ts[len(ts) // 2]
+
+
+# ---------------------------------------------------------------------------
+# device-memory bytes of eager ops
+# ---------------------------------------------------------------------------
+
+#: ops that allocate without touching memory
+_ALLOCATIONS = frozenset({"aten::empty", "aten::empty_strided",
+                          "aten::empty_like", "aten::new_empty",
+                          "aten::new_empty_strided"})
+
+
+def _tensors(tree) -> list:
+    """The distinct tensors of a pytree of op arguments or results."""
+    return list({id(x): x for x in tree_leaves(tree)
+                 if isinstance(x, torch.Tensor)}.values())
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def op_bytes(func, inputs, outputs) -> int:
+    """Device-memory bytes of one dispatched op: ``numel · element_size``
+    of each distinct tensor among its operands (read) and of each among
+    its results (written), so an in-place op's tensor counts twice.  A
+    view (``OpOverload.is_view``, or an op that writes nothing and
+    returns only storage of its operands, as ``_unsafe_view``) and an
+    allocation move nothing: 0."""
+    if func._schema.name in _ALLOCATIONS or getattr(func, "is_view", False):
+        return 0
+    ins, outs = _tensors(inputs), _tensors(outputs)
+    if not func._schema.is_mutable and outs and all(
+            any(_storage(o) == _storage(i) for i in ins) for o in outs):
+        return 0
+    return sum(t.numel() * t.element_size() for t in ins + outs)
+
+
+class ByteCounterMode(TorchDispatchMode):
+    """Sums :func:`op_bytes` over every aten op dispatched under it: the
+    eager counterpart of XLA's per-op "bytes accessed".  XLA counts the
+    ops of the fused program, so it leaves out the intermediates that
+    fusion keeps in registers; this count has every unfused pass of the
+    eager step in it, and is larger."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.total += op_bytes(func, (args, kwargs), out)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +238,11 @@ def time_collectives(mesh, axes: tuple[str, ...] | None = None,
 # ---------------------------------------------------------------------------
 
 def _time_step(cfg, mesh, batch, *, method, seq: int, iters: int,
-               count_flops: bool = False) -> tuple[float, float]:
+               count_flops: bool = False) -> tuple[float, float, int]:
     """Build the production step once, time micro-steps of it; with
-    ``count_flops`` also count one more step's FLOPs.  Returns (t_step,
-    FLOPs)."""
+    ``count_flops`` also count one more step's FLOPs and device-memory
+    bytes.  Returns (t_step, FLOPs, bytes), the counts 0 without
+    ``count_flops``."""
     from repro_torch import api
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as TR
@@ -198,15 +257,16 @@ def _time_step(cfg, mesh, batch, *, method, seq: int, iters: int,
         box["state"], _ = step_fn(box["state"], batch)
 
     t = _timed(one, dev, iters=iters)
-    flops = 0.0
+    flops, nbytes = 0.0, 0
     if count_flops:
         from torch.utils.flop_counter import FlopCounterMode
-        with FlopCounterMode(display=False) as counter:
+        with FlopCounterMode(display=False) as counter, \
+                ByteCounterMode() as moved:
             one()
         _sync(dev)
-        flops = float(counter.get_total_flops())
+        flops, nbytes = float(counter.get_total_flops()), moved.total
     box.clear()
-    return t, flops
+    return t, flops, nbytes
 
 
 def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
@@ -231,12 +291,13 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
     batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=0).batch(
         0, global_batch, seq, device=M.device_of(mesh))
 
-    t_dense, flops = _time_step(cfg, mesh, batch, method="dense", seq=seq,
-                                iters=iters, count_flops=True)
+    t_dense, flops, nbytes = _time_step(cfg, mesh, batch, method="dense",
+                                        seq=seq, iters=iters,
+                                        count_flops=True)
     t_lags = 0.0
     if cfg.train_mode != "dense":
-        t_lags, _ = _time_step(cfg, mesh, batch, method=None, seq=seq,
-                               iters=iters)
+        t_lags, _, _ = _time_step(cfg, mesh, batch, method=None, seq=seq,
+                                  iters=iters)
     tokens_per_worker = global_batch * seq / n_w
     leaves = apportion_backward(backprop_leaves(cfg, tokens_per_worker),
                                 BWD_FRACTION * t_dense)
@@ -246,4 +307,4 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
         mesh_shape=tuple(int(s) for s in mesh.mesh.shape),
         tokens_per_worker=tokens_per_worker, leaves=leaves,
         comm_samples=comm, t_step_dense=t_dense, t_step_lags=t_lags,
-        flops_per_step=flops)
+        flops_per_step=flops, hbm_bytes_per_step=float(nbytes))

@@ -30,9 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each entry point (all return int = cudaError_t).
 SIGNATURES = {
-    "block_topk": (_P, _I, _P, _P, _I, _I, _I, _P),
-    "ef_select_pack": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
-    "ef_block_candidates": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "block_topk": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    "ef_select_pack": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                       _P),
+    "ef_block_candidates": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ef_accum_sparsify": (_P, _I, _P, _P, _P, _P, _P, _L, _P),
 }
 

@@ -21,8 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.block_topk import (DTYPES, check_k, check_rows,
-                                            stream_of)
+from repro_torch.kernels.block_topk import (DTYPES, RADIX_MIN_K, check_k,
+                                            check_rows, row_smem, stream_of)
 
 
 def _device_scalar(x, device) -> torch.Tensor:
@@ -55,17 +55,19 @@ def _check_ge(name, g_rows, e_rows):
         raise ValueError(f"{name}: g and e on different devices")
 
 
-def ef_select_pack(g_rows, e_rows, lr, thr, k: int):
+def ef_select_pack(g_rows, e_rows, lr, thr, k: int, *,
+                   radix_min_k: int = RADIX_MIN_K):
     """Fused EF accumulate + per-row top-``k`` + payload pack.
 
     g_rows: (n, bs) f32 or bf16; e_rows: (n, bs) f32; ``thr=None`` turns
-    the gate off.  Returns (vals (n, k) f32, local idx (n, k) int32,
-    residual (n, bs) f32)."""
+    the gate off; ``radix_min_k``: the kernel's crossover (the same
+    result on both paths).  Returns (vals (n, k) f32, local idx (n, k)
+    int32, residual (n, bs) f32)."""
     if g_rows.device.type == "cpu":
         return ref.ef_select_pack_ref(g_rows, e_rows, lr, thr, k)
     _check_ge("ef_select_pack", g_rows, e_rows)
     n, bs = g_rows.shape
-    check_k("ef_select_pack", k, bs, 8 * bs)
+    check_k("ef_select_pack", k, bs, row_smem(k, bs, 8, radix_min_k))
     dev = g_rows.device
     lr_t = _device_scalar(lr, dev)
     thr_t, group = _thr_arg(thr, n, dev)
@@ -79,20 +81,21 @@ def ef_select_pack(g_rows, e_rows, lr, thr, k: int):
                 e_rows.data_ptr(), lr_t.data_ptr(),
                 None if thr_t is None else thr_t.data_ptr(), group,
                 vals.data_ptr(), idx.data_ptr(), res.data_ptr(), n, bs, k,
-                stream_of(g_rows))
+                radix_min_k, stream_of(g_rows))
         build.check("ef_select_pack", err)
         ef_select_pack.launches += 1
     return vals, idx, res
 
 
-def ef_block_candidates(g_rows, e_rows, lr, r: int):
+def ef_block_candidates(g_rows, e_rows, lr, r: int, *,
+                        radix_min_k: int = RADIX_MIN_K):
     """Per-row top-``r`` candidates of ``acc = e + lr·g``, accumulate
     fused.  Returns (vals (n, r) f32, local idx (n, r) int32)."""
     if g_rows.device.type == "cpu":
         return ref.ef_block_candidates_ref(g_rows, e_rows, lr, r)
     _check_ge("ef_block_candidates", g_rows, e_rows)
     n, bs = g_rows.shape
-    check_k("ef_block_candidates", r, bs, 8 * bs)
+    check_k("ef_block_candidates", r, bs, row_smem(r, bs, 8, radix_min_k))
     dev = g_rows.device
     lr_t = _device_scalar(lr, dev)
     vals = torch.empty((n, r), dtype=torch.float32, device=dev)
@@ -102,7 +105,7 @@ def ef_block_candidates(g_rows, e_rows, lr, r: int):
             err = build.lib().ef_block_candidates(
                 g_rows.data_ptr(), int(g_rows.dtype == torch.bfloat16),
                 e_rows.data_ptr(), lr_t.data_ptr(), vals.data_ptr(),
-                idx.data_ptr(), n, bs, r, stream_of(g_rows))
+                idx.data_ptr(), n, bs, r, radix_min_k, stream_of(g_rows))
         build.check("ef_block_candidates", err)
         ef_block_candidates.launches += 1
     return vals, idx

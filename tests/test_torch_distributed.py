@@ -630,9 +630,11 @@ def test_sampled_exchanges_draw_as_the_simulation_path(runs, name):
 
 def test_profile_of_the_real_step_over_four_ranks(runs):
     """``profile_model`` over the four gloo ranks: a profile the
-    reference parses, with measured dense and lags_dp steps, FLOPs of
-    the dense step, wire samples of both collectives at every size over
-    4 workers; the fit and the plan over it equal the reference's."""
+    reference parses, with measured dense and lags_dp steps, FLOPs and
+    device-memory bytes of the dense step, wire samples of both
+    collectives at every size over 4 workers; the fit (the device-memory
+    rate the dense step's bytes over its time) and the plan over it equal
+    the reference's."""
     from repro.autotune import costfit as JF
     from repro.autotune import planner as JP
     from repro.autotune import profiler as JPR
@@ -647,7 +649,7 @@ def test_profile_of_the_real_step_over_four_ranks(runs):
         jprof = JPR.ModelProfile.from_json(str(res["profile"]))
         assert prof.n_workers == WORLD and prof.mesh_shape == (WORLD,)
         assert prof.t_step_dense > 0 and prof.t_step_lags > 0
-        assert prof.flops_per_step > 0 and prof.hbm_bytes_per_step == 0
+        assert prof.flops_per_step > 0 and prof.hbm_bytes_per_step > 0
         assert prof.tokens_per_worker == B * S / WORLD
         assert [(c.kind, c.nbytes, c.p) for c in prof.comm_samples] == [
             (k, float(n), WORLD) for n in (4096, 1 << 16, 1 << 20)
@@ -658,6 +660,8 @@ def test_profile_of_the_real_step_over_four_ranks(runs):
         thw = TF.fit_hardware(prof, base=TCM.Hardware(**base))
         jhw = JF.fit_hardware(jprof, base=JCM.Hardware(**base))
         assert thw.alpha > 0 and thw.beta > 0
+        assert thw.hbm_bw == jhw.hbm_bw == \
+            prof.hbm_bytes_per_step / prof.t_step_dense
         assert abs(thw.alpha - jhw.alpha) <= 1e-12 * jhw.alpha
         assert abs(thw.beta - jhw.beta) <= 1e-12 * jhw.beta
         assert TP.plan_schedule(prof.leaves, WORLD, thw).to_json() == \

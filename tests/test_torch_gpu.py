@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import api, kernels, tree  # noqa: E402
 from repro_torch.configs import tinyllama_1_1b  # noqa: E402
 from repro_torch.kernels import ef_sparsify, ref  # noqa: E402
-from repro_torch.kernels.block_topk import block_topk  # noqa: E402
+from repro_torch.kernels.block_topk import (RADIX_MIN_K,  # noqa: E402
+                                            block_topk)
 from repro_torch.models import transformer as TT  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -42,17 +43,33 @@ def _bitwise(got, want):
 
 @pytest.mark.parametrize("bs", [4096, 130, 1023])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain_bitwise(cuda, bs, dtype):
+@pytest.mark.parametrize("inputs", ["normal", "ties"])
+def test_kernels_match_plain_bitwise(cuda, bs, dtype, inputs):
+    """Every k of the sweep up to bs, on the path the crossover picks and
+    on each path forced (``radix_min_k`` 1: radix select; bs + 1: k
+    arg-max passes), gate off and on, lr 1 and 0.3; "ties": integers in
+    [-3, 3], so most of a row ties with the k-th magnitude and the
+    lowest-index rule decides the picks."""
     gen = torch.Generator(device=cuda).manual_seed(bs)
-    g = torch.randn((37, bs), generator=gen, device=cuda).to(dtype)
-    e = torch.randn((37, bs), generator=gen, device=cuda)
-    for k in (1, 4, 5, bs):
-        _bitwise(block_topk(g, k), ref.block_topk_ref(g, k))
-        for thr in (None, 0.5):
-            _bitwise(ef_sparsify.ef_select_pack(g, e, 1.0, thr, k),
-                     ref.ef_select_pack_ref(g, e, 1.0, thr, k))
-        _bitwise(ef_sparsify.ef_block_candidates(g, e, 0.3, k),
-                 ref.ef_block_candidates_ref(g, e, 0.3, k))
+    if inputs == "ties":
+        g = torch.randint(-3, 4, (37, bs), generator=gen, device=cuda)
+        e = torch.randint(-3, 4, (37, bs), generator=gen, device=cuda)
+        g, e = g.to(dtype), e.float()
+    else:
+        g = torch.randn((37, bs), generator=gen, device=cuda).to(dtype)
+        e = torch.randn((37, bs), generator=gen, device=cuda)
+    ks = [k for k in (1, 4, 5, 16, 64, 256, 512, 1024) if k < bs]
+    for k in ks + [bs - 1, bs]:
+        for radix_min_k in (RADIX_MIN_K, 1, bs + 1):
+            path = dict(radix_min_k=radix_min_k)
+            _bitwise(block_topk(g, k, **path), ref.block_topk_ref(g, k))
+            for lr in (1.0, 0.3):
+                for thr in (None, 1.5):
+                    _bitwise(
+                        ef_sparsify.ef_select_pack(g, e, lr, thr, k, **path),
+                        ref.ef_select_pack_ref(g, e, lr, thr, k))
+                _bitwise(ef_sparsify.ef_block_candidates(g, e, lr, k, **path),
+                         ref.ef_block_candidates_ref(g, e, lr, k))
 
 
 @pytest.mark.parametrize("d", [100, 5000, 2**20 + 3, 2**22 + 5])
@@ -105,6 +122,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     big = torch.zeros((1, 40_000), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ef_sparsify.ef_select_pack(big, big, 1.0, None, 4)
+    # a row of 30,000: 240 KB (acc and |acc|) on the arg-max path; 120 KB
+    # and the keys of pow2(k) on the radix path
+    wide = torch.zeros((1, 30_000), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ef_sparsify.ef_select_pack(wide, wide, 1.0, None, 4)
+    ef_sparsify.ef_select_pack(wide, wide, 1.0, None, 4, radix_min_k=1)
+    ef_sparsify.ef_select_pack(wide, wide, 1.0, None, 8192)
+    with pytest.raises(ValueError, match="shared memory"):
+        ef_sparsify.ef_select_pack(wide, wide, 1.0, None, 16384)
+    with pytest.raises(ValueError, match="radix_min_k"):
+        block_topk(x, 4, radix_min_k=0)
     with pytest.raises(ValueError, match="shape"):
         ef_sparsify.ef_select_pack(x, x[:2], 1.0, None, 4)
 

@@ -101,6 +101,38 @@ def test_ef_select_pack_rows_matches_pallas(shape, dtype, thr):
                     jops.ef_select_pack_rows(gj, ej, 1.0, thr, k))
 
 
+def _ties(shape, seed, inputs):
+    """Tie-heavy rows: integers in [-3, 3], or normals rounded to bf16
+    (8 significant bits: many equal magnitudes in a row of 4096)."""
+    rng = np.random.default_rng(seed)
+    if inputs == "int":
+        return rng.integers(-3, 4, shape).astype(np.float32), "float32"
+    return rng.standard_normal(shape).astype(np.float32), "bfloat16"
+
+
+@pytest.mark.parametrize("k", [64, 512, 4095])
+@pytest.mark.parametrize("inputs", ["int", "bf16"])
+def test_ef_select_pack_ref_matches_jax_on_ties(k, inputs):
+    """Large k at bs 4096 with most of a row tied at the k-th magnitude:
+    the lowest-index rule decides the boundary, which the radix path's
+    index-order ranking must reproduce; gate off and on."""
+    g, dtype = _ties((4, 4096), k, inputs)
+    e = np.trunc(_ties((4, 4096), k + 1, "int")[0] / 2)
+    gj, gt = _pair(g, dtype)
+    ej, et = _pair(e, "float32")
+    for thr in (None, 1.5):
+        _assert_bitwise(ref.ef_select_pack_ref(gt, et, 1.0, thr, k),
+                        _jref_pack(gj, ej, 1.0, thr, k))
+
+
+@pytest.mark.parametrize("k", [64, 512, 4095])
+@pytest.mark.parametrize("inputs", ["int", "bf16"])
+def test_block_topk_ref_matches_jax_on_ties(k, inputs):
+    x, dtype = _ties((4, 4096), 2 * k, inputs)
+    xj, xt = _pair(x, dtype)
+    _assert_bitwise(ref.block_topk_ref(xt, k), _jref_block_topk(xj, k))
+
+
 def test_ef_select_pack_nonunit_lr_bitwise_vs_oracle():
     """The oracles round lr·g and e + lr·g separately in both packages,
     so they agree bitwise at lr != 1 too."""
