@@ -16,8 +16,9 @@
    ``ef_accum_sparsify``: its ``library_ms`` is null); every kernel's
    timed outputs are held bitwise against the plain version's too.
 3. Small-input reference: the kernel-backed exchanges on the card
-   (``lags_dp`` under three compressors, ``lags_hier2`` with 2 pods x 2)
-   against the same exchanges on the CPU (plain versions), bitwise.
+   (``lags_dp`` under three compressors, ``lags_hier2`` with 2 pods x 2;
+   leaves of 10 to 28,000 entries) against the same exchanges on the
+   CPU (plain versions), bitwise.
 3a. The autotune pipeline (Eq. 18): ``profile_model`` of the real train
    step at full width and depth on the world-size-1 NCCL mesh,
    ``fit_hardware`` (measured FLOP/s; ``H100_NVLINK``'s α and β: one
@@ -60,6 +61,20 @@
    gradient, the threshold from ``ops.hier_topk_threshold`` at ratio
    1000; every leaf's (selected, residual) equals the plain version's
    bit for bit, and ``selected + residual == acc``.
+5b. The paper's own workloads at their published widths: the CNN
+   (``paper_cnn_cifar``, 41 leaves, 8 simulated workers x 32 CIFAR-shaped
+   ``Blobs`` images, ratio 16, lr 0.05) through ``SimTrainer`` over
+   ``cnn.cnn_loss``, and the 2 x 1500 sLSTM LM with layer norm
+   (``paper_lstm_ptb``, 2 workers x 20 sequences of 35 tokens, ratio
+   250) through ``Session.simulator``: 3 steps each of ``dense`` and
+   ``lags_dp`` + kernel backend under ``topk_exact`` and ``topk_hier``,
+   every kernel launch of step 0 held to its plain version bit for bit
+   (one-row leaves of 10 to 2304 entries among them); then 40 CNN
+   ``topk_exact`` steps whose loss must fall and 3 LSTM ones, with the
+   Eq. 20 delta of every leaf (the max over leaves of >= 64 entries and
+   over all printed).  ``ef_select_pack`` is then timed at the CNN's
+   one-row widths (8 rows each; CUDA events and profiler device time,
+   beside ``torch.topk`` and the byte bound).
 6. The distributed surface: one NCCL rank (world size 1), full-size
    TinyLlama-1.1B, one 1024-token sequence (the same every step), 3
    steps each of the configurations of ``DIST_CONFIGS`` through
@@ -85,7 +100,9 @@
    be ``[L0, L0, L1]`` of its twin's ``[L0, L1, ...]``.  Each step prints
    its time, peak memory and kernel launches, and each ``wave`` step how
    long before the end of backward each wave launched; the kernels of
-   ``DIST_EXPECTED`` must launch.
+   ``DIST_EXPECTED`` must launch.  Then, in the same process group, the
+   paper LSTM (20 sequences of 35 tokens): ``dense``, ``lags_dp`` (kernel
+   backend) ``off`` with step 0 held as above, and its ``wave`` twin.
 7. Print the kernels' JSON line, the card line and the result line.
 
     python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
@@ -93,7 +110,8 @@
 runs phase 6 on 4 NCCL ranks, one process and one card each, 4
 sequences per global batch: the flat configurations on the ("data",)
 mesh of 4, the hierarchy on the ("pod", "data") mesh of 2 x 2; after
-every step each rank's parameters must equal rank 0's bit for bit, with
+every step each rank's parameters must equal rank 0's bit for bit (the
+paper LSTM's ``lags_dp`` on data = 4 too), with
 deterministic algorithms off (the replicas are never re-synchronised, so
 the exchange itself must give every rank the same bits).  Its schedules
 come from the autotune pipeline over the 4 ranks: every rank profiles
@@ -608,13 +626,16 @@ def planned_pack_timings(dev, cfg, plans: dict | None) -> list:
 
 def small_reference(dev) -> None:
     """The kernel-backed exchange on the card == the same exchange on the
-    CPU (plain versions), bitwise, on small leaves with short tails:
-    lags_dp under each compressor (P = 2) and lags_hier2 (2 pods x 2)."""
+    CPU (plain versions), bitwise, on small leaves with short tails and
+    on one-row leaves of 10 and 432 entries (the paper CNN's head bias
+    and stem, narrower than a warp and between warps): lags_dp under each
+    compressor (P = 2) and lags_hier2 (2 pods x 2)."""
     import torch
     from repro_torch import tree
     from repro_torch.api import registry as R
     like = {"a": torch.zeros(100), "b": torch.zeros(40, 130),
-            "c": torch.zeros(3, 700)}
+            "c": torch.zeros(3, 700), "d": torch.zeros(10),
+            "e": torch.zeros(432)}
     cases = [("lags_dp", dict(compressor=comp), 2)
              for comp in ("topk_exact", "topk_block", "topk_hier")]
     cases.append(("lags_hier2", dict(compressor="topk_exact",
@@ -640,8 +661,8 @@ def small_reference(dev) -> None:
                 assert_bitwise(f"exchange {mode} {kw} output {i}",
                                (g.cpu(),), (w,))
     print("small reference: kernel-backed exchanges (lags_dp under three "
-          "compressors, lags_hier2 2 pods x 2) on the card == plain "
-          "versions on the CPU, bitwise")
+          "compressors, lags_hier2 2 pods x 2; leaves of 10 to 28,000 "
+          "entries) on the card == plain versions on the CPU, bitwise")
 
 
 def profile_step(trainer, batch, label: str, out_dir: Path) -> dict:
@@ -993,6 +1014,252 @@ def ef_accum_path(dev, cfg, seq: int) -> dict:
     return counts, err
 
 
+#: the paper's workloads (phase 5b): the simulation configurations,
+#: label -> (RunConfig kwargs, the kernels each must launch)
+PAPER_SIM = {
+    "dense": (dict(mode="dense"), ()),
+    "lags_dp/topk_exact/kernel": (
+        dict(mode="lags_dp", compressor="topk_exact",
+             selection_backend="kernel"),
+        ("ef_block_candidates", "ef_select_pack")),
+    "lags_dp/topk_hier/kernel": (
+        dict(mode="lags_dp", compressor="topk_hier",
+             selection_backend="kernel"), ("block_topk",)),
+}
+#: the CNN as ``bench_convergence.py`` / ``bench_assumption.py`` run it:
+#: P simulated workers of IMAGES images each, ratio 16, lr 0.05; the
+#: 40-step convergence gate
+CNN_WORKERS, CNN_IMAGES, CNN_RATIO, CNN_LR, CNN_STEPS = 8, 32, 16.0, 0.05, 40
+#: the LSTM: P workers of 20 sequences of 35 tokens (PTB's usual batch
+#: and BPTT length), the config's own ratio (250)
+LSTM_WORKERS, LSTM_SEQS, LSTM_SEQ = 2, 20, 35
+#: Fig. 2 reads delta on real layers, not few-element norm scales
+DELTA_MIN_D = 64
+
+
+def sim_run(dev, label: str, trainer, batches, expect, errs: dict,
+            shapes: dict) -> tuple[dict, list]:
+    """``len(batches)`` steps of ``trainer``; step 0 with every kernel
+    launch held to its plain version (``held_to_plain``), every loss
+    finite, every kernel of ``expect`` launched.  Returns (the launch
+    counts of the run, per-step rows)."""
+    import torch
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    rows = []
+    for t, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts()
+        check = held_to_plain(errs, shapes) if t == 0 and expect \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with check:
+            metrics = trainer.step(batch)
+            loss = float(metrics["loss"])                    # device sync
+        step_s = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated()
+        counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        row = {"step": t, "loss": loss, "step_s": step_s,
+               "max_memory_allocated": mem, "launches": counts,
+               "held_to_plain": t == 0 and bool(expect)}
+        if "delta_per_leaf" in metrics:
+            row["delta_per_leaf"] = metrics["delta_per_leaf"].tolist()
+        rows.append(row)
+        print(f"paper {label} step {t}: loss {loss:.6f} step_s {step_s:.4f}"
+              f" max_memory_allocated {mem / 2**30:.3f} GiB launches "
+              f"{counts}" + (" (every launch held to its plain version)"
+                             if row["held_to_plain"] else ""))
+        if not math.isfinite(loss):
+            raise AssertionError(f"paper {label} step {t}: loss {loss}")
+    counts = kernels.launch_counts()
+    missing = [k for k in expect if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"paper {label}: kernels {missing} never "
+                             f"launched")
+    return counts, rows
+
+
+def delta_report(label: str, names: list, sizes: list, rows: list) -> dict:
+    """Eq. 20 delta per leaf, the largest over the run's steps; the max
+    over leaves of at least ``DELTA_MIN_D`` entries and over all."""
+    per_leaf = [max(r["delta_per_leaf"][i] for r in rows)
+                for i in range(len(names))]
+    if not all(math.isfinite(x) for x in per_leaf):
+        raise AssertionError(f"paper {label}: delta {per_leaf}")
+    big = max(x for x, d in zip(per_leaf, sizes) if d >= DELTA_MIN_D)
+    print(f"paper {label}: Eq. 20 delta per leaf (max over {len(rows)} "
+          f"steps) " + ", ".join(f"{n} (d {d}) {x:.4f}" for n, d, x in
+                                 zip(names, sizes, per_leaf)))
+    print(f"paper {label}: delta max over leaves of >= {DELTA_MIN_D} "
+          f"entries {big:.4f}, over all leaves {max(per_leaf):.4f} (Fig. 2: "
+          f"delta <= 1)")
+    return {"per_leaf": dict(zip(names, per_leaf)), "max_big": big,
+            "max_all": max(per_leaf)}
+
+
+def paper_path(dev, steps: int) -> tuple[dict, dict, dict]:
+    """The paper's own workloads at their published widths through the
+    simulation surface: the CNN (``paper_cnn_cifar``: ResNet-20's
+    16/32/64 widths, 41 leaves) on CIFAR-10-shaped ``Blobs`` through
+    ``SimTrainer`` over ``cnn.cnn_loss``, and the 2 x 1500 sLSTM LM with
+    layer norm (``paper_lstm_ptb``) on ``MarkovLM`` through
+    ``Session.simulator``; ``steps`` steps of each ``PAPER_SIM``
+    configuration, then ``CNN_STEPS`` steps of the CNN's lags_dp /
+    topk_exact with the Eq. 20 metric (the loss must fall) and the
+    LSTM's with it for ``steps`` steps.  Returns (launch counts summed
+    over the runs, per-configuration rows, each kernel's largest
+    absolute error against its plain version)."""
+    import torch
+    from repro_torch import api, kernels, tree
+    from repro_torch.configs import paper_cnn_cifar, paper_lstm_ptb
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_loop as TL
+
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    errs, results = {}, {}
+    ccfg, lcfg = paper_cnn_cifar.CONFIG, paper_lstm_ptb.CONFIG
+    blobs = synthetic.Blobs(n_classes=ccfg.n_classes, image_size=32,
+                            channels=ccfg.channels)
+    markov = synthetic.MarkovLM(vocab=lcfg.vocab, seed=3)
+
+    def cnn_trainer(run):
+        model = cnn.CNN(ccfg, seed=0, device=dev)
+        return model, TL.SimTrainer(lambda p, b: cnn.cnn_loss(p, ccfg, b),
+                                    model.params, run,
+                                    n_workers=CNN_WORKERS, device=dev)
+
+    def lstm_trainer(run):
+        model = T.Transformer(lcfg, seed=0, device=dev)
+        return model, api.Session(lcfg, run, device=dev).simulator(
+            lambda p, b: T.loss_fn(p, lcfg, b), model.params,
+            n_workers=LSTM_WORKERS)
+
+    workloads = {
+        "cnn": (cnn_trainer, dict(ratio=CNN_RATIO, lr=CNN_LR),
+                lambda t: blobs.worker_batches(t, CNN_WORKERS, CNN_IMAGES,
+                                               device=dev)),
+        "lstm": (lstm_trainer, dict(lr=0.01),
+                 lambda t: markov.worker_batches(t, LSTM_WORKERS, LSTM_SEQS,
+                                                 LSTM_SEQ, device=dev)),
+    }
+    runs = [(w, label, kw, expect, steps)
+            for w in workloads for label, (kw, expect) in PAPER_SIM.items()]
+    delta_kw, delta_expect = PAPER_SIM["lags_dp/topk_exact/kernel"]
+    runs += [("cnn", "lags_dp/topk_exact/kernel/delta", delta_kw,
+              delta_expect, CNN_STEPS),
+             ("lstm", "lags_dp/topk_exact/kernel/delta", delta_kw,
+              delta_expect, steps)]
+    for w, label, kw, expect, n_steps in runs:
+        make, common, data = workloads[w]
+        delta = label.endswith("/delta")
+        run = api.RunConfig(**common, **kw, measure_delta=delta)
+        model, trainer = make(run)
+        names = tree.leaf_paths(model.params)
+        sizes = [x.numel() for x in tree.leaves(model.params)]
+        batches = [data(t) for t in range(n_steps)]
+        shapes: dict = {}
+        tag = f"{model.cfg.name} {label}"
+        counts, rows = sim_run(dev, tag, trainer, batches, expect, errs,
+                               shapes)
+        for k, v in counts.items():
+            totals[k] += v
+        res = {"params": sum(sizes), "leaves": len(names),
+               "workers": trainer.n_workers, "steps": rows,
+               "launches": counts,
+               "held_shapes": {k: sorted(v) for k, v in shapes.items()}}
+        if shapes:
+            print(f"paper {tag}: step 0's kernel launches (rows, bs, k) "
+                  + "; ".join(f"{k} {sorted(v)}" for k, v in shapes.items())
+                  + ", each bitwise equal to its plain version")
+        if delta:
+            res["delta"] = delta_report(tag, names, sizes, rows)
+        if w == "cnn" and delta:
+            first, last = rows[0]["loss"], rows[-1]["loss"]
+            if not last < first:
+                raise AssertionError(f"paper {tag}: loss {first} -> {last} "
+                                     f"did not fall")
+            print(f"paper {tag}: loss {first:.6f} -> {last:.6f} over "
+                  f"{n_steps} steps (fell)")
+        results[tag] = res
+        del trainer, model, batches
+        torch.cuda.empty_cache()
+    return totals, results, errs
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn``: the summed self device time of
+    every kernel ``torch.profiler`` records over ``n`` calls, over n (no
+    host time in it: CUDA events around launch-bound calls read the
+    host's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            t = getattr(ev, "self_device_time_total", None)
+            us += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+    return us / n / 1e3
+
+
+def narrow_timings(dev) -> list:
+    """``ef_select_pack`` at the paper CNN's one-row leaves (d <= 4096,
+    ratio 16, P = 8 rows each): kernel, plain version and ``torch.topk``
+    on |acc| (CUDA events over back-to-back calls: launch-bound, so the
+    host's time), the kernel's and ``torch.topk``'s device time alone
+    (``device_ms``), beside the byte bound; outputs bitwise to the plain
+    version."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import paper_cnn_cifar
+    from repro_torch.kernels import ef_sparsify, ref
+    from repro_torch.models import cnn
+    sizes = sorted({x.numel() for x in tree.leaves(
+        cnn.abstract_params(paper_cnn_cifar.CONFIG)) if x.numel() <= 4096})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    lr = torch.ones((), device=dev)
+    out = []
+    for bs in sizes:
+        k = max(1, round(bs / CNN_RATIO))
+        g = torch.randn((CNN_WORKERS, bs), generator=gen, device=dev)
+        e = 0.01 * torch.randn((CNN_WORKERS, bs), generator=gen, device=dev)
+        mag = (e + g).abs()
+        ms = cuda_ms(lambda: ef_sparsify.ef_select_pack(g, e, lr, None, k),
+                     50)
+        plain_ms = cuda_ms(lambda: ref.ef_select_pack_ref(g, e, lr, None, k),
+                           20)
+        library_ms = cuda_ms(lambda: torch.topk(mag, k, dim=1), 50)
+        dev_ms = device_ms(
+            lambda: ef_sparsify.ef_select_pack(g, e, lr, None, k))
+        lib_dev_ms = device_ms(lambda: torch.topk(mag, k, dim=1))
+        assert_bitwise(f"narrow ef_select_pack {CNN_WORKERS}x{bs} k={k}",
+                       ef_sparsify.ef_select_pack(g, e, lr, None, k),
+                       ref.ef_select_pack_ref(g, e, lr, None, k))
+        nbytes = CNN_WORKERS * (bs * 12 + k * 8)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({"bs": bs, "k": k, "rows": CNN_WORKERS, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                    "bound_ms": bound_ms})
+        print(f"narrow ef_select_pack {CNN_WORKERS}x{bs} k={k}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk "
+              f"{library_ms:.4f} ms per call; device time kernel "
+              f"{dev_ms:.4f} ms, torch.topk {lib_dev_ms:.4f} ms; bound "
+              f"{bound_ms:.6f} ms (bytes), "
+              f"{bound_ms / dev_ms if dev_ms else float('nan'):.4f} of the "
+              f"bound in device time; bitwise equal to the plain version")
+    return out
+
+
 def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
         sock.bind(("localhost", 0))
@@ -1048,6 +1315,10 @@ DIST_EXPECTED = {"dense": (), "lags_dp": ("ef_select_pack",),
                  "lags_hier2": ("ef_block_candidates", "ef_select_pack"),
                  "lags_hier": ("ef_select_pack",)}
 HIER_MODES = ("lags_hier", "lags_hier2")
+#: the paper LSTM's distributed rows: lags_dp off and in waves, beside
+#: dense (``--ranks``: lags_dp off alone)
+PAPER_DIST = {k: DIST_CONFIGS[k]
+              for k in ("dense", "lags_dp/kernel", "lags_dp/kernel/wave")}
 
 
 def ranks_plans(cfg, seq: int, mesh, world: int, rank: int,
@@ -1079,13 +1350,32 @@ def ranks_plans(cfg, seq: int, mesh, world: int, rank: int,
     return plans_from_json(obj[0])
 
 
+@contextlib.contextmanager
+def process_group(dev, world: int = 1, rank: int = 0,
+                  init_method: str | None = None):
+    """One NCCL process group of ``world`` ranks (this process is
+    ``rank``) for the distributed phase's runs, destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    M.init_process_group(init_method or f"tcp://localhost:{free_port()}",
+                         world, rank, device=dev.type)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
 def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
-                rank: int = 0, init_method: str | None = None,
-                plans: dict | None = None,
-                out_dir: Path | None = None) -> tuple[dict, dict, dict]:
-    """The data-parallel surface on ``world`` NCCL ranks (this process is
-    ``rank``; one sequence per rank, the same global batch every step):
-    ``steps`` steps of each configuration of ``DIST_CONFIGS``.  One rank:
+                rank: int = 0, plans: dict | None = None,
+                out_dir: Path | None = None, configs: dict = DIST_CONFIGS,
+                per_rank: int = 1, name: str = "") -> tuple[dict, dict, dict]:
+    """The data-parallel surface on ``world`` NCCL ranks (inside
+    ``process_group``; this process is ``rank``; ``per_rank`` sequences
+    per rank, the same global batch every step): ``steps`` steps of each
+    configuration of ``configs`` (``DIST_CONFIGS`` or a part of it);
+    ``name`` prefixes its lines.  One rank:
     step 0 of every configuration runs under deterministic algorithms;
     step 0 of lags_dp and slgs is held against the simulation path, step
     0's parameters and residuals of each ``wave`` configuration against
@@ -1098,16 +1388,13 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     kernel's largest absolute error against its plain version in the
     step-0 checks)."""
     import torch
-    import torch.distributed as dist
     from repro_torch import api, kernels, tree
     from repro_torch.data import synthetic
     from repro_torch.launch import mesh as M
     from repro_torch.pipeline import step as WS
 
     data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
-    batch = data.batch(0, world, seq, device=dev)
-    M.init_process_group(init_method or f"tcp://localhost:{free_port()}",
-                         world, rank, device=dev.type)
+    batch = data.batch(0, world * per_rank, seq, device=dev)
     totals = dict.fromkeys(kernels.WRAPPERS, 0)
     results, twins, errs = {}, {}, {}
     try:
@@ -1120,20 +1407,21 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
         if plans is None:
             plans = ranks_plans(cfg, seq, flat_mesh, world, rank, out_dir)
             torch.cuda.empty_cache()
-        for label, kw in DIST_CONFIGS.items():
+        for label, kw in configs.items():
             run = api.RunConfig(lr=0.01, **resolve(kw, plans))
+            shown = name + label
             mesh = pod_mesh if run.mode in HIER_MODES else flat_mesh
             sess = api.Session(cfg, run, mesh=mesh)
             step_fn = sess.step_fn
             state, _ = sess.init_state(seed=0)
             waves = sess.meta["waves"]
             if rank == 0:
-                print(f"distributed {label}: mesh "
+                print(f"distributed {shown}: mesh "
                       f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, "
                       f"{sess.meta['n_workers']} workers")
             if waves is not None and rank == 0:
                 for i, w in enumerate(waves.waves):
-                    print(f"distributed {label} wave {i}: {len(w.leaf_ids)} "
+                    print(f"distributed {shown} wave {i}: {len(w.leaf_ids)} "
                           f"leaves {list(w.names)}")
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -1164,45 +1452,45 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                             for k, v in check_step0(sess, state, p0,
                                                     batch).items():
                                 errs[k] = max(errs.get(k, 0.0), v)
-                        held(label, state, twins)
+                        held(label, state, twins, shown)
                     finally:
                         torch.use_deterministic_algorithms(False)
                     del p0
                 if world > 1:
-                    check_replicas(state["params"], f"{label} step {t}")
+                    check_replicas(state["params"], f"{shown} step {t}")
                 rows.append({"step": t, "loss": loss, "step_s": step_s,
                              "max_memory_allocated": mem,
                              "launches": step_counts, "wave_leads": leads,
                              "deterministic": det})
                 who = f" rank {rank}/{world}" if world > 1 else ""
-                print(f"distributed {label}{who} step {t}: loss {loss:.6f} "
+                print(f"distributed {shown}{who} step {t}: loss {loss:.6f} "
                       f"step_s {step_s:.4f} max_memory_allocated "
                       f"{mem / 2**30:.3f} GiB launches {step_counts}"
                       + (" (deterministic algorithms)" if det else "")
                       + (", parameters equal on every rank"
                          if world > 1 else ""))
                 if leads is not None:
-                    print(f"distributed {label}{who} step {t}: launch lead "
+                    print(f"distributed {shown}{who} step {t}: launch lead "
                           f"before the end of backward, per wave (host ms "
                           f"/ device ms): " + ", ".join(
                               f"w{x['wave']} {x['host_ms']:.3f}/"
                               f"{x['device_ms'] or 0.0:.3f}" for x in leads))
                 if not math.isfinite(loss):
-                    raise AssertionError(f"distributed {label} step {t}: "
+                    raise AssertionError(f"distributed {shown} step {t}: "
                                          f"loss {loss}")
             if world == 1 and "async1" in label:
                 want = twins[TWINS[label]]["losses"]
                 if losses[:3] != [want[0], want[0], want[1]]:
                     raise AssertionError(
-                        f"{label}: losses {losses} are not [L0, L0, L1] of "
+                        f"{shown}: losses {losses} are not [L0, L0, L1] of "
                         f"{TWINS[label]}'s {want}")
-                print(f"distributed {label}: losses {losses[:3]} == [L0, "
+                print(f"distributed {shown}: losses {losses[:3]} == [L0, "
                       f"L0, L1] of {TWINS[label]} ({want[:2]}), exactly")
             if world == 1 and label not in TWINS:
                 twins.setdefault(label, {})["losses"] = losses
             for k in DIST_EXPECTED[run.mode]:
                 if counts[k] == 0:
-                    raise AssertionError(f"distributed {label}: {k} never "
+                    raise AssertionError(f"distributed {shown}: {k} never "
                                          f"launched")
             for k, v in counts.items():
                 totals[k] += v
@@ -1215,14 +1503,14 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
             torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
-        dist.destroy_process_group()
     return totals, results, errs
 
 
-def held(label: str, state, twins: dict) -> None:
+def held(label: str, state, twins: dict, shown: str) -> None:
     """Step 0 of an ``off`` configuration with a ``wave`` twin: keep its
     parameters and residuals on the host.  Step 0 of a ``wave``
-    configuration: they must equal its twin's, bit for bit."""
+    configuration: they must equal its twin's, bit for bit (``shown``:
+    the label as printed)."""
     from repro_torch import tree
     parts = tree.leaves(state["params"]) + tree.leaves(state["ef"])
     wave_twins = {v for k, v in TWINS.items() if k.endswith("/wave")}
@@ -1235,12 +1523,12 @@ def held(label: str, state, twins: dict) -> None:
     twin = TWINS[label]
     want = twins[twin].pop("step0")
     if len(want) != len(parts):
-        raise AssertionError(f"{label}: {len(parts)} leaves, {twin} has "
+        raise AssertionError(f"{shown}: {len(parts)} leaves, {twin} has "
                              f"{len(want)}")
     for i, (got, ref0) in enumerate(zip(parts, want)):
-        assert_bitwise(f"{label} step 0 leaf {i} vs {twin}",
+        assert_bitwise(f"{shown} step 0 leaf {i} vs {twin}",
                        (got.detach().cpu(),), (ref0,))
-    print(f"distributed {label} step 0: parameters and residuals == "
+    print(f"distributed {shown} step 0: parameters and residuals == "
           f"{twin}'s, bitwise ({len(parts)} leaves)")
 
 
@@ -1270,27 +1558,33 @@ def check_replicas(params, what: str) -> None:
 
 @contextlib.contextmanager
 def held_to_plain(errs: dict, shapes: dict, chunk_rows: int = 1 << 15):
-    """Inside the block, every ``ef_select_pack`` and
-    ``ef_block_candidates`` launch is held against its plain version on
-    the same inputs, bit for bit: the plain version runs chunk by chunk
-    of ``chunk_rows`` rows (rows are independent; a gate with one
-    threshold per row group runs whole), so the check fits beside the
-    step at its full shapes.  ``errs`` takes each kernel's largest
-    absolute error, ``shapes`` the row shapes it was launched at."""
+    """Inside the block, every ``ef_select_pack``,
+    ``ef_block_candidates`` and ``block_topk`` launch is held against its
+    plain version on the same inputs, bit for bit: the plain version runs
+    chunk by chunk of ``chunk_rows`` rows (rows are independent; a gate
+    with one threshold per row group runs whole), so the check fits
+    beside the step at its full shapes.  ``errs`` takes each kernel's
+    largest absolute error, ``shapes`` the (rows, bs, k) it was launched
+    at."""
     import types
 
     import torch
     from repro_torch.kernels import ef_sparsify, ops, ref
     kernel = {"ef_select_pack": ef_sparsify.ef_select_pack,
-              "ef_block_candidates": ef_sparsify.ef_block_candidates}
+              "ef_block_candidates": ef_sparsify.ef_block_candidates,
+              "block_topk": ops.block_topk}
     plain = {"ef_select_pack": ref.ef_select_pack_ref,
-             "ef_block_candidates": ref.ef_block_candidates_ref}
+             "ef_block_candidates": ref.ef_block_candidates_ref,
+             "block_topk": ref.block_topk_ref}
+    # leading row arguments of each wrapper (the rest are per call)
+    n_rows = {"ef_select_pack": 2, "ef_block_candidates": 2, "block_topk": 1}
 
     def checked(name):
-        def call(g_rows, e_rows, lr, *rest):
-            out = kernel[name](g_rows, e_rows, lr, *rest)
-            n, bs = g_rows.shape
-            thr = rest[0] if name == "ef_select_pack" else None
+        def call(*args):
+            out = kernel[name](*args)
+            rows, rest = args[:n_rows[name]], args[n_rows[name]:]
+            n, bs = rows[0].shape
+            thr = rest[1] if name == "ef_select_pack" else None
             whole = thr is not None and torch.as_tensor(thr).numel() > 1
             step = n if whole else chunk_rows
             for lo in range(0, n, step):
@@ -1298,19 +1592,22 @@ def held_to_plain(errs: dict, shapes: dict, chunk_rows: int = 1 << 15):
                 errs[name] = max(errs.get(name, 0.0), assert_bitwise(
                     f"{name} rows {n}x{bs} [{lo}:{hi}]",
                     tuple(o[lo:hi] for o in out),
-                    plain[name](g_rows[lo:hi], e_rows[lo:hi], lr, *rest)))
-            shapes.setdefault(name, set()).add((n, bs))
+                    plain[name](*(x[lo:hi] for x in rows), *rest)))
+            shapes.setdefault(name, set()).add((n, bs, rest[-1]))
             return out
         return call
 
     # the exchanges reach the kernels through ``ops``; the wrappers
     # themselves (and their launch counts) stay as they are
     ops._ef = types.SimpleNamespace(**{
-        **vars(ef_sparsify), **{name: checked(name) for name in kernel}})
+        **vars(ef_sparsify), **{name: checked(name) for name in kernel
+                                if name != "block_topk"}})
+    ops.block_topk = checked("block_topk")
     try:
         yield
     finally:
         ops._ef = ef_sparsify
+        ops.block_topk = kernel["block_topk"]
 
 
 def check_step0(sess, state, p0, batch) -> dict:
@@ -1398,11 +1695,11 @@ def check_step0(sess, state, p0, batch) -> dict:
                  f"the last (every candidate passes the gate)"
                  if 4 * n_blocks < ex.k_total else
                  f" of d = {d}: k_total = {ex.k_total}")
-    print(f"distributed {meta['mode']} step 0: exchanged mean and EF "
-          f"residual == {what}")
-    print(f"distributed {meta['mode']} step 0: every kernel launch of the "
-          f"exchange == its plain version on the same inputs, bitwise; row "
-          f"shapes {dict((k, sorted(v)) for k, v in shapes.items())}")
+    print(f"distributed {sess.cfg.name} {meta['mode']} step 0: exchanged "
+          f"mean and EF residual == {what}")
+    print(f"distributed {sess.cfg.name} {meta['mode']} step 0: every kernel "
+          f"launch of the exchange == its plain version on the same inputs, "
+          f"bitwise; (rows, bs, k) {dict((k, sorted(v)) for k, v in shapes.items())}")
     return errs
 
 
@@ -1432,7 +1729,7 @@ def main(argv=None) -> int:
               f"run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.configs import paper_lstm_ptb, tinyllama_1_1b
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1477,12 +1774,20 @@ def main(argv=None) -> int:
         times["ef_accum_sparsify_bf16"]["max_abs_err"])
     for name in REPLACES:
         errs[name] = max(errs[name], times[name]["max_abs_err"])
-    dist_totals, dist_results, dist_errs = distributed(dev, cfg, seq, steps,
-                                                       plans=plans)
-    for name, err in dist_errs.items():
-        errs[name] = max(errs[name], err)
-    for k, v in dist_totals.items():
-        totals[k] += v
+    paper_totals, paper_results, paper_errs = paper_path(dev, steps)
+    narrow = narrow_timings(dev)
+    with process_group(dev):
+        dist_totals, dist_results, dist_errs = distributed(
+            dev, cfg, seq, steps, plans=plans)
+        lstm_totals, lstm_results, lstm_errs = distributed(
+            dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
+            configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
+    for part in (paper_errs, dist_errs, lstm_errs):
+        for name, err in part.items():
+            errs[name] = max(errs[name], err)
+    for part in (paper_totals, dist_totals, lstm_totals):
+        for k, v in part.items():
+            totals[k] += v
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -1498,7 +1803,8 @@ def main(argv=None) -> int:
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
          "timings": times, "autotune": autotune, "planned_pack": planned,
          "main": results, "distributed": dist_results,
-         **kernels_line}, indent=1))
+         "paper": paper_results, "paper_narrow": narrow,
+         "paper_distributed": lstm_results, **kernels_line}, indent=1))
     print(json.dumps(kernels_line))
     print(card_line())
     print(result_line(torch))
@@ -1566,13 +1872,22 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
     dev = torch.device("cuda", args.rank)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    totals, results, _ = distributed(dev, cfg, seq, steps, world=args.ranks,
-                                     rank=args.rank, init_method=args.init,
-                                     out_dir=out_dir)
+    from repro_torch.configs import paper_lstm_ptb
+    with process_group(dev, args.ranks, args.rank, args.init):
+        totals, results, _ = distributed(dev, cfg, seq, steps,
+                                         world=args.ranks, rank=args.rank,
+                                         out_dir=out_dir)
+        lstm_totals, lstm_results, _ = distributed(
+            dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, world=args.ranks,
+            rank=args.rank, plans={},
+            configs={"lags_dp/kernel": DIST_CONFIGS["lags_dp/kernel"]},
+            per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
     (out_dir / f"chip_smoke_rank{args.rank}.json").write_text(json.dumps(
         {"card": card_line(), "torch": torch.__version__,
          "world": args.ranks, "rank": args.rank, "seq": seq,
-         "launches": totals, "distributed": results}, indent=1))
+         "launches": totals, "distributed": results,
+         "paper_launches": lstm_totals, "paper_distributed": lstm_results},
+        indent=1))
     return 0
 
 

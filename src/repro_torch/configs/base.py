@@ -1,14 +1,19 @@
-"""Architecture configuration: a copy of ``repro.configs.base.ModelConfig``
-(the port keeps its own so it never imports ``repro``).
+"""Architecture configuration and the config registry: a copy of
+``repro.configs.base`` (the port keeps its own so it never imports
+``repro``).
 
 Each config module ``repro_torch/configs/<id>.py`` exposes ``CONFIG``
 (the exact full-size spec, source cited) and ``smoke_config()`` (a
-reduced same-family variant for CPU tests).  The port runs the ``dense``
-family; ``models.transformer`` raises for the others.
+reduced same-family variant for CPU tests), field for field the
+reference's.  ``models.transformer`` builds dense attention decoders
+(RMS or layer norm) and sLSTM stacks, ``models.cnn`` the paper's CNN;
+the other families raise, naming ROADMAP.md queue 1 item 13d.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,4 +63,66 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Exact parameter count, from the model's own layout as ``meta``
+        tensors (no storage); raises for a family the port cannot
+        build."""
+        from repro_torch import tree
+        from repro_torch.models import transformer as T
+        return sum(math.prod(x.shape)
+                   for x in tree.leaves(T.abstract_params(self)))
+
+    def active_param_count(self) -> int:
+        """Parameters active per token.  The reference scales expert
+        weights by top_k / n_experts; the port builds no MoE (its count
+        raises, item 13d), so every parameter it builds is active."""
+        return self.param_count()
+
+
+ARCH_IDS = [
+    "llava_next_mistral_7b",
+    "nemotron_4_340b",
+    "seamless_m4t_large_v2",
+    "llama3_8b",
+    "granite_moe_3b_a800m",
+    "gemma3_27b",
+    "olmoe_1b_7b",
+    "xlstm_1_3b",
+    "jamba_v0_1_52b",
+    "tinyllama_1_1b",
+]
+
+PAPER_IDS = ["paper_cnn_cifar", "paper_lstm_ptb"]
+
+
+def _module(arch: str):
+    arch = arch.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str):
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()
+
+
+# -------------------- input shapes (assigned) ------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 

@@ -296,7 +296,9 @@ class DenseExchange:
         the update; finish divides by P in place."""
         if axis_names is None:
             return _done([u.mean(0) for u in updates], state)
-        sums = [u.clone() for u in updates]
+        # NCCL takes contiguous buffers only; a gradient may come strided
+        sums = [u.clone(memory_format=torch.contiguous_format)
+                for u in updates]
         works = [dist.all_reduce(s, op=dist.ReduceOp.SUM,
                                  group=axis_names.group, async_op=True)
                  for s in sums]
@@ -678,7 +680,7 @@ class HierLAGSExchange:
         works, keep, resids, finishes = [], [], [], []
         for i, u, e in zip(_wave_ids(wave), updates, state):
             if inner is not None:     # the reference's _psum_mean
-                s = u.clone()
+                s = u.clone(memory_format=torch.contiguous_format)
                 dist.all_reduce(s, op=dist.ReduceOp.SUM, group=inner.group)
                 u = s.div_(inner.size)
             # the dense inner mean is the same on every worker of the

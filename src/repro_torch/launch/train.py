@@ -263,8 +263,10 @@ def build_train_step(cfg, mesh, run: RunConfig):
 
     def update_of(g, lr, mom):
         """``u = lr·f32(g)``, the pod's mean of it under pod_auto, and
-        the velocity ``mom = mc·mom + u`` (in place) under mc."""
-        u = g.float().mul_(lr)
+        the velocity ``mom = mc·mom + u`` (in place) under mc.  ``u`` is
+        contiguous, as NCCL's buffers must be (a gradient may be
+        strided: the sLSTM's on the card)."""
+        u = g.float().contiguous().mul_(lr)
         if inner is not None:
             dist.all_reduce(u, op=dist.ReduceOp.SUM, group=inner.group)
             u.div_(inner.size)

@@ -1,6 +1,7 @@
 """Basic building blocks over explicit parameter trees, as
-``repro.models.layers`` has them: RMS norm with ``(1 + scale)``, rotary
-embedding on split halves, embedding, linear and the activations."""
+``repro.models.layers`` has them: RMS norm with ``(1 + scale)``, layer
+norm, rotary embedding on split halves, embedding, linear and the
+activations."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +9,8 @@ import torch.nn.functional as F
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+#: the init of a (shape, init) leaf spec that is not a normal's scale
+ZEROS, ONES = None, "ones"
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -19,12 +22,41 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (out * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
+
+
+NORMS = ("rmsnorm", "layernorm")
+
+
 def apply_norm(kind: str, x, p):
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported yet (ROADMAP.md queue 1 item 13: "
-            f"the remaining model families)")
-    return rms_norm(x, p["scale"])
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    raise ValueError(f"norm {kind!r} not in {NORMS}")
+
+
+def norm_specs(kind: str, shape: tuple) -> dict:
+    """A norm's leaves as (shape, init) specs (``init_norm``'s
+    semantics): rmsnorm ``{"scale": zeros}``, since it scales by ``1 +
+    scale``; layernorm ``{"scale": ones, "bias": zeros}``."""
+    if kind == "rmsnorm":
+        return {"scale": (shape, ZEROS)}
+    if kind == "layernorm":
+        return {"scale": (shape, ONES), "bias": (shape, ZEROS)}
+    raise ValueError(f"norm {kind!r} not in {NORMS}")
+
+
+def norm_axes(kind: str, axes: tuple) -> dict:
+    """The logical axes of :func:`norm_specs`' leaves."""
+    return {name: axes for name in norm_specs(kind, ())}
 
 
 def squared_relu(x):

@@ -1,23 +1,31 @@
-"""Decoder-only transformer LM (the ``dense`` family of
-``repro.models.transformer``) as an ``nn.Module`` over a parameter tree
-in the reference's layout:
+"""Decoder-only LM stacks of ``repro.models.transformer`` as an
+``nn.Module`` over a parameter tree in the reference's layout.
 
-    {"decoder": {"blocks": [stack], "tail": []}, "embed": {"embedding"},
-     "final_norm": {"scale"}, "lm_head"?: {"w"}}
+A model is a sequence of per-layer :class:`BlockSpec` entries derived from
+the config (``build_blockspecs``), grouped into the smallest repeating
+period (``find_period``): one stacked tree per period position, with a
+leading ``n_periods`` axis, and a ``tail`` of unstacked layers that do
+not fill a period:
 
-where ``stack`` holds every layer's weights stacked on a leading
-``n_layers`` axis (``attn/{wq (L,d,h,hd), wk, wv (L,d,kv,hd),
-wo (L,h,hd,d)}``, ``ffn/{w_gate, w_up (L,d,f), w_down (L,f,d)}``,
-``ln_attn``/``ln_ffn`` ``{"scale" (L,d)}``).  The flatten order of that
+    {"decoder": {"blocks": [stack_0, ..., stack_{p-1}], "tail": [...]},
+     "embed": {"embedding"}, "final_norm": {...}, "lm_head"?: {"w"}}
+
+An attention block holds ``attn/{wq (d,h,hd), wk, wv (d,kv,hd),
+wo (h,hd,d)}``, ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` and the
+norms ``ln_attn``/``ln_ffn``; an sLSTM block (``models.xlstm``) holds
+``slstm`` and ``ln_attn`` and no FFN.  A norm is ``{"scale"}`` (RMS
+norm) or ``{"bias", "scale"}`` (layer norm).  The flatten order of the
 tree — and so every per-leaf budget and leaf id — is the reference's.
 
 ``loss_fn(params, cfg, batch)`` is functional, like the reference's;
 :class:`Transformer` owns the parameters.  :func:`from_jax_params` and
 :func:`to_numpy_tree` carry the reference's parameters, as numpy arrays,
-into the port and back.  Families other than ``dense`` raise.
+into the port and back.  The mLSTM, Mamba, MoE, sliding windows,
+encoders and frontends raise (ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -28,95 +36,170 @@ from repro_torch import resolve_device, tree
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import xlstm as X
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    kind: str            # attn | mamba | mlstm | slstm
+    ffn: str             # dense | moe | none
+    window: int | None   # sliding window (None = full)
+    cross_attn: bool = False
+
+
+def build_blockspecs(cfg) -> list[BlockSpec]:
+    """Per-layer block specs for the decoder stack."""
+    specs = []
+    for i in range(cfg.n_layers):
+        kind = "attn"
+        if cfg.attn_period:  # hybrid (jamba): 1 attn per period, rest mamba
+            kind = "attn" if (i % cfg.attn_period) == (cfg.attn_period // 2) \
+                else "mamba"
+        if cfg.xlstm_pattern:
+            kind = cfg.xlstm_pattern[i % len(cfg.xlstm_pattern)]
+        ffn = "dense"
+        if kind in ("mlstm", "slstm"):
+            ffn = "none"  # xLSTM blocks carry their own projections
+        elif cfg.n_experts:
+            ffn = "moe" if (i % cfg.moe_period) == (cfg.moe_period - 1) \
+                or cfg.moe_period == 1 else "dense"
+        window = None
+        if cfg.sliding_window:
+            if cfg.local_global_period:
+                is_global = (i % cfg.local_global_period
+                             == cfg.local_global_period - 1)
+                window = None if is_global else cfg.sliding_window
+            else:
+                window = cfg.sliding_window
+        specs.append(BlockSpec(kind=kind, ffn=ffn, window=window,
+                               cross_attn=bool(cfg.n_encoder_layers)))
+    return specs
+
+
+def find_period(specs: list[BlockSpec]) -> int:
+    n = len(specs)
+    for p in range(1, n + 1):
+        n_periods = n // p
+        if n_periods == 0:
+            break
+        ok = all(specs[i] == specs[i % p] for i in range(n_periods * p))
+        if ok and n_periods >= 1 and (n - n_periods * p) < p:
+            return p
+    return n
 
 
 def check_supported(cfg) -> None:
-    """Raise for what this slice has not ported."""
+    """Raise for what the port has not ported."""
     unported = {
-        "family": cfg.family != "dense",
-        "sliding_window": cfg.sliding_window is not None,
+        "xlstm_pattern (mlstm)": "mlstm" in (cfg.xlstm_pattern or ()),
+        "attn_period (mamba)": cfg.attn_period is not None,
         "n_experts": bool(cfg.n_experts),
-        "attn_period": cfg.attn_period is not None,
-        "xlstm_pattern": cfg.xlstm_pattern is not None,
+        "sliding_window": cfg.sliding_window is not None,
         "n_encoder_layers": bool(cfg.n_encoder_layers),
         "frontend": cfg.frontend is not None,
-        "norm": cfg.norm != "rmsnorm",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} not ported yet (ROADMAP.md queue 1 item 13: "
-            f"the remaining model families); the port runs dense "
-            f"rmsnorm decoders")
+            f"{cfg.name}: {bad} not ported yet (ROADMAP.md queue 1 item "
+            f"13d: the other model families); the port runs dense "
+            f"attention decoders and sLSTM stacks")
+
+
+def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
+    """(leaf specs as (shape, init), logical axes) of one layer: normal
+    times a scale, or ``layers.ZEROS``/``layers.ONES``."""
+    d = cfg.d_model
+    norm = L.norm_specs(cfg.norm, (d,))
+    norm_ax = L.norm_axes(cfg.norm, ("embed",))
+    p: dict = {}
+    ax: dict = {}
+    if spec.kind == "attn":
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(h * hd)
+        p["attn"] = {"wq": ((d, h, hd), s_in), "wk": ((d, kv, hd), s_in),
+                     "wv": ((d, kv, hd), s_in), "wo": ((h, hd, d), s_out)}
+        ax["attn"] = {"wq": ("embed", "heads", "head_dim"),
+                      "wk": ("embed", "kv_heads", "head_dim"),
+                      "wv": ("embed", "kv_heads", "head_dim"),
+                      "wo": ("heads", "head_dim", "embed")}
+    elif spec.kind == "slstm":
+        p["slstm"], ax["slstm"] = X.slstm_specs(d, cfg.n_heads)
+    if spec.ffn == "dense":
+        f = cfg.d_ff
+        s_in, s_ff = 1 / math.sqrt(d), 1 / math.sqrt(f)
+        p["ffn"] = {"w_up": ((d, f), s_in), "w_down": ((f, d), s_ff)}
+        ax["ffn"] = {"w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+        if cfg.gated_ffn:
+            p["ffn"]["w_gate"] = ((d, f), s_in)
+            ax["ffn"]["w_gate"] = ("embed", "ffn")
+    p["ln_attn"], ax["ln_attn"] = norm, norm_ax
+    if spec.ffn == "dense":
+        p["ln_ffn"], ax["ln_ffn"] = norm, norm_ax
+    return p, ax
+
+
+def _layout(cfg) -> tuple[dict, dict]:
+    """(leaf specs, logical axes) of the whole tree: ``_init_stack``'s
+    grouping into period stacks (a leading ``layers`` axis of
+    ``n_periods``) and the unstacked tail."""
+    specs = build_blockspecs(cfg)
+    per = find_period(specs)
+    n_periods = len(specs) // per
+    blocks, blocks_ax = [], []
+    for j in range(per):
+        p, ax = _block(cfg, specs[j])
+        blocks.append(_map_specs(
+            lambda sp: ((n_periods,) + tuple(sp[0]), sp[1]), p))
+        blocks_ax.append(_map_axes(lambda a: ("layers",) + a, ax))
+    tail = [_block(cfg, specs[i]) for i in range(n_periods * per,
+                                                  len(specs))]
+    d = cfg.d_model
+    out = {"decoder": {"blocks": blocks, "tail": [t[0] for t in tail]},
+           "embed": {"embedding": ((cfg.vocab, d), 1 / math.sqrt(d))},
+           "final_norm": L.norm_specs(cfg.norm, (d,))}
+    axes = {"decoder": {"blocks": blocks_ax, "tail": [t[1] for t in tail]},
+            "embed": {"embedding": ("vocab", "embed")},
+            "final_norm": L.norm_axes(cfg.norm, ("embed",))}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {"w": ((d, cfg.vocab), 1 / math.sqrt(d))}
+        axes["lm_head"] = {"w": ("embed", "vocab")}
+    return out, axes
 
 
 def _shapes(cfg) -> dict:
-    """Leaf shapes and init scales (normal * scale; None = zeros)."""
-    n, d, h, kv, hd, f = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                          cfg.n_kv_heads, cfg.hd, cfg.d_ff)
-    s_in, s_out, s_ff = 1 / math.sqrt(d), 1 / math.sqrt(h * hd), \
-        1 / math.sqrt(f)
-    ffn = {"w_up": ((n, d, f), s_in), "w_down": ((n, f, d), s_ff)}
-    if cfg.gated_ffn:
-        ffn["w_gate"] = ((n, d, f), s_in)
-    stack = {
-        "attn": {"wq": ((n, d, h, hd), s_in), "wk": ((n, d, kv, hd), s_in),
-                 "wv": ((n, d, kv, hd), s_in), "wo": ((n, h, hd, d), s_out)},
-        "ffn": ffn,
-        "ln_attn": {"scale": ((n, d), None)},
-        "ln_ffn": {"scale": ((n, d), None)},
-    }
-    out = {"decoder": {"blocks": [stack], "tail": []},
-           "embed": {"embedding": ((cfg.vocab, d), s_in)},
-           "final_norm": {"scale": ((d,), None)}}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = {"w": ((d, cfg.vocab), s_in)}
-    return out
+    """Leaf shapes and inits, ``(shape, init)`` with ``init`` a normal's
+    scale, ``layers.ZEROS`` (None) or ``layers.ONES``."""
+    check_supported(cfg)
+    return _layout(cfg)[0]
 
 
 def logical_axes(cfg) -> dict:
     """Each leaf's logical axis names, in the params' structure (the
-    reference's ``init_model`` axes tree): what ``sharding.rules`` maps
-    onto mesh axes."""
-    def stacked(*names):
-        return ("layers",) + names
-    ffn = {"w_up": stacked("embed", "ffn"), "w_down": stacked("ffn", "embed")}
-    if cfg.gated_ffn:
-        ffn["w_gate"] = stacked("embed", "ffn")
-    stack = {
-        "attn": {"wq": stacked("embed", "heads", "head_dim"),
-                 "wk": stacked("embed", "kv_heads", "head_dim"),
-                 "wv": stacked("embed", "kv_heads", "head_dim"),
-                 "wo": stacked("heads", "head_dim", "embed")},
-        "ffn": ffn,
-        "ln_attn": {"scale": stacked("embed")},
-        "ln_ffn": {"scale": stacked("embed")},
-    }
-    out = {"decoder": {"blocks": [stack], "tail": []},
-           "embed": {"embedding": ("vocab", "embed")},
-           "final_norm": {"scale": ("embed",)}}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = {"w": ("embed", "vocab")}
-    return out
+    reference's ``init_model`` axes tree, ``None`` entries included):
+    what ``sharding.rules`` maps onto mesh axes."""
+    check_supported(cfg)
+    return _layout(cfg)[1]
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters from ``seed`` (a ``torch.Generator`` on the
     device: the same distributions as the reference's init, not the same
     draws)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = L.DTYPES[cfg.param_dtype]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
     def make(spec):
-        shape, scale = spec
-        if scale is None:
+        shape, init = spec
+        if init is L.ZEROS:
             return torch.zeros(shape, dtype=dtype, device=dev)
+        if init is L.ONES:
+            return torch.ones(shape, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=dev)
-        return w.mul_(scale).to(dtype)
+        return w.mul_(init).to(dtype)
 
     return _map_specs(make, _shapes(cfg))
 
@@ -125,13 +208,13 @@ def abstract_params(cfg) -> dict:
     """The parameter tree as ``meta`` tensors: shapes and dtypes, no
     storage (the counterpart of the reference's ``eval_shape`` of
     ``init_model``)."""
-    check_supported(cfg)
     dtype = L.DTYPES[cfg.param_dtype]
     return _map_specs(lambda spec: torch.empty(spec[0], dtype=dtype,
                                                device="meta"), _shapes(cfg))
 
 
 def _map_specs(fn, specs):
+    """``fn`` over the ``(shape, init)`` leaves of a spec tree."""
     if isinstance(specs, dict):
         return {k: _map_specs(fn, v) for k, v in specs.items()}
     if isinstance(specs, list):
@@ -139,25 +222,46 @@ def _map_specs(fn, specs):
     return fn(specs)
 
 
-def _apply_block(bp, x, cfg, *, chunk: int):
+def _map_axes(fn, axes):
+    """``fn`` over the axis-name tuples of an axes tree."""
+    if isinstance(axes, dict):
+        return {k: _map_axes(fn, v) for k, v in axes.items()}
+    return fn(tuple(axes))
+
+
+def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int):
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
-    x = x + A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
+    if spec.kind == "attn":
+        h = A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
                                 rope_theta=cfg.rope_theta, chunk=chunk)
-    h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
-    return x + F.ffn_forward(bp["ffn"], h, cfg.activation)
+    else:
+        h = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads)
+    x = x + h
+    if spec.ffn == "dense":
+        h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
+        x = x + F.ffn_forward(bp["ffn"], h, cfg.activation)
+    return x
 
 
 def forward(params, cfg, tokens, *, chunk: int = 1024):
-    """tokens (B, S) -> (final hidden states (B, S, D), aux loss 0)."""
+    """tokens (B, S) -> (final hidden states (B, S, D), aux loss 0).
+    Layer t·p + j is position j of period t: the stacks are indexed
+    layer by layer, period by period, as the reference's scan runs."""
     x = L.embed(params["embed"], tokens, L.DTYPES[cfg.dtype])
+    specs = build_blockspecs(cfg)
+    per = find_period(specs)
+    n_periods = len(specs) // per
+    stacks = []
     for stack in params["decoder"]["blocks"]:
         flat, treedef = tree.flatten(stack)
-        per_layer = [w.unbind(0) for w in flat]   # one grad buffer per leaf
-        for i in range(len(per_layer[0]) if per_layer else 0):
-            bp = tree.unflatten(treedef, [w[i] for w in per_layer])
-            x = _apply_block(bp, x, cfg, chunk=chunk)
-    for bp in params["decoder"]["tail"]:
-        x = _apply_block(bp, x, cfg, chunk=chunk)
+        # one unbind per leaf: one gradient buffer per stacked leaf
+        stacks.append((treedef, [w.unbind(0) for w in flat]))
+    for t in range(n_periods):
+        for j, (treedef, per_layer) in enumerate(stacks):
+            bp = tree.unflatten(treedef, [w[t] for w in per_layer])
+            x = _apply_block(bp, specs[j], x, cfg, chunk=chunk)
+    for i, bp in enumerate(params["decoder"]["tail"]):
+        x = _apply_block(bp, specs[n_periods * per + i], x, cfg, chunk=chunk)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -198,8 +302,8 @@ def loss_fn(params, cfg, batch, *, chunk: int = 1024, loss_chunk: int = 512,
 
 
 class Transformer(nn.Module):
-    """Owns the parameter tree (``self.params``, nested dicts of
-    ``nn.Parameter`` in the reference layout) of one dense decoder.
+    """Owns the parameter tree (``self.params``, nested dicts and lists
+    of ``nn.Parameter`` in the reference layout) of one decoder.
 
     ``device`` defaults to ``cuda`` and raises without a card."""
 

@@ -1,0 +1,99 @@
+"""The port's config registry (``repro_torch.configs``) against the
+reference's: every registered id's ``CONFIG`` and ``smoke_config()``
+field for field, the input shapes, and the parameter counts, which the
+port takes from its own model layout as ``meta`` tensors (no storage)
+and the reference from ``jax.eval_shape`` of its init.  The families the
+port does not build raise, naming ROADMAP.md item 13d.
+"""
+import dataclasses
+
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from repro.configs import base as JB  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.configs import base as TB  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+ALL_IDS = JB.ARCH_IDS + JB.PAPER_IDS
+#: ids whose models the port builds, each counted at full size or at
+#: smoke size (nemotron's)
+BUILT = {"tinyllama_1_1b": "full", "llama3_8b": "full",
+         "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke"}
+#: id -> what the port refuses in it
+UNPORTED = {"llava_next_mistral_7b": "frontend",
+            "seamless_m4t_large_v2": "n_encoder_layers",
+            "granite_moe_3b_a800m": "n_experts",
+            "gemma3_27b": "sliding_window",
+            "olmoe_1b_7b": "n_experts",
+            "xlstm_1_3b": "mlstm",
+            "jamba_v0_1_52b": "mamba"}
+
+
+def test_registry_lists_the_reference_ids():
+    assert TB.ARCH_IDS == JB.ARCH_IDS
+    assert TB.PAPER_IDS == JB.PAPER_IDS
+    assert set(BUILT) | set(UNPORTED) | {"paper_cnn_cifar"} == set(ALL_IDS)
+
+
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_configs_equal_the_reference_field_for_field(arch):
+    assert dataclasses.asdict(TB.get_config(arch)) == \
+        dataclasses.asdict(JB.get_config(arch))
+    assert dataclasses.asdict(TB.get_smoke_config(arch)) == \
+        dataclasses.asdict(JB.get_smoke_config(arch))
+    # the reference's spellings of an id resolve the same way
+    dashed = arch.replace("_", "-")
+    assert TB.get_config(dashed) == TB.get_config(arch)
+
+
+def test_gemma3_long_context_config_equals_the_reference():
+    from repro.configs import gemma3_27b as jg
+    from repro_torch.configs import gemma3_27b as tg
+    assert dataclasses.asdict(tg.long_context_config()) == \
+        dataclasses.asdict(jg.long_context_config())
+
+
+def test_input_shapes_equal_the_reference():
+    assert {k: dataclasses.asdict(v) for k, v in TB.INPUT_SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in JB.INPUT_SHAPES.items()}
+    assert TB.InputShape("x", 1, 2, "train") == TB.InputShape("x", 1, 2,
+                                                              "train")
+
+
+def _config(arch, size):
+    return (TB.get_config(arch), JB.get_config(arch)) if size == "full" \
+        else (TB.get_smoke_config(arch), JB.get_smoke_config(arch))
+
+
+@pytest.mark.parametrize("arch", list(BUILT))
+def test_param_count_equals_the_reference(arch):
+    tcfg, jcfg = _config(arch, BUILT[arch])
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    # meta tensors: shapes without storage
+    assert all(x.device.type == "meta"
+               for x in tree.leaves(TT.abstract_params(tcfg)))
+
+
+def test_param_counts_of_the_paper_lstm_and_tinyllama():
+    """The published sizes: 55,524,000 (2 x 1500 sLSTM, vocab 10,000,
+    11 leaves) and 1,100,048,384."""
+    assert TB.get_config("paper_lstm_ptb").param_count() == 55_524_000
+    assert TB.get_config("tinyllama_1_1b").param_count() == 1_100_048_384
+
+
+@pytest.mark.parametrize("arch", list(UNPORTED))
+def test_unported_families_raise_naming_item_13d(arch):
+    """Counting or building a family the port has no layers for raises
+    NotImplementedError naming its ROADMAP item, at both sizes."""
+    for cfg in (TB.get_config(arch), TB.get_smoke_config(arch)):
+        with pytest.raises(NotImplementedError, match="13d"):
+            cfg.param_count()
+        with pytest.raises(NotImplementedError, match="13d"):
+            cfg.active_param_count()
+    with pytest.raises(NotImplementedError,
+                       match=f"{UNPORTED[arch]}.*13d"):
+        TT.Transformer(TB.get_smoke_config(arch), device="cpu")

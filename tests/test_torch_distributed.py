@@ -47,7 +47,11 @@ Contracts:
     equal the simulation path's bit for bit (CPU generators on both);
   * ``autotune.profiler.profile_model`` of the real step over the four
     ranks (dense and lags_dp steps, the collective sweep): a profile the
-    reference reads, whose fit and plan match the reference's.
+    reference reads, whose fit and plan match the reference's;
+  * the paper's LSTM (``paper_lstm_ptb``'s smoke config: the sLSTM stack
+    with layer norm) through ``lags_dp`` (kernel backend, the config's
+    ratio 250), 3 steps against the reference's ``build_train_step`` at
+    the tolerances above.
 """
 import os
 import subprocess
@@ -176,6 +180,23 @@ for name, pipeline in SCHED_MODES.items():
             out[f"{name}/{part}{i}"] = np.asarray(x)
     out[f"{name}/n_waves"] = meta["waves"].n_waves if meta["waves"] else 0
     out[f"{name}/ks"] = np.asarray(jax.tree.leaves(meta["ks"]))
+lcfg = base.get_smoke_config("paper_lstm_ptb")
+run = api.RunConfig(mode="lags_dp", donate=False, **RUN_KW)
+step, _, _ = api.build_train_step(lcfg, mesh, run)
+state, _ = TR.init_state(lcfg, mesh, method="lags_dp")
+flat, treedef = jax.tree.flatten(state["params"])
+state["params"] = jax.tree.unflatten(treedef, [
+    jax.device_put(inp[f"lstm_param{i}"], x.sharding)
+    for i, x in enumerate(flat)])
+with compat.set_mesh(mesh):
+    for t in range(STEPS):
+        batch = {"tokens": inp["lstm_tokens"][t],
+                 "labels": inp["lstm_labels"][t]}
+        state, metrics = step(state, batch)
+        out[f"lstm/loss{t}"] = float(metrics["loss"])
+for part in ("params", "ef"):
+    for i, x in enumerate(jax.tree.leaves(state[part])):
+        out[f"lstm/{part}{i}"] = np.asarray(x)
 np.savez(sys.argv[2], **out)
 print("OK jax")
 """
@@ -315,6 +336,23 @@ for name, (mode, comp, pods, ratio_inner) in SAMPLED.items():
 prof = TPR.profile_model(cfg, mesh, seq=S, global_batch=B, iters=1,
                          comm_sizes=(4096, 1 << 16, 1 << 20))
 out["profile"] = np.array(prof.to_json())
+
+# the paper's LSTM: sLSTM blocks with layer norm, lags_dp
+from repro_torch.configs import paper_lstm_ptb
+lcfg = paper_lstm_ptb.smoke_config()
+lleaves, ltreedef = tree.flatten(TT.abstract_params(lcfg))
+sess = api.Session(lcfg, api.RunConfig(mode="lags_dp",
+                                       selection_backend="kernel", **RUN_KW),
+                   mesh=mesh)
+module = TT.from_jax_params(tree.unflatten(ltreedef, [
+    inp[f"lstm_param{i}"] for i in range(len(lleaves))]), lcfg, device="cpu")
+state, _ = sess.init_state(params=module.params)
+for t in range(STEPS):
+    batch = {"tokens": torch.from_numpy(inp["lstm_tokens"][t]),
+             "labels": torch.from_numpy(inp["lstm_labels"][t])}
+    state, metrics = sess.step_fn(state, batch)
+    out[f"lstm/loss{t}"] = float(metrics["loss"])
+snapshot("lstm", state)
 np.savez(out_path, **out)
 dist.destroy_process_group()
 print("OK rank", rank)
@@ -360,6 +398,13 @@ def runs(tmp_path_factory):
     sched, waves = _reference_plan(cfg)
     inp.update(schedule=np.array(sched.to_json()),
                waves=np.array(waves.to_json()))
+    lcfg = base.get_smoke_config("paper_lstm_ptb")
+    lparams, _ = JT.init_model(jax.random.PRNGKey(1), lcfg)
+    inp.update({f"lstm_param{i}": np.asarray(p)
+                for i, p in enumerate(jax.tree.leaves(lparams))})
+    ltoks = np.random.default_rng(13).integers(
+        0, lcfg.vocab, (STEPS, B, S + 1)).astype(np.int32)
+    inp.update(lstm_tokens=ltoks[..., :-1], lstm_labels=ltoks[..., 1:])
     np.savez(tmp / "in.npz", **inp)
 
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
@@ -666,3 +711,27 @@ def test_profile_of_the_real_step_over_four_ranks(runs):
         assert abs(thw.beta - jhw.beta) <= 1e-12 * jhw.beta
         assert TP.plan_schedule(prof.leaves, WORLD, thw).to_json() == \
             JP.plan_schedule(jprof.leaves, WORLD, jhw).to_json()
+
+
+def test_paper_lstm_three_steps_match_jax_build_train_step(runs):
+    """The paper's LSTM (smoke: 2 sLSTM blocks with layer norm, 11
+    leaves) through the distributed ``lags_dp`` over four ranks: losses
+    rtol 1e-5, parameters and each rank's residuals rtol 1e-4 atol 1e-5
+    of the reference's ``build_train_step``; parameters equal on every
+    rank, bit for bit."""
+    _, jres, ranks = runs
+    got = ranks[0]
+    np.testing.assert_allclose(
+        [got[f"lstm/loss{t}"] for t in range(STEPS)],
+        [jres[f"lstm/loss{t}"] for t in range(STEPS)], rtol=1e-5)
+    for part in ("params", "ef"):
+        keys = [k for k in jres if k.startswith(f"lstm/{part}")]
+        assert len(keys) == 11
+        for key in keys:
+            for r, res in enumerate(ranks):
+                want = jres[key] if part == "params" else jres[key][r]
+                have = res[key] if part == "params" else res[key][0]
+                np.testing.assert_allclose(have, want, rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{key} rank {r}")
+                if part == "params":
+                    np.testing.assert_array_equal(res[key], got[key])

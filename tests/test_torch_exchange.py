@@ -314,3 +314,31 @@ def test_momentum_extra_state_matches_jax_layout():
         assert not g.any()
     assert dataclasses.replace(tspec, momentum_correction=0.0
                                ).init_extra_state() == {}
+
+
+class _DoneWork:
+    def wait(self):
+        return True
+
+
+def test_dense_all_reduce_buffers_are_contiguous(monkeypatch):
+    """NCCL refuses a strided buffer ("Tensors must be contiguous"; gloo
+    takes one), and a gradient may come strided (the sLSTM's did on the
+    card): the dense mean all-reduces a contiguous copy of each update
+    (here over a one-rank group) and still equals the update."""
+    import torch.distributed as dist
+    seen = []
+
+    def all_reduce(t, *args, **kw):
+        seen.append(t.is_contiguous())
+        return _DoneWork()
+
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
+    gen = torch.Generator().manual_seed(3)
+    u = {"w": torch.randn((40, 30), generator=gen).t()}    # strided
+    assert not u["w"].is_contiguous()
+    mean, _ = TL.DenseExchange().exchange(
+        u, (), TL.Axes(names=("data",), group=None))
+    assert torch.equal(mean["w"], u["w"])
+    assert seen == [True]

@@ -41,11 +41,13 @@ def _bitwise(got, want):
                            w.contiguous().view(torch.int32).cpu())
 
 
-@pytest.mark.parametrize("bs", [4096, 130, 1023])
+@pytest.mark.parametrize("bs", [4096, 130, 1023, 10, 16, 27, 432])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("inputs", ["normal", "ties"])
 def test_kernels_match_plain_bitwise(cuda, bs, dtype, inputs):
-    """Every k of the sweep up to bs, on the path the crossover picks and
+    """Every k of the sweep up to bs (every k from 1 to bs on rows of
+    at most 32, narrower than a warp or one warp wide: the paper CNN's
+    small leaves, one row each), on the path the crossover picks and
     on each path forced (``radix_min_k`` 1: radix select; bs + 1: k
     arg-max passes), gate off and on, lr 1 and 0.3; "ties": integers in
     [-3, 3], so most of a row ties with the k-th magnitude and the
@@ -59,7 +61,8 @@ def test_kernels_match_plain_bitwise(cuda, bs, dtype, inputs):
         g = torch.randn((37, bs), generator=gen, device=cuda).to(dtype)
         e = torch.randn((37, bs), generator=gen, device=cuda)
     ks = [k for k in (1, 4, 5, 16, 64, 256, 512, 1024) if k < bs]
-    for k in ks + [bs - 1, bs]:
+    ks = range(1, bs + 1) if bs <= 32 else ks + [bs - 1, bs]
+    for k in ks:
         for radix_min_k in (RADIX_MIN_K, 1, bs + 1):
             path = dict(radix_min_k=radix_min_k)
             _bitwise(block_topk(g, k, **path), ref.block_topk_ref(g, k))

@@ -134,6 +134,22 @@ def test_random_init_matches_reference_distributions():
 
 
 def test_other_families_raise_naming_roadmap():
+    """MoE and the mLSTM are not ported (item 13d)."""
     cfg = dataclasses.replace(tcfg.smoke_config(), family="moe", n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13d"):
         TT.Transformer(cfg, device="cpu")
+    cfg = dataclasses.replace(tcfg.smoke_config(), family="ssm",
+                              xlstm_pattern=("mlstm", "slstm"), d_ff=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13d"):
+        TT.Transformer(cfg, device="cpu")
+
+
+def test_layer_norm_decoder_builds():
+    """The norm that used to raise: a layer-norm decoder builds, each
+    norm ``{"bias", "scale"}`` (15 leaves), scale ones and bias zeros."""
+    cfg = dataclasses.replace(tcfg.smoke_config(), norm="layernorm")
+    module = TT.Transformer(cfg, device="cpu")
+    assert len(tree.leaves(module.params)) == 15
+    ln = module.params["decoder"]["blocks"][0]["ln_ffn"]
+    assert bool((ln["scale"].detach() == 1).all())
+    assert bool((ln["bias"].detach() == 0).all())
