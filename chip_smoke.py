@@ -103,6 +103,24 @@
    ``DIST_EXPECTED`` must launch.  Then, in the same process group, the
    paper LSTM (20 sequences of 35 tokens): ``dense``, ``lags_dp`` (kernel
    backend) ``off`` with step 0 held as above, and its ``wave`` twin.
+6b. The observe plane and online re-planning, in the same NCCL group:
+   ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
+   steps each with the health quantities off and on (their step times),
+   then ``Session.run`` of 12 steps with a ``HealthMonitor`` and a
+   ``ReplanController`` (cadence 4, an anomaly detector, the health
+   monitor) from a plan for the healthy wire, its telemetry a fake trace
+   whose wire degrades after step 6: the anomaly must swap the live step
+   (memory allocated at the start of the swap step and of the next,
+   printed, must agree), the losses after it stay finite; every leaf's δ
+   gauge finite and >= 0; the final checkpoint (2.2 GB, in the
+   git-ignored ``.observe_scratch/``) restored bit for bit into a fresh
+   state and deleted, ``runtime_final`` restored into a fresh
+   controller; the snapshot through ``observe.check`` and its CLI
+   (copied to ``chiprun_out/observe_snapshot.*``); a real
+   ``capture_trace`` of the live step: its ``lags/comm/...`` device
+   ranges and durations, the step's, ``overlap_report`` (the
+   collectives' share of the step), ``ReplanController.ingest_trace``
+   and a re-plan on it, ``profile_model(trace=...)``.
 7. Print the kernels' JSON line, the card line and the result line.
 
     python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
@@ -117,7 +135,11 @@ the exchange itself must give every rank the same bits).  Its schedules
 come from the autotune pipeline over the 4 ranks: every rank profiles
 (the real step and ``time_collectives``); rank 0 prints the wire
 samples and the fitted α and β (the source of ``H100_NVLINK``), plans,
-and sends the plans to every rank.
+and sends the plans to every rank.  Then the observe phase (6b) on the
+four ranks: the replicas must stay bitwise equal after the swap, every
+rank ingests rank 0's trace, and the wire α and β attributed from it
+print beside ``H100_NVLINK``'s (the re-plan's fit must be
+``attr_wire_fit``); rank 0 alone writes the checkpoint and snapshot.
 
 Any failure raises (non-zero exit).  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script exits 1 and prints no result.
@@ -1703,6 +1725,410 @@ def check_step0(sess, state, p0, batch) -> dict:
     return errs
 
 
+#: the observe/runtime phase: Session.run steps, the controller count
+#: after which the fake trace's wire degrades, the cadence, and the
+#: wire it degrades to (the reference tests' "degraded" numbers)
+OBSERVE_STEPS, OBSERVE_SHIFT, OBSERVE_CADENCE = 12, 6, 4
+DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
+#: where the phase's large artifacts (the chrome trace, the full-width
+#: checkpoint) go before they are deleted: in the checkout, not copied
+#: back from the chip (git-ignored)
+OBSERVE_SCRATCH = ROOT / ".observe_scratch"
+
+
+def observe_phase(dev, cfg, seq: int, out_dir: Path, world: int = 1,
+                  rank: int = 0) -> tuple[dict, dict]:
+    """The observe plane and online re-planning at full width, over the
+    NCCL group of ``world`` ranks (inside ``process_group``):
+    ``Session(cfg, lags_dp + kernel, health_every=1).run`` for
+    ``OBSERVE_STEPS`` steps with a ``HealthMonitor`` and a controller
+    whose triggers are a cadence, an anomaly detector and the health
+    monitor, its telemetry from a fake trace whose wire degrades after
+    step ``OBSERVE_SHIFT`` (the anomaly must swap the live step); step
+    times with and without health and under a capture; a real
+    ``torch.profiler`` trace of the live step fed to the controller, to
+    ``overlap_report`` and to ``profile_model(trace=...)``; the health
+    gauges of every leaf; the snapshot through ``observe.check``; and
+    (rank 0) the final checkpoint and controller state restored bit for
+    bit.  Under several ranks the replicas must stay bitwise equal and
+    rank 0's trace is the one every rank ingests.  Returns (launch
+    counts of the phase, results)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, kernels, tree
+    from repro_torch.autotune import costfit, planner, profiler
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.core import comm_model as cm
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.observe import anomaly as AN
+    from repro_torch.observe import attribution as OA
+    from repro_torch.observe import check as OC
+    from repro_torch.observe import events as OE
+    from repro_torch.observe import health as OH
+    from repro_torch.observe import metrics as OM
+    from repro_torch.observe import names as ON
+    from repro_torch.observe import trace as OT
+    from repro_torch.observe import triggers as OTG
+    from repro_torch.runtime import RuntimeConfig
+
+    who = f" rank {rank}/{world}" if world > 1 else ""
+
+    def say(msg: str) -> None:
+        print(f"observe{who}: {msg}", flush=True)
+
+    scratch = OBSERVE_SCRATCH / f"rank{rank}"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    res: dict = {"world": world}
+    try:
+        mesh = M.make_mesh(device=dev.type)
+        run = api.RunConfig(mode="lags_dp", selection_backend="kernel",
+                            lr=0.01, health_every=1)
+        sess = api.Session(cfg, run, mesh=mesh)
+        state, _ = sess.init_state(seed=0)
+        data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
+
+        def data_fn(t):
+            return data.batch(t, world, seq, device=dev)
+
+        kernels.reset_launch_counts()
+        # step time with and without the health quantities (3 each, the
+        # first of each dropped), then the live step under a capture
+        plain_fn = api.build_train_step(
+            cfg, mesh, dataclasses.replace(run, health_every=0))[0]
+        times = {}
+        for label, fn in (("health_every=0", plain_fn),
+                          ("health_every=1", sess.step_fn)):
+            ts = []
+            for t in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fn(state, data_fn(t))
+                float(m["loss"])
+                ts.append(time.perf_counter() - t0)
+            times[label] = ts
+            say(f"step s {label}: {[round(x, 4) for x in ts]}, health keys "
+                f"{sorted(k for k in m if k.startswith('health'))}")
+        del plain_fn, m
+        res["step_s"] = times
+        t_plain = float(np.median(times["health_every=0"][1:]))
+        if world > 1:      # one plan and one fake trace on every rank
+            t_plain = torch.tensor([t_plain], dtype=torch.float64,
+                                   device=dev)
+            dist.broadcast(t_plain, 0)
+            t_plain = float(t_plain)
+        # the live plan before the shift: Eq. 18 on the healthy wire over
+        # the fake trace's budgets (the plain step's time split 2:1 into
+        # backward and forward), leaves whose exchange hides kept dense
+        # one card: the tests' what-if of 8 workers (one rank prices no
+        # wire); several: the ranks
+        p_plan = world if world > 1 else 8
+        budgets = profiler.apportion_backward(
+            profiler.backprop_leaves(cfg, 1.0),
+            profiler.BWD_FRACTION * t_plain)
+        healthy = planner.plan_schedule(budgets, p=p_plan,
+                                        hw=cm.H100_NVLINK, arch=cfg.name,
+                                        shape="observe")
+        say(f"healthy-wire plan at P = {p_plan}: ratios "
+            f"{[lp.ratio for lp in healthy.leaves]}")
+        sess = api.Session(cfg, dataclasses.replace(run, schedule=healthy),
+                           mesh=mesh)
+
+        # the controller: cadence, anomaly and health triggers; telemetry
+        # from a fake trace over those budgets, whose wire degrades
+        mon = OH.HealthMonitor()
+        reg, evs = OM.MetricsRegistry(), OE.EventLog()
+        wires = {"flat": cm.H100_NVLINK}
+        slow = dataclasses.replace(cm.H100_NVLINK, **DEGRADED)
+        rcfg = RuntimeConfig(replan_every=OBSERVE_CADENCE, fence_every=1,
+                             min_step_samples=1)
+        # the cadence resets the detector every OBSERVE_CADENCE steps, so
+        # it judges one step against the two before it
+        anomaly_cfg = AN.AnomalyConfig(warmup=0, recent=1, min_history=2)
+        ctl = sess.controller(
+            rcfg=rcfg, triggers=(OTG.CadenceTrigger(OBSERVE_CADENCE),
+                                 OTG.AnomalyTrigger(cfg=anomaly_cfg),
+                                 OTG.HealthTrigger(mon)),
+            metrics=reg, events=evs)
+        ctl.meta["n_workers"] = p_plan
+        fake = OT.FakeTraceBackend(
+            budgets, wires=wires, tier_workers={"flat": p_plan},
+            t_forward=(1.0 - profiler.BWD_FRACTION) * t_plain,
+            schedule_fn=lambda: ctl.schedule)
+        ctl.trace_source = fake.capture
+        live_step, per_step = ctl.step, []
+
+        def watched(state_, batch):
+            """``ctl.step``, with the memory around it; the wire shift
+            after step OBSERVE_SHIFT; the what-if worker count again
+            after a rebuild."""
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            n_swaps = sum(e.swapped for e in ctl.history)
+            out = live_step(state_, batch)
+            torch.cuda.synchronize()
+            per_step.append({
+                "count": ctl._step_count, "before": before,
+                "after": torch.cuda.memory_allocated(),
+                "peak": torch.cuda.max_memory_allocated(),
+                "swapped": sum(e.swapped for e in ctl.history) > n_swaps,
+                "end": time.perf_counter()})
+            ctl.meta["n_workers"] = p_plan
+            if ctl._step_count == OBSERVE_SHIFT:
+                wires["flat"] = slow
+            return out
+
+        ctl.step = watched
+        run_dir = scratch / "run" if rank == 0 else None
+        t0 = time.perf_counter()
+        state, hist = sess.run(data_fn, OBSERVE_STEPS, controller=ctl,
+                               state=state,
+                               out_dir=None if run_dir is None
+                               else str(run_dir),
+                               metrics=reg, events=evs, health_monitor=mon,
+                               log_every=1, print_fn=say)
+        t_return = time.perf_counter()
+        ctl.step = live_step
+        losses = [r["loss"] for r in hist]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"observe: losses {losses}")
+        for ev in ctl.history:
+            say(f"replan at controller step {ev.step}: trigger "
+                f"{ev.trigger}, swapped {ev.swapped}, predicted improvement "
+                f"{ev.improvement:.4f} ({ev.t_pred_current:.6f} -> "
+                f"{ev.t_pred_candidate:.6f} s), fit {ev.hw_name}")
+        swaps = [ev for ev in ctl.history
+                 if ev.swapped and "anomaly" in ev.trigger]
+        if not swaps:
+            raise AssertionError(f"observe: no anomaly-triggered swap in "
+                                 f"{ctl.history}")
+        swap = swaps[0]
+        after = [r["loss"] for r, s in zip(hist, per_step)
+                 if s["count"] > swap.step]
+        if len(after) < 2:
+            raise AssertionError(f"observe: {len(after)} steps after the "
+                                 f"swap at {swap.step}")
+        # the caller holds the old state until the step returns, so the
+        # steady memory after the swap is the next step's starting one
+        at = next(i for i, s in enumerate(per_step)
+                  if s["count"] == swap.step)
+        mem = dict(per_step[at], after=per_step[at + 1]["before"])
+        say(f"anomaly-triggered swap at controller step {swap.step} (wire "
+            f"degraded after {OBSERVE_SHIFT}): "
+            f"{sum(lp.ratio > 1.0 for lp in ctl.schedule.leaves)} of "
+            f"{len(ctl.schedule.leaves)} leaves sparse, ratios "
+            f"{sorted({lp.ratio for lp in ctl.schedule.leaves})}; losses "
+            f"after it {after}; device memory allocated at the start of "
+            f"the swap step {mem['before'] / 2**30:.3f} GiB and of the "
+            f"next {mem['after'] / 2**30:.3f} GiB, peak in the swap step "
+            f"{mem['peak'] / 2**30:.3f} GiB (other steps "
+            f"{min(s['peak'] for s in per_step) / 2**30:.3f}-"
+            f"{max(s['peak'] for s in per_step) / 2**30:.3f})")
+        if mem["after"] > mem["before"] + (64 << 20):
+            raise AssertionError(f"observe: {mem['after'] - mem['before']} "
+                                 f"bytes more alive after the swap")
+        if world > 1:
+            check_replicas(state["params"], "observe after the swap")
+            say("parameters equal on every rank after the swap")
+        res.update(losses=losses, rows=hist, memory=per_step,
+                   history=[dataclasses.asdict(e) for e in ctl.history],
+                   schedule=json.loads(ctl.schedule.to_json()))
+
+        # (c) the health gauges of every leaf
+        fam = reg.get("train_health_delta")
+        got = {fam.labels_dict(k)["leaf"]: v for k, v in fam.items()}
+        deltas = {}
+        for leaf in tree.leaf_paths(state["params"]):
+            v = got.get(ON.health_name("delta", leaf))
+            if v is None or not math.isfinite(v) or v < 0.0:
+                raise AssertionError(f"observe: delta of {leaf} = {v}")
+            deltas[leaf] = v
+        say("delta per leaf (last step): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in deltas.items()))
+        res["delta"] = deltas
+
+        if rank == 0:
+            # (d) the final checkpoint and controller state, restored into
+            # a fresh state and a fresh controller
+            npz = run_dir / "ckpt_final.npz"
+            size = npz.stat().st_size
+            t_save = t_return - per_step[-1]["end"]
+            fresh, _ = sess.init_state(seed=1)
+            t0 = time.perf_counter()
+            back = ckpt.restore(str(run_dir / "ckpt_final"),
+                                {"params": fresh["params"],
+                                 "step": np.int32(0)})
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            bad = [path for path, a, b in zip(
+                tree.leaf_paths(state["params"]),
+                tree.leaves(back["params"]), tree.leaves(state["params"]))
+                if a.dtype != b.dtype or not torch.equal(bits(a), bits(b))]
+            step_back = int(back["step"])
+            del fresh, back
+            npz.unlink()
+            torch.cuda.empty_cache()
+            if bad or step_back != state["step"]:
+                raise AssertionError(f"observe: checkpoint step {step_back}, "
+                                     f"leaves {bad} differ")
+            ctl2 = sess.controller(
+                rcfg=rcfg, triggers=(OTG.CadenceTrigger(OBSERVE_CADENCE),
+                                     OTG.AnomalyTrigger(cfg=anomaly_cfg),
+                                     OTG.HealthTrigger(OH.HealthMonitor())),
+                metrics=OM.MetricsRegistry(), events=OE.EventLog())
+            ctl2.restore_state(str(run_dir / "runtime_final"))
+            same = {
+                "schedule": ctl2.schedule.to_json() == ctl.schedule.to_json(),
+                "history": ctl2.history == ctl.history,
+                "steps": (ctl2.telemetry.step_samples()
+                          == ctl.telemetry.step_samples()),
+                "comm": (ctl2.telemetry.comm_samples()
+                         == ctl.telemetry.comm_samples()),
+                "triggers": [t.state_dict() for t in ctl2.triggers[1:]]
+                == [t.state_dict() for t in ctl.triggers[1:]],
+                "step_count": ctl2._step_count == ctl._step_count}
+            del ctl2
+            if not all(same.values()):
+                raise AssertionError(f"observe: runtime_final restored "
+                                     f"{same}")
+            say(f"ckpt_final.npz {size} bytes ({size / 2**30:.3f} GiB): saved "
+                f"in {t_save:.2f} s (the end of Session.run after its last "
+                f"step), restored bitwise into a fresh state in "
+                f"{t_restore:.2f} s, then deleted; runtime_final restored the "
+                f"same {', '.join(same)}")
+            res["checkpoint"] = {"bytes": size, "save_s": t_save,
+                                 "restore_s": t_restore}
+
+            # (c) the snapshot, through the checker and its CLI
+            snap_base = run_dir / "metrics_snapshot"
+            problems = OC.validate(OM.load_snapshot(str(snap_base)),
+                                   require=("train", "replan"),
+                                   require_health=True)
+            if problems:
+                raise AssertionError(f"observe: snapshot {problems}")
+            out_dir.mkdir(exist_ok=True)
+            for ext in (".jsonl", ".json", ".prom"):
+                shutil.copy(str(snap_base) + ext,
+                            out_dir / f"observe_snapshot{ext}")
+            cli = subprocess.run(
+                [sys.executable, "-m", "repro_torch.observe.check",
+                 str(out_dir / "observe_snapshot"), "--require", "train",
+                 "replan", "--require-health"],
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                capture_output=True, text=True, stdin=subprocess.DEVNULL)
+            say(f"python -m repro_torch.observe.check "
+                f"chiprun_out/observe_snapshot --require train replan "
+                f"--require-health: exit {cli.returncode} "
+                f"{cli.stdout.strip()}")
+            if cli.returncode != 0:
+                raise AssertionError(f"observe: check CLI {cli.stdout} "
+                                     f"{cli.stderr}")
+
+        # (a) a real trace of the live (swapped) step: rank 0's is the one
+        # every rank ingests, so that their decisions agree
+        box = {"state": state}
+
+        def one():
+            box["state"], m = ctl.step_fn(box["state"], data_fn(100))
+            return box["state"], m
+
+        t0 = time.perf_counter()
+        trace = OT.capture_trace(one, log_dir=str(scratch / "trace"),
+                                 steps=1)
+        t_capture = time.perf_counter() - t0
+        state = box.pop("state")
+        if world > 1:
+            obj = [trace.to_json()]
+            dist.broadcast_object_list(obj, src=0)
+            trace = OT.Trace.from_json(obj[0])
+        comm = trace.named(ON.COMM_PREFIX)
+        groups: dict = {}
+        for e in comm:
+            info = ON.parse(e.name)
+            key = (info["tier"], info["kind"], info["label"].split("/")[0],
+                   info["p"])
+            n, dur = groups.get(key, (0, 0.0))
+            groups[key] = (n + 1, dur + e.dur)
+        t_step_trace = OA.step_time(trace)
+        say(f"trace: {len(comm)} lags/comm events; timed "
+            f"{trace.meta['categories']}; step "
+            f"{t_step_trace * 1e3:.3f} ms (the device span of its work), "
+            f"the capture "
+            f"{t_capture:.3f} s (host)")
+        for (tier, kind, label, p), (n, dur) in sorted(groups.items()):
+            say(f"trace: lags/comm/{tier}/{kind}/{label} p={p}: {n} events, "
+                f"{dur * 1e3:.3f} ms in all")
+        if not trace.meta["categories"]["device_comm"]:
+            raise AssertionError(f"observe: no lags/comm range timed on the "
+                                 f"device ({trace.meta['categories']})")
+        if not groups.get(("flat", "allgather", "blocks", world)):
+            raise AssertionError(f"observe: no block gathers in {groups}")
+        report = OA.overlap_report(trace)
+        share = report["comm_s"] / t_step_trace if t_step_trace else 0.0
+        say(f"overlap_report: comm {report['comm_s'] * 1e3:.3f} ms, hidden "
+            f"{report['hidden_s'] * 1e3:.3f} ms, exposed "
+            f"{report['exposed_s'] * 1e3:.3f} ms; the collectives' share "
+            f"of the step {share:.4f}")
+        samples = OA.comm_samples(trace)
+        res["trace"] = {"events": len(comm),
+                        "categories": trace.meta["categories"],
+                        "t_step": t_step_trace, "capture_s": t_capture,
+                        "comm_s": report["comm_s"],
+                        "exposed_s": report["exposed_s"],
+                        "comm_share": share,
+                        "groups": {"/".join(map(str, k)): v
+                                   for k, v in groups.items()}}
+        if samples:
+            alpha, beta = costfit.fit_alpha_beta(samples)
+            say(f"attributed wire over {world} ranks ({len(samples)} "
+                f"samples): alpha {alpha!r} s, beta {beta!r} s/B "
+                f"({1 / beta / 1e9:.2f} GB/s); H100_NVLINK alpha "
+                f"{cm.H100_NVLINK.alpha!r} s, beta {cm.H100_NVLINK.beta!r} "
+                f"s/B ({1 / cm.H100_NVLINK.beta / 1e9:.2f} GB/s)")
+            res["trace"]["alpha_beta"] = [alpha, beta]
+        else:
+            say("no wire samples at world size 1 (attribution drops p <= "
+                "1): the fit falls back to H100_NVLINK")
+        ctl.ingest_trace(ctl._step_count + 1, trace)
+        ev = ctl.maybe_replan(ctl._step_count + 1, trigger="trace")
+        say(f"replan on the real trace: fit {ev.hw_name}, budgets from "
+            f"{ctl.measurement_source}, swapped {ev.swapped}")
+        if world > 1 and ev.hw_name != "attr_wire_fit":
+            raise AssertionError(f"observe: fit {ev.hw_name} from the trace")
+        res["trace_replan"] = dataclasses.asdict(ev)
+        t0 = time.perf_counter()
+        prof = profiler.profile_model(cfg, mesh, seq=seq, global_batch=world,
+                                      iters=1, arch=cfg.name, trace=trace)
+        say(f"profile_model(trace=...): {len(prof.comm_samples)} comm "
+            f"samples ({'the trace' if samples else 'the sweep'}'s), dense "
+            f"step {prof.t_step_dense:.4f} s, lags step "
+            f"{prof.t_step_lags:.4f} s, {time.perf_counter() - t0:.1f} s")
+        if samples and [dataclasses.asdict(x) for x in prof.comm_samples] != [
+                dataclasses.asdict(x)
+                for x in OA.comm_samples(trace, tier="flat")]:
+            raise AssertionError("observe: the profile's comm samples are "
+                                 "not the trace's")
+        res["profile"] = {"comm_samples": len(prof.comm_samples),
+                          "t_step_dense": prof.t_step_dense,
+                          "t_step_lags": prof.t_step_lags}
+        if world > 1:
+            check_replicas(state["params"], "observe after the trace")
+        counts = kernels.launch_counts()
+        say(f"launches in the phase: {counts}")
+        if not counts["ef_select_pack"]:
+            raise AssertionError("observe: ef_select_pack never launched")
+        del state, ctl, sess
+        torch.cuda.empty_cache()
+        return counts, res
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1782,10 +2208,11 @@ def main(argv=None) -> int:
         lstm_totals, lstm_results, lstm_errs = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
             configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
+        observe_totals, observe = observe_phase(dev, cfg, seq, out_dir)
     for part in (paper_errs, dist_errs, lstm_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
-    for part in (paper_totals, dist_totals, lstm_totals):
+    for part in (paper_totals, dist_totals, lstm_totals, observe_totals):
         for k, v in part.items():
             totals[k] += v
 
@@ -1804,7 +2231,8 @@ def main(argv=None) -> int:
          "timings": times, "autotune": autotune, "planned_pack": planned,
          "main": results, "distributed": dist_results,
          "paper": paper_results, "paper_narrow": narrow,
-         "paper_distributed": lstm_results, **kernels_line}, indent=1))
+         "paper_distributed": lstm_results, "observe": observe,
+         **kernels_line}, indent=1))
     print(json.dumps(kernels_line))
     print(card_line())
     print(result_line(torch))
@@ -1882,11 +2310,14 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
             rank=args.rank, plans={},
             configs={"lags_dp/kernel": DIST_CONFIGS["lags_dp/kernel"]},
             per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
+        observe_totals, observe = observe_phase(
+            dev, cfg, seq, out_dir, world=args.ranks, rank=args.rank)
     (out_dir / f"chip_smoke_rank{args.rank}.json").write_text(json.dumps(
         {"card": card_line(), "torch": torch.__version__,
          "world": args.ranks, "rank": args.rank, "seq": seq,
          "launches": totals, "distributed": results,
-         "paper_launches": lstm_totals, "paper_distributed": lstm_results},
+         "paper_launches": lstm_totals, "paper_distributed": lstm_results,
+         "observe_launches": observe_totals, "observe": observe},
         indent=1))
     return 0
 

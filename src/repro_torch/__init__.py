@@ -24,3 +24,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def block_until_ready(out) -> None:
+    """Wait for the device work behind ``out`` (a tree of tensors; work on
+    the host needs no wait)."""
+    from repro_torch import tree
+    for leaf in tree.leaves(out):
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            torch.cuda.synchronize(leaf.device)
+            return

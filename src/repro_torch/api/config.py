@@ -1,9 +1,7 @@
 """``RunConfig`` — the typed knob-set of a training run, a copy of
 ``repro.api.config.RunConfig`` without JAX.
 
-Pure data: construction checks only the values.  The training surface
-raises ``NotImplementedError`` for knobs this slice has not ported
-(:meth:`RunConfig.unported`: ``health_every > 0``).
+Pure data: construction checks only the values.
 """
 from __future__ import annotations
 
@@ -71,6 +69,9 @@ class RunConfig:
     donate: bool = True
     # instrumentation
     measure_delta: bool = False        # Eq. 20 metric, simulation only
+    # > 0: both surfaces compute the convergence-health quantities
+    # (repro_torch.observe.health) every step; Session.run reads them
+    # every health_every steps.  0: no key and no work
     health_every: int = 0
     seed: int = 0                      # stream of key-needing compressors
 
@@ -93,14 +94,6 @@ class RunConfig:
             raise ValueError(
                 "momentum_correction requires pipeline 'off' or 'async1' "
                 "(wave taps compute updates inside backprop)")
-
-    def unported(self) -> list[str]:
-        """The knobs set here that this slice has not ported, each with
-        its ROADMAP.md item."""
-        out = []
-        if self.health_every > 0:
-            out.append("health_every > 0 (ROADMAP.md queue 1 item 12)")
-        return out
 
     def resolved_mode(self, cfg=None) -> str:
         if self.mode is not None:

@@ -23,8 +23,10 @@ Two kinds of measurement feed the fit and plan stages:
 Per-leaf backward times are apportioned from the measured step: total
 backward ≈ 2/3 of the dense step (fwd:bwd FLOPs 1:2 for matmul-dominated
 nets), split across leaves by their analytic backward FLOPs
-(4·d·tokens).  Attributing them from a device trace (``trace=``) needs
-``repro_torch.observe`` (ROADMAP.md queue 1 item 12).
+(4·d·tokens).  A trace (``trace=``: a ``torch.profiler`` capture or
+the fake backend, ``repro_torch.observe``) replaces that split with its
+measured per-leaf backward times, and the collective sweep with its
+per-bucket collective samples, as the reference's ``trace=`` does.
 """
 from __future__ import annotations
 
@@ -277,12 +279,15 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
     """Measured profile of one (cfg × input shape) on ``mesh``: micro-steps
     of the real train step in dense mode (compute calibration) and the
     config's LAGS mode, plus the collective sweep.  Every rank of the
-    mesh calls it (the steps and collectives span them all)."""
-    if trace is not None:
-        raise NotImplementedError(
-            "profile_model(trace=...): per-leaf backward times attributed "
-            "from a device trace need repro_torch.observe, not ported yet "
-            "(ROADMAP.md queue 1 item 12)")
+    mesh calls it (the steps and collectives span them all).
+
+    ``trace``: optional ``repro_torch.observe.Trace`` (a real capture or
+    the deterministic fake backend).  When given, its per-leaf backward
+    events replace the FLOPs-share apportionment (partial coverage
+    splits the *remainder* by FLOPs share) and its per-bucket collective
+    events replace the micro-benchmark sweep — the sweep only runs when
+    the trace carried no usable collective samples (every rank must then
+    pass a trace that decides alike, since the sweep spans them all)."""
     from repro_torch.data import synthetic
     from repro_torch.launch import mesh as M
     manual = M.data_axis_names(mesh)
@@ -301,7 +306,22 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
     tokens_per_worker = global_batch * seq / n_w
     leaves = apportion_backward(backprop_leaves(cfg, tokens_per_worker),
                                 BWD_FRACTION * t_dense)
-    comm = tuple(time_collectives(mesh, manual, comm_sizes))
+    comm: tuple[CommSample, ...] = ()
+    if trace is not None:
+        from repro_torch.observe import attribution as A
+        leaves = A.attribute_leaves(leaves, trace,
+                                    t_backward_total=BWD_FRACTION * t_dense)
+        # one profile fits ONE wire: prefer the flat data-parallel tier;
+        # accept a lone other tier; a multi-tier trace with no flat tier
+        # is ambiguous (two wires -> meaningless joint fit), so fall back
+        # to the micro-benchmark sweep for the comm side
+        tiers = A.comm_tiers(trace)
+        if "flat" in tiers:
+            comm = tuple(A.comm_samples(trace, tier="flat"))
+        elif len(tiers) == 1:
+            comm = tuple(A.comm_samples(trace, tier=tiers[0]))
+    if not comm:
+        comm = tuple(time_collectives(mesh, manual, comm_sizes))
     return ModelProfile(
         arch=arch or cfg.name, shape=shape_name, n_workers=n_w,
         mesh_shape=tuple(int(s) for s in mesh.mesh.shape),

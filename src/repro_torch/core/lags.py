@@ -231,6 +231,18 @@ def _done(means, state) -> Launched:
     return Launched((), lambda: (means, state))
 
 
+def _comm_scope(tier: str, kind: str, label: str, nbytes: float, p: int):
+    """A ``record_function`` range carrying the ``repro_torch.observe.names``
+    grammar (the reference's ``_comm_scope``), so a ``torch.profiler``
+    trace attributes each collective per leaf and tier.  Around an
+    ``async_op=True`` collective the host range covers its enqueue; on
+    CUDA the range's device span covers the collective itself."""
+    from repro_torch.observe import names as _obs_names
+    from repro_torch.observe.trace import device_annotation
+    return device_annotation(
+        _obs_names.comm_name(tier, kind, label, nbytes=nbytes, p=p))
+
+
 def _all_gather_start(x: torch.Tensor, axes: Axes):
     """Start gathering every worker's ``x`` (at least 1-D, contiguous) in
     rank order; returns ((P, ...) output, work).  Gathers into the
@@ -243,25 +255,32 @@ def _all_gather_start(x: torch.Tensor, axes: Axes):
     return out.reshape((axes.size,) + tuple(x.shape)), work
 
 
-def _gather_picks_start(vals, idx, axes: Axes):
+def _gather_picks_start(vals, idx, axes: Axes, *, tier: str = "flat",
+                        label: str = "leaf"):
     """Start the all-gathers of this worker's sparse picks (values and
-    indices, the reference's ``_sparse_mean_over``).  Returns (works,
-    the gathered inputs to keep alive, every worker's values (P, ...),
-    every worker's indices (P, ...))."""
+    indices, the reference's ``_sparse_mean_over``), both under one
+    ``lags/comm/<tier>/allgather/<label>`` range of 8 bytes per pick.
+    Returns (works, the gathered inputs to keep alive, every worker's
+    values (P, ...), every worker's indices (P, ...))."""
     vals, idx = vals.contiguous(), idx.contiguous()
-    vals_all, w_vals = _all_gather_start(vals, axes)
-    idx_all, w_idx = _all_gather_start(idx, axes)
+    with _comm_scope(tier, "allgather", label, 8.0 * vals.numel(),
+                     axes.size):
+        vals_all, w_vals = _all_gather_start(vals, axes)
+        idx_all, w_idx = _all_gather_start(idx, axes)
     return [w_vals, w_idx], (vals, idx), vals_all, idx_all
 
 
-def _sparse_mean_start(vals, idx, d: int, axes: Axes | None):
+def _sparse_mean_start(vals, idx, d: int, axes: Axes | None, *,
+                       tier: str = "flat", label: str = "leaf"):
     """Start the mean of one worker's sparse picks (vals, idx: (k,)) over
-    ``axes`` (the reference's ``_sparse_mean_over``): returns (works,
-    kept inputs, finish -> the dense (d,) mean).  ``axes=None`` is the
-    single worker: its picks decompressed."""
+    ``axes`` (the reference's ``_sparse_mean_over``, ``tier``/``label``
+    naming its trace range): returns (works, kept inputs, finish -> the
+    dense (d,) mean).  ``axes=None`` is the single worker: its picks
+    decompressed."""
     if axes is None:
         return [], (), lambda: C.decompress(vals, idx, d)
-    works, keep, vals_all, idx_all = _gather_picks_start(vals, idx, axes)
+    works, keep, vals_all, idx_all = _gather_picks_start(
+        vals, idx, axes, tier=tier, label=label)
     p = axes.size
     return works, keep, lambda: _gathered_scatter_mean(vals_all, idx_all,
                                                        d, p)
@@ -299,10 +318,14 @@ class DenseExchange:
         # NCCL takes contiguous buffers only; a gradient may come strided
         sums = [u.clone(memory_format=torch.contiguous_format)
                 for u in updates]
-        works = [dist.all_reduce(s, op=dist.ReduceOp.SUM,
-                                 group=axis_names.group, async_op=True)
-                 for s in sums]
         p = axis_names.size
+        works = []
+        for i, s in zip(_wave_ids(wave), sums):
+            with _comm_scope("flat", "allreduce", f"l{i}", 4.0 * s.numel(),
+                             p):
+                works.append(dist.all_reduce(s, op=dist.ReduceOp.SUM,
+                                             group=axis_names.group,
+                                             async_op=True))
         return Launched(works, lambda: ([s.div_(p) for s in sums], state))
 
     def exchange_bucket(self, wave, updates, state,
@@ -451,7 +474,7 @@ class SLGSExchange:
             mean = _gathered_scatter_mean(vals, idx, d, w)
             return _done(_split(mean, mean_shapes, dtypes), resids)
         works, keep, mean_of = _sparse_mean_start(vals[0], idx[0], d,
-                                                  axis_names)
+                                                  axis_names, label="packed")
         return Launched(works, lambda: (
             _split(mean_of(), mean_shapes, dtypes), resids), keep)
 
@@ -594,7 +617,7 @@ class BlockLAGSExchange:
             return [], (), resid, lambda: mean
         # layer-wise sparse all-gather: 2·k_b scalars per block
         works, keep, vals_all, local_all = _gather_picks_start(
-            vals[0], local[0], axis_names)
+            vals[0], local[0], axis_names, label="blocks")
         p = axis_names.size
         return works, keep, resid, lambda: mean_of(vals_all, local_all, p)
 
@@ -681,7 +704,10 @@ class HierLAGSExchange:
         for i, u, e in zip(_wave_ids(wave), updates, state):
             if inner is not None:     # the reference's _psum_mean
                 s = u.clone(memory_format=torch.contiguous_format)
-                dist.all_reduce(s, op=dist.ReduceOp.SUM, group=inner.group)
+                with _comm_scope("inner", "allreduce", f"l{i}",
+                                 4.0 * s.numel(), inner.size):
+                    dist.all_reduce(s, op=dist.ReduceOp.SUM,
+                                    group=inner.group)
                 u = s.div_(inner.size)
             # the dense inner mean is the same on every worker of the
             # pod: the stream folds only the pod's coordinate
@@ -690,7 +716,8 @@ class HierLAGSExchange:
             vals, idx, resid = local_select_ef(u[None], e[None], flat_k[i],
                                                comp, keys=keys, **kw)
             w, kept, fin = _sparse_mean_start(vals[0], idx[0], u.numel(),
-                                              outer)
+                                              outer, tier="outer",
+                                              label=f"l{i}")
             works += w
             keep.append(kept)
             resids.append(resid[0])
@@ -836,7 +863,8 @@ class SparseHierLAGSExchange:
                                                   ks_in[i], icomp, keys=keys,
                                                   **ikw)
             w, kept, m_of = _sparse_mean_start(vals[0], idx[0], u.numel(),
-                                               inner)
+                                               inner, tier="inner",
+                                               label=f"l{i}")
             works += w
             keep.append(kept)
             legs_in.append((i, u.shape, u.dtype, e_out, resid_in[0], m_of))
@@ -855,7 +883,8 @@ class SparseHierLAGSExchange:
                     m, e_out[None], ks_out[i], comp, keys=keys, **kw)
                 del m
                 w, kept, mean_of = _sparse_mean_start(
-                    vals2[0], idx2[0], e_out.numel(), outer)
+                    vals2[0], idx2[0], e_out.numel(), outer, tier="outer",
+                    label=f"l{i}")
                 works2 += w
                 keep2.append(kept)
                 outs.append((mean_of, shape, dtype, resid_in, resid_out[0]))

@@ -55,7 +55,20 @@ simulation surface's path).  Each exchange gets the step's stream
 ``run.key_at(step)`` (under ``async1`` the previous step's, whose
 updates it exchanges), as the reference's.
 
-Not ported yet: ``health_every > 0`` (ROADMAP.md queue 1 item 12).
+``run.health_every > 0`` adds the convergence-health quantities of
+``repro_torch.observe.health`` to every step's metrics, as the
+reference's step computes them (modes with per-leaf budgets: not
+``dense`` or ``slgs``): ``health_delta`` per leaf and
+``health_delta_max`` (for ``lags_hier2`` the outer tier's), the EF
+energy retention (``health_ef_energy_flat``, or ``_inner``/``_outer``;
+under ``wave``, whose hooks consume the updates inside backprop, the
+aggregate form and no inner tier) and under ``async1``
+``health_staleness``.  The delta's numerator ``||sum_w e_new||^2`` costs
+one dense all-reduce per leaf over the workers (cross terms are not
+recoverable from per-worker scalars), each under a
+``lags/comm/<tier>/allreduce/health/l<i>`` range; the sums of squares
+are one all-reduce of L floats each.  ``health_every == 0`` adds no key
+and no work.
 """
 from __future__ import annotations
 
@@ -70,6 +83,7 @@ from repro_torch.api.config import RunConfig, canonical_mode
 from repro_torch.core import lags
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
+from repro_torch.observe import health as H
 from repro_torch.pipeline import buckets as WB
 from repro_torch.pipeline import step as WS
 from repro_torch.pipeline import waves as WW
@@ -173,15 +187,15 @@ def build_train_step(cfg, mesh, run: RunConfig):
     global batch ({"tokens", "labels"} (B, S) on this rank's device, the
     same on every rank); ``metrics = {"loss"}``, the mean over ranks.
     ``meta`` carries ``mode``, ``n_workers``, ``manual``,
-    ``worker_axes``, ``ks``, ``schedule``, ``run``, ``waves`` (the ``WaveSchedule`` of a
-    pipelined run, else None), ``exchange`` and ``axes`` (the exchange
-    the step runs and the ``lags.Axes`` it runs over, None for none).
+    ``worker_axes``, ``ks``, ``schedule``, ``run``, ``waves`` (the
+    ``WaveSchedule`` of a pipelined run, else None), ``exchange`` and
+    ``axes`` (the exchange the step runs and the ``lags.Axes`` it runs
+    over, None for none).
+    With ``run.health_every > 0`` the metrics carry the health
+    quantities (module docstring).
     ``step_fn(state, batch, marks=[])`` under ``pipeline="wave"`` fills
     the list with each wave's launch marks (``pipeline.step.launch_leads``
     reads them); without it nothing is recorded."""
-    unported = run.unported()
-    if unported:
-        raise NotImplementedError(f"not ported yet: {unported}")
     state_specs, meta = make_state_specs(
         cfg, mesh, method=run.mode, pipeline=run.pipeline,
         momentum_correction=run.momentum_correction)
@@ -231,6 +245,66 @@ def build_train_step(cfg, mesh, run: RunConfig):
                 target_bytes=run.wave_target_bytes, pipeline=pipeline)
     meta["waves"] = waves
 
+    # online convergence health (repro_torch.observe.health): zero work
+    # when health_every == 0; needs per-leaf budgets, so slgs (whole-model
+    # k_total) and dense are skipped.  Its sums run over the exchange's
+    # worker axes; lags_hier2's delta over the pods (its outer residual
+    # is the same on every rank of a pod)
+    health = (run.health_every > 0 and mode != "dense"
+              and meta["ks"] is not None)
+    h_ks = tree.leaves(meta["ks"]) if health else ()
+    h_axes = axes
+    if ef_tiers:
+        h_axes = (axes.sub((exch.outer_axis,))
+                  if health and axes is not None else None)
+    h_tier = ("flat" if strat.axes == "data_manual" and not ef_tiers
+              else "outer")
+
+    def wsum(x):
+        """``x`` summed over the workers (in place)."""
+        if axes is not None:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axes.group)
+        return x
+
+    def health_metrics(flat_mean, new_ef, acc_sq, stale) -> dict:
+        """The health metrics of one step: ``acc_sq`` the per-leaf
+        ``||e + u||^2`` of this rank (None when the wave hooks consumed
+        the updates), ``stale`` this rank's (||u_t||^2, ||u_t -
+        u_{t-1}||^2) under async1, else None."""
+        resid = new_ef["outer"] if ef_tiers else new_ef
+        n = h_axes.size if h_axes is not None else 1
+        deltas, energies = [], []
+        for i, (e, m) in enumerate(zip(resid, flat_mean)):
+            e_sum = e
+            if h_axes is not None:
+                e_sum = e.clone(memory_format=torch.contiguous_format)
+                with lags._comm_scope(h_tier, "allreduce", f"health/l{i}",
+                                      4.0 * e_sum.numel(), n):
+                    dist.all_reduce(e_sum, op=dist.ReduceOp.SUM,
+                                    group=h_axes.group)
+            d, en = H.delta_energy(e_sum, m, int(h_ks[i]), n)
+            deltas.append(d)
+            energies.append(en)
+            del e_sum
+        delta = torch.stack(deltas)
+        out = {"health_delta": delta, "health_delta_max": delta.max()}
+        if ef_tiers:
+            out["health_ef_energy_outer"] = torch.stack(energies)
+            if acc_sq is not None:
+                out["health_ef_energy_inner"] = H.safe_ratio(
+                    wsum(H.sq_leaves(new_ef["inner"])), wsum(acc_sq))
+        elif acc_sq is None:
+            # the wave taps consumed the updates: the aggregate form
+            out["health_ef_energy_flat"] = torch.stack(energies)
+        else:
+            out["health_ef_energy_flat"] = H.safe_ratio(
+                wsum(H.sq_leaves(resid)), wsum(acc_sq))
+        if stale is not None:
+            out["health_staleness"] = H.staleness_gap(
+                wsum(torch.stack([sum(stale[0])])),
+                wsum(torch.stack([sum(stale[1])])))[0]
+        return out
+
     def loss_fn(params, batch):
         return T.loss_fn(params, cfg, batch, chunk=run.chunk,
                          loss_chunk=run.loss_chunk)
@@ -261,16 +335,25 @@ def build_train_step(cfg, mesh, run: RunConfig):
                     for t, v in flat.items()}
         return tree.unflatten(treedef, [e[None] for e in flat])
 
-    def update_of(g, lr, mom):
+    def update_of(g, lr, mom, stale=None):
         """``u = lr·f32(g)``, the pod's mean of it under pod_auto, and
         the velocity ``mom = mc·mom + u`` (in place) under mc.  ``u`` is
         contiguous, as NCCL's buffers must be (a gradient may be
-        strided: the sLSTM's on the card)."""
+        strided: the sLSTM's on the card).  ``stale`` (async1 health
+        under mc, where the pending update IS the old velocity): gets
+        ``||mom_new - mom_old||^2`` appended before the old one is
+        overwritten."""
         u = g.float().contiguous().mul_(lr)
         if inner is not None:
             dist.all_reduce(u, op=dist.ReduceOp.SUM, group=inner.group)
             u.div_(inner.size)
-        return u if mom is None else mom[0].mul_(mc).add_(u)
+        if mom is None:
+            return u
+        if stale is None:
+            return mom[0].mul_(mc).add_(u)
+        new = mom[0] * mc + u      # the same two roundings as in place
+        stale.append(H.sq_norm(new - mom[0]))
+        return mom[0].copy_(new)
 
     def step(state, batch, *, marks: list | None = None):
         params = state["params"]
@@ -281,6 +364,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
         ef_local = local(state["ef"])
         key = run.key_at(state["step"])
         out = {k: v for k, v in state.items() if k not in ("ef", "step")}
+        acc_sq = stale = None
         if pipeline == "wave" and inner is None:
             # each wave's exchange launches inside backprop (hooks)
             (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
@@ -300,7 +384,12 @@ def build_train_step(cfg, mesh, run: RunConfig):
                     launched = WS.launch_waves(
                         step_exch, waves.waves, pend, ef_local, axes,
                         key=run.key_at(state["step"] - 1))
-                del pend
+                    if health:     # before mc overwrites the pending
+                        acc_sq = H.acc_sq_leaves(
+                            ef_local["inner"] if ef_tiers else ef_local, pend)
+                        stale = ([], [])
+                if stale is None or mc > 0.0:
+                    del pend
             loss, _aux = loss_fn(params, local_batch)
             grads = list(torch.autograd.grad(loss, leaves))
             moms = (tree.leaves(state["extra"]["mom"]) if mc > 0.0
@@ -308,8 +397,19 @@ def build_train_step(cfg, mesh, run: RunConfig):
             with torch.no_grad():
                 # DGC momentum correction: the velocity accumulates
                 # BEFORE sparsification, per worker (in place)
-                updates = [update_of(g, lr, m) for g, m in zip(grads, moms)]
+                diffs = stale[1] if stale is not None and mc > 0.0 else None
+                updates = [update_of(g, lr, m, diffs)
+                           for g, m in zip(grads, moms)]
                 del grads
+                if stale is not None:
+                    stale[0].extend(H.sq_norm(u) for u in updates)
+                    if mc == 0.0:
+                        stale[1].extend(H.sq_norm(u - q)
+                                        for u, q in zip(updates, pend))
+                        del pend
+                elif health:
+                    acc_sq = H.acc_sq_leaves(
+                        ef_local["inner"] if ef_tiers else ef_local, updates)
                 if pipeline == "async1":
                     flat_mean, new_ef = WS.finish_waves(launched, waves.waves,
                                                         ef_local)
@@ -330,7 +430,10 @@ def build_train_step(cfg, mesh, run: RunConfig):
                         key=key)
                 del updates
         del ef_local
+        metrics = {}
         with torch.no_grad():
+            if health:
+                metrics = health_metrics(flat_mean, new_ef, acc_sq, stale)
             for p, d in zip(leaves, flat_mean):
                 p.copy_(p.float() - d)
             del flat_mean
@@ -339,7 +442,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
             loss = loss / n_ranks
         out["ef"] = stacked(new_ef, treedef)
         out["step"] = state["step"] + 1
-        return out, {"loss": loss}
+        return out, {"loss": loss} | metrics
 
     return step, state_specs, meta
 

@@ -13,19 +13,20 @@ Modules:
   * ``waves``   — planning: geometry-only ``default_waves``,
     measurement-driven ``plan_waves`` and ``predict_pipeline``;
   * ``step``    — execution: in-backprop ``wave_backward`` hooks and
-    post-backward ``waved_exchange`` regrouping.
-
-The reference's ``overlap_report`` / ``emit_overlap_metrics`` read
-traces through ``observe.trace``/``names``, not ported yet (ROADMAP.md
-queue 1 item 12).
+    post-backward ``waved_exchange`` regrouping;
+  * ``overlap`` — achieved-overlap attribution from traces and the
+    ``lags/overlap/...`` gauge family.
 """
 from __future__ import annotations
 
 from repro_torch.pipeline.buckets import Wave, WaveSchedule, bind
+from repro_torch.pipeline.overlap import emit_metrics as emit_overlap_metrics
+from repro_torch.pipeline.overlap import overlap_report
 from repro_torch.pipeline.step import wave_backward, waved_exchange
 from repro_torch.pipeline.waves import (PIPELINE_MODES, default_waves,
                                         plan_waves, predict_pipeline)
 
 __all__ = ["PIPELINE_MODES", "Wave", "WaveSchedule", "bind",
-           "default_waves", "plan_waves", "predict_pipeline",
-           "wave_backward", "waved_exchange"]
+           "default_waves", "emit_overlap_metrics", "overlap_report",
+           "plan_waves", "predict_pipeline", "wave_backward",
+           "waved_exchange"]

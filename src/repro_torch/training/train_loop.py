@@ -28,6 +28,15 @@ adds the Eq. 20 metric of every leaf on ``acc = e + u`` before the
 exchange (``delta_max``, ``delta_mean``, ``delta_per_leaf`` in flatten
 order), its RandK draws from ``Key(17)`` with the step and the leaf
 folded in, as the reference's.
+
+``run.health_every > 0`` adds the convergence-health quantities of
+``repro_torch.observe.health`` to every step's metrics, from what the
+exchange returned (modes with per-leaf budgets: not ``dense`` or
+``slgs``): ``health_delta`` (the online Eq. 20 delta per leaf, in
+flatten order, ``health_leaf_names``), ``health_delta_max`` and
+``health_ef_energy_flat`` — for ``lags_hier2`` the delta of the outer
+tier and ``health_ef_energy_inner``/``_outer`` — as the reference's.
+``health_every == 0`` adds no key and no work.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.api import registry as R
 from repro_torch.api.config import RunConfig
 from repro_torch.core import assumption
 from repro_torch.core import compressors as C
+from repro_torch.observe import health as H
 from repro_torch.optim import optimizers as opt
 
 
@@ -77,9 +87,6 @@ class SimTrainer:
         if not isinstance(run, RunConfig):
             raise TypeError(f"SimTrainer takes a repro_torch.api.RunConfig, "
                             f"got {type(run).__name__}")
-        unported = run.unported()
-        if unported:
-            raise NotImplementedError(f"not ported yet: {unported}")
         self.device = resolve_device(device)
         leaves = tree.leaves(params)
         for p in leaves:
@@ -93,6 +100,14 @@ class SimTrainer:
         spec = _sim_spec(run, params, n_workers)
         self.exchange = R.build_exchange(spec)
         self.optimizer = opt.SGD(momentum=run.momentum)
+        # online convergence health: needs per-leaf budgets, so slgs
+        # (k_total over the concatenation) and dense are skipped
+        self._health = (run.health_every > 0
+                        and getattr(self.exchange, "ks", None) is not None)
+        self._tiered = bool(R.get_exchange(self.mode).ef_tiers)
+        # label payload for the lags/health/... grammar, in the same
+        # flatten order as the stacked health_delta metric
+        self.health_leaf_names = H.leaf_names(params)
         per_worker_like = tree.map(
             lambda p: Spec((n_workers,) + tuple(p.shape), torch.float32,
                            p.device), params)
@@ -122,6 +137,39 @@ class SimTrainer:
         flat = torch.stack(deltas)
         return {"delta_max": flat.max(), "delta_mean": flat.mean(),
                 "delta_per_leaf": flat}
+
+    def _health_metrics(self, updates, ef, new_ef, mean) -> dict:
+        """The health quantities of one step from the exchange's
+        (mean, new residual) and its inputs (flat ``updates``, the old
+        residual ``ef``), one leaf's aggregate alive at a time."""
+        ex, p = self.exchange, self.n_workers
+        ks = tree.leaves(ex.ks)
+        means = tree.leaves(mean)
+        if self._tiered:
+            # lags_hier2: delta gates the slow OUTER wire.  The outer
+            # residual is pod-replicated, so the leading-P sum
+            # over-counts by n_inner; p_eff = pods
+            n_in = max(1, int(getattr(ex, "n_inner", 1)))
+            resid = tree.leaves(new_ef["outer"])
+            out = {"health_ef_energy_inner": H.safe_ratio(
+                H.sq_leaves(new_ef["inner"]),
+                H.acc_sq_leaves(tree.leaves(ef["inner"]), updates))}
+        else:
+            n_in, resid = 1, tree.leaves(new_ef)
+            out = {"health_ef_energy_flat": H.safe_ratio(
+                H.sq_leaves(resid),
+                H.acc_sq_leaves(tree.leaves(ef), updates))}
+        deltas, energies = [], []
+        for e, m, k in zip(resid, means, ks):
+            e_sum = e.sum(0) / n_in
+            d, en = H.delta_energy(e_sum, m, int(k), p // n_in)
+            deltas.append(d)
+            energies.append(en)
+            del e_sum
+        if self._tiered:
+            out["health_ef_energy_outer"] = torch.stack(energies)
+        delta = torch.stack(deltas)
+        return out | {"health_delta": delta, "health_delta_max": delta.max()}
 
     def step(self, batch) -> dict:
         """One training step on ``batch`` (leaves (P, ...)); returns the
@@ -163,6 +211,9 @@ class SimTrainer:
             mean_update, new_ef = self.exchange.exchange(
                 tree.unflatten(treedef, updates), state["ef"], None,
                 key=self.run_config.key_at(state["step"]))
+            if self._health:
+                metrics.update(self._health_metrics(
+                    updates, state["ef"], new_ef, mean_update))
             del updates
             deltas, new_opt = self.optimizer.update(mean_update,
                                                     state["opt"], params,

@@ -513,8 +513,43 @@ def test_error_feedback_matches_reference():
 
 
 def test_profile_model_trace_raises_naming_item_12():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        TPR.profile_model(tcfg.smoke_config(), None, trace=object())
+    """``profile_model(trace=...)`` is ported (it raised before the
+    observe plane): on a gloo world of one, a fake trace's per-leaf
+    backward events become the profile's budgets — the leaves it misses
+    split the rest of the measured backward by FLOPs share — and its flat
+    collective samples replace the sweep, as the reference's."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro.observe import attribution as JOA
+    from repro.observe import trace as JOT
+    from repro_torch.launch import mesh as M
+    from repro_torch.observe import trace as TOT
+    cfg = tcfg.smoke_config()
+    leaves = TPR.backprop_leaves(cfg, 2 * 16.0)    # the profile's tokens
+    measured = [dataclasses.replace(l, t_backward=1e-3 * (i + 1))
+                for i, l in enumerate(leaves[:-2])]
+    hw = TCM.Hardware(name="wire", alpha=2e-5, beta=1e-10, flops=1e13)
+    trace = TOT.FakeTraceBackend(measured, {"flat": hw}, {"flat": 8},
+                                 t_forward=5e-3).capture(0)
+    with tempfile.NamedTemporaryFile() as f:
+        M.init_process_group(f"file://{f.name}", 1, 0, device="cpu")
+        try:
+            prof = TPR.profile_model(cfg, M.make_mesh(device="cpu"), seq=16,
+                                     global_batch=2, iters=1, trace=trace)
+        finally:
+            dist.destroy_process_group()
+    jtrace = JOT.Trace.from_json(trace.to_json())
+    want = JOA.attribute_leaves(
+        [JPR.LeafSample(**dataclasses.asdict(l)) for l in leaves], jtrace,
+        t_backward_total=TPR.BWD_FRACTION * prof.t_step_dense)
+    assert [dataclasses.asdict(l) for l in prof.leaves] == \
+        [dataclasses.asdict(l) for l in want]
+    assert [l.t_backward for l in prof.leaves[:-2]] == \
+        [l.t_backward for l in measured]
+    assert [dataclasses.asdict(s) for s in prof.comm_samples] == [
+        dataclasses.asdict(s) for s in JOA.comm_samples(jtrace, tier="flat")]
+    assert {s.p for s in prof.comm_samples} == {8}
 
 
 def test_autotune_and_runtime_exports_match_reference():
@@ -522,7 +557,10 @@ def test_autotune_and_runtime_exports_match_reference():
     import repro_torch.autotune as TAT
     import repro_torch.runtime as TRT
     assert TAT.__all__ == JAT.__all__
-    assert TRT.__all__ == ["plan_hier_schedule", "predict_hier_iteration",
-                           "tier_hardware"]
+    import repro.runtime as JRT
+    assert TRT.__all__ == ["ReplanController", "RuntimeConfig", "SwapEvent",
+                           "plan_hier_schedule", "predict_hier_iteration",
+                           "tier_hardware", "StepSample", "Telemetry"]
+    assert set(JRT.__all__) <= set(TRT.__all__)
     assert TS.SCHEDULE_VERSION == JS.SCHEDULE_VERSION
     assert TS.HIER_MODES == JS.HIER_MODES

@@ -248,11 +248,16 @@ def test_plan_waves_and_the_hierarchy_raise_naming_roadmap():
 
 
 def test_package_exports_match_reference_less_overlap():
+    """Every export of ``repro.pipeline``, the overlap attribution
+    (``overlap_report``, ``emit_overlap_metrics``) included since the
+    observe plane was ported."""
     import repro.pipeline as JP
-    assert TP.__all__ == sorted(set(JP.__all__) - {
-        "overlap_report", "emit_overlap_metrics"})
+    from repro_torch.pipeline import overlap as TPO
+    assert TP.__all__ == sorted(JP.__all__)
     for name in TP.__all__:
         assert getattr(TP, name) is not None
+    assert TP.overlap_report is TPO.overlap_report
+    assert TP.emit_overlap_metrics is TPO.emit_metrics
 
 
 def test_registry_records_match_reference():

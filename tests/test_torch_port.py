@@ -74,8 +74,8 @@ def test_trainer_refuses_params_on_another_device():
                               api.RunConfig(mode="dense"), 2)
 
 
-# each of these knobs but health_every is ported now: beside
-# health_every > 0 the run still raises, naming item 12 and nothing else
+# each of these knobs is ported, health_every > 0 too: beside each of
+# them nothing refuses any more; a malformed schedule fails on its own
 @pytest.mark.parametrize("knob", [
     {"measure_delta": True}, {"health_every": 5},
     {"mode": "lags_hier", "compressor": "randk"},
@@ -86,24 +86,49 @@ def test_unported_knobs_raise_naming_roadmap(knob):
     cfg = tinyllama_1_1b.smoke_config()
     module = TT.Transformer(cfg, device="cpu")
     run = api.RunConfig(**({"mode": "lags_dp", "health_every": 5} | knob))
-    assert run.unported() == ["health_every > 0 (ROADMAP.md queue 1 "
-                              "item 12)"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        api.Session(cfg, run, device="cpu").simulator(
+    assert not hasattr(run, "unported")
+
+    def simulator():
+        return api.Session(cfg, run, device="cpu").simulator(
             lambda p, b: TT.loss_fn(p, cfg, b), module.params, 2)
+    if "schedule" in knob:
+        with pytest.raises(AttributeError, match="ks_tree"):
+            simulator()
+        return
+    trainer = simulator()
+    assert trainer._health    # every mode here has per-leaf budgets
 
 
 @pytest.mark.parametrize("knob", [
     {"measure_delta": True}, {"health_every": 5}, {"schedule": object()}])
 def test_distributed_step_raises_for_unported_knobs(knob):
-    """The distributed step refuses what it has not ported
-    (health_every > 0) before it touches the mesh; the other knobs are
-    ported and do not add to the refusal."""
+    """The distributed step refuses nothing it has ported: with
+    health_every > 0 it builds on a gloo world of one and its metrics
+    carry the health quantities; a malformed schedule fails on its own
+    (it has no ``ks_tree``)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    cfg = tinyllama_1_1b.smoke_config()
     run = api.RunConfig(mode="lags_dp", **({"health_every": 5} | knob))
-    with pytest.raises(NotImplementedError, match=(
-            r"not ported yet: \['health_every > 0 \(ROADMAP\.md queue 1 "
-            r"item 12\)'\]$")):
-        api.build_train_step(tinyllama_1_1b.smoke_config(), None, run)
+    with tempfile.NamedTemporaryFile() as f:
+        M.init_process_group(f"file://{f.name}", 1, 0, device="cpu")
+        try:
+            mesh = M.make_mesh(device="cpu")
+            if "schedule" in knob:
+                with pytest.raises(AttributeError, match="ks_tree"):
+                    api.build_train_step(cfg, mesh, run)
+                return
+            sess = api.Session(cfg, run, mesh=mesh)
+            state, _ = sess.init_state()
+            batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=0).batch(
+                0, 2, 8, device="cpu")
+            _, metrics = sess.step_fn(state, batch)
+        finally:
+            dist.destroy_process_group()
+    assert {"loss", "health_delta", "health_delta_max",
+            "health_ef_energy_flat"} == set(metrics)
 
 
 def test_run_config_rejects_wave_with_momentum_correction():
