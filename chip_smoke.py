@@ -121,7 +121,34 @@
    ranges and durations, the step's, ``overlap_report`` (the
    collectives' share of the step), ``ReplanController.ingest_trace``
    and a re-plan on it, ``profile_model(trace=...)``.
-7. Print the kernels' JSON line, the card line and the result line.
+6c. The weight stream and the serving path (``stream_phase``), in the
+   same NCCL group: ``Session.run`` of 8 full-width TinyLlama-1.1B
+   ``lags_dp`` + kernel steps publishing through a
+   ``StreamPublisher(every=2, compressor="topk_block_kernel")`` into the
+   git-ignored ``.stream_scratch/`` (deleted at the end), then a flush:
+   the per-leaf plan (key, d, k, k_b, kind), each packet's bytes against
+   ``full_bytes`` and its encode time; every ``block_topk`` launch of
+   the first delta held bitwise to its plain version, and that delta
+   encoded again under ``topk_hier_ef_kernel`` with every
+   ``ef_block_candidates`` and ``ef_select_pack`` launch held the same
+   way (a check the publisher never runs: its launches are kept apart,
+   as ``stream_check``).  A cold ``ServeSession`` guarded by a ``RolloutGuard`` (held-out
+   NLL) applies every packet file; after the flush its parameters must
+   equal the trained ones bit for bit.  Two requests (4 prompts of 128
+   tokens, 32 generated) from the streamed weights print their
+   ``RequestRecord`` (prefill s, decode tok/s, version, cache regime,
+   step-cache miss then hit); a dropped version must be refused and
+   ``resync`` recover; the phase's peak device memory.  Outside the
+   counted window: ``block_topk`` timed at the stream's per-block budget
+   on the largest leaf's first-delta accumulator beside its byte bound
+   and ``torch.topk``, and the prefill → ``pad_states_for_decode`` →
+   decode logits held to a token-by-token replay (``HANDOFF_RTOL``) on
+   TinyLlama at full width (bf16, and the same weights in f32), gemma3's
+   smoke config (ring and local/global caches) and the paper LSTM at
+   full width (sLSTM state).
+7. Print the kernels' JSON line (each kernel's launches in every phase
+   under ``phase_launches``, the re-encode check's beside them and not in
+   ``launches``), the card line and the result line.
 
     python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
 
@@ -1232,13 +1259,32 @@ def device_ms(fn, n: int = 20) -> float:
     return us / n / 1e3
 
 
+def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host time per call of a launch-bound ``fn`` (µs): the least, over
+    ``repeats`` runs of ``calls`` back-to-back calls ended by a
+    synchronize, of the run's time over ``calls`` (the least run is the
+    one the host's other tenants disturbed least)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best / calls * 1e6
+
+
 def narrow_timings(dev) -> list:
     """``ef_select_pack`` at the paper CNN's one-row leaves (d <= 4096,
-    ratio 16, P = 8 rows each): kernel, plain version and ``torch.topk``
-    on |acc| (CUDA events over back-to-back calls: launch-bound, so the
-    host's time), the kernel's and ``torch.topk``'s device time alone
-    (``device_ms``), beside the byte bound; outputs bitwise to the plain
-    version."""
+    ratio 16, P = 8 rows each, lr a Python float as the exchanges pass
+    it): kernel, plain version and ``torch.topk`` on |acc| (CUDA events
+    over back-to-back calls: launch-bound, so the host's time), the host
+    time per call (``host_us``), the kernel's and ``torch.topk``'s device
+    time alone (``device_ms``), beside the byte bound; outputs bitwise to
+    the plain version."""
     import torch
     from repro_torch import tree
     from repro_torch.configs import paper_cnn_cifar
@@ -1248,7 +1294,7 @@ def narrow_timings(dev) -> list:
         cnn.abstract_params(paper_cnn_cifar.CONFIG)) if x.numel() <= 4096})
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    lr = torch.ones((), device=dev)
+    lr = 1.0          # as the exchanges pass it (a Python float)
     out = []
     for bs in sizes:
         k = max(1, round(bs / CNN_RATIO))
@@ -1263,6 +1309,9 @@ def narrow_timings(dev) -> list:
         dev_ms = device_ms(
             lambda: ef_sparsify.ef_select_pack(g, e, lr, None, k))
         lib_dev_ms = device_ms(lambda: torch.topk(mag, k, dim=1))
+        call_us = host_us(lambda: ef_sparsify.ef_select_pack(g, e, lr, None,
+                                                             k))
+        lib_call_us = host_us(lambda: torch.topk(mag, k, dim=1))
         assert_bitwise(f"narrow ef_select_pack {CNN_WORKERS}x{bs} k={k}",
                        ef_sparsify.ef_select_pack(g, e, lr, None, k),
                        ref.ef_select_pack_ref(g, e, lr, None, k))
@@ -1271,10 +1320,13 @@ def narrow_timings(dev) -> list:
         out.append({"bs": bs, "k": k, "rows": CNN_WORKERS, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": library_ms,
                     "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                    "host_us": call_us, "library_host_us": lib_call_us,
                     "bound_ms": bound_ms})
         print(f"narrow ef_select_pack {CNN_WORKERS}x{bs} k={k}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk "
-              f"{library_ms:.4f} ms per call; device time kernel "
+              f"{library_ms:.4f} ms per call; host time per call kernel "
+              f"{call_us:.1f} us, torch.topk {lib_call_us:.1f} us; device "
+              f"time kernel "
               f"{dev_ms:.4f} ms, torch.topk {lib_dev_ms:.4f} ms; bound "
               f"{bound_ms:.6f} ms (bytes), "
               f"{bound_ms / dev_ms if dev_ms else float('nan'):.4f} of the "
@@ -1576,6 +1628,22 @@ def check_replicas(params, what: str) -> None:
     if int(flag):
         raise AssertionError(f"{what}: parameters differ across ranks "
                              f"({int(flag)} leaf copies)")
+
+
+@contextlib.contextmanager
+def aside(counts: dict):
+    """Inside the block, kernel launches go to ``counts`` (added per
+    kernel) and not to the wrappers' counts, which leave the block as
+    they entered it: a check run inside a counted window that the path
+    itself does not take."""
+    from repro_torch import kernels
+    before = kernels.launch_counts()
+    try:
+        yield
+    finally:
+        for name, fn in kernels.WRAPPERS.items():
+            counts[name] = counts.get(name, 0) + fn.launches - before[name]
+            fn.launches = before[name]
 
 
 @contextlib.contextmanager
@@ -2129,6 +2197,442 @@ def observe_phase(dev, cfg, seq: int, out_dir: Path, world: int = 1,
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+STREAM_STEPS, STREAM_EVERY = 8, 2
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
+#: the handoff check's requests: batch, prompt and generated tokens
+HANDOFF_BATCH, HANDOFF_PROMPT, HANDOFF_GEN = 2, 32, 4
+#: its tolerance, |prefill->decode - replay| over max |replay| of each
+#: step's logits: bf16 activations and caches round at other places
+#: along the two paths (one 32-token product against 32 one-token ones,
+#: through 22 layers); f32 ones only sum in another order.  On an H100,
+#: TinyLlama's sound bf16 handoff reads at most 1.641e-2 and a cache one
+#: slot off (``slot_fault``) at least 1.453e-1 on the steps it touches
+HANDOFF_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+STREAM_SCRATCH = ROOT / ".stream_scratch"
+
+
+def slot_fault(states):
+    """A broken handoff, for the check to catch: every attention cache
+    one slot off its decode layout (rolled one slot along time), every
+    other state (the sLSTM's) dropped to zeros."""
+    import torch
+    if isinstance(states, torch.Tensor):
+        return torch.zeros_like(states)
+    if isinstance(states, (list, tuple)):
+        return type(states)(slot_fault(x) for x in states)
+    if "self" in states:
+        return {**states, "self": {k: torch.roll(v, 1, dims=v.ndim - 3)
+                                   for k, v in states["self"].items()}}
+    return {k: slot_fault(v) for k, v in states.items()}
+
+
+def handoff_check(dev, name: str, cfg, params) -> dict:
+    """Prefill -> ``pad_states_for_decode`` -> decode against a
+    token-by-token replay of the same tokens from cold caches, on the
+    card: the prompt's last logits and ``HANDOFF_GEN - 1`` decode steps'
+    (the same known tokens fed to both paths) within ``HANDOFF_RTOL`` of
+    max |logit| (the dtype's), finite.  The same handoff through
+    ``slot_fault`` must land outside that tolerance: the check sees a
+    cache one slot off."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab,
+                         (HANDOFF_BATCH, HANDOFF_PROMPT + HANDOFF_GEN),
+                         generator=gen, device=dev, dtype=torch.int32)
+    cap = HANDOFF_PROMPT + HANDOFF_GEN
+    t0 = time.perf_counter()
+
+    def handoff(fault: bool) -> list:
+        logits, st = engine.prefill(params, cfg, toks[:, :HANDOFF_PROMPT],
+                                    chunk=64)
+        st = engine.pad_states_for_decode(cfg, st, HANDOFF_PROMPT, cap)
+        if fault:
+            st = slot_fault(st)
+        out = [logits]
+        for pos in range(HANDOFF_PROMPT, cap - 1):
+            logits, st = engine.serve_step(params, cfg, toks[:, pos:pos + 1],
+                                           st, pos, chunk=64)
+            out.append(logits)
+        return out
+
+    sound = handoff(False)
+    st = engine.init_states(cfg, HANDOFF_BATCH, cap, L.DTYPES[cfg.dtype],
+                            device=dev)
+    replay = []
+    for pos in range(cap - 1):
+        logits, st = engine.serve_step(params, cfg, toks[:, pos:pos + 1], st,
+                                       pos, chunk=64)
+        if pos >= HANDOFF_PROMPT - 1:
+            replay.append(logits)
+    rtol = HANDOFF_RTOL[cfg.dtype]
+
+    def rel_err(got) -> list:
+        rel = []
+        for i, (h, r) in enumerate(zip(got, replay)):
+            if not (torch.isfinite(h).all() and torch.isfinite(r).all()):
+                raise AssertionError(f"handoff {name}: step {i} not finite")
+            rel.append(float((h - r).abs().max() / r.abs().max()))
+        return rel
+
+    rel = rel_err(sound)
+    if max(rel) > rtol:
+        raise AssertionError(f"handoff {name}: logits differ from the "
+                             f"replay by {rel} of max |logit| (> {rtol})")
+    fault = rel_err(handoff(True))
+    if max(fault) <= rtol:
+        raise AssertionError(f"handoff {name}: a cache one slot off reads "
+                             f"{fault} of max |logit|, inside the "
+                             f"tolerance {rtol}: the check cannot see it")
+    out = {"rel_err": rel, "fault_rel_err": fault, "rtol": rtol,
+           "s": time.perf_counter() - t0,
+           "cache": [tuple(x.shape) for x in tree.leaves(st)][:2]}
+    print(f"stream: handoff {name} ({cfg.dtype}, prompt {HANDOFF_PROMPT}, "
+          f"then {HANDOFF_GEN - 1} decode steps, batch {HANDOFF_BATCH}): "
+          f"|prefill->decode - replay| / max|logit| per step "
+          f"{[f'{x:.3e}' for x in rel]} (tolerance {rtol}); one slot off "
+          f"{[f'{x:.3e}' for x in fault]}; states {out['cache']}",
+          flush=True)
+    return out
+
+
+def stream_timings(dev, acc, k_b: int, block_size: int = 4096) -> dict:
+    """``block_topk`` at the stream's per-block budget on the largest
+    leaf's first-delta accumulator (f32, as the codec selects it):
+    kernel (CUDA events over back-to-back launches of ~1 ms: device
+    bound), its plain version and
+    ``torch.topk`` on |rows|, beside the byte bound (rows read once, the
+    (values, idx) pairs written once); the kernel's outputs bitwise to the
+    plain version's; and how many rows hold an exact tie at their k_b-th
+    magnitude."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.block_topk import RADIX_MIN_K, block_topk
+    d = acc.numel()
+    n_blocks = -(-d // block_size)
+    rows = ops.block_view(acc, n_blocks, block_size).contiguous()
+    n = rows.shape[0]
+    err = assert_bitwise(f"stream block_topk {n}x{block_size} k_b={k_b}",
+                         block_topk(rows, k_b), ref.block_topk_ref(rows,
+                                                                      k_b))
+    mag = rows.abs()
+    top = torch.topk(mag, k_b + 1, dim=1).values
+    tie_rows = int((top[:, k_b - 1] == top[:, k_b]).sum())
+    ms = cuda_ms(lambda: block_topk(rows, k_b), 20)
+    plain_ms = cuda_ms(lambda: ref.block_topk_ref(rows, k_b), 3)
+    library_ms = cuda_ms(lambda: torch.topk(mag, k_b, dim=1), 10)
+    nbytes = n * block_size * 4 + n * k_b * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    path = "radix" if k_b >= RADIX_MIN_K else "arg-max"
+    out = {"rows": n, "bs": block_size, "k_b": k_b, "path": path,
+           "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "share": bound_ms / ms, "tie_rows": tie_rows,
+           "max_abs_err": err}
+    print(f"stream: block_topk at the stream's k_b {k_b} ({path} path) on "
+          f"the largest leaf, {n} x {block_size} f32: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.topk "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+          f"{bound_ms / ms:.3f} of the bound; {tie_rows} rows tie at their "
+          f"k_b-th |acc|; bitwise equal to the plain version", flush=True)
+    return out
+
+
+def decode_op_count(sub, prompts) -> int:
+    """The aten ops one ``serve_step`` of ``sub``'s model dispatches at
+    ``prompts``' batch and a ``SERVE_PROMPT + SERVE_GEN`` cache: each is
+    at least one launch from the host."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    states = engine.init_states(sub.cfg, prompts.shape[0],
+                                SERVE_PROMPT + SERVE_GEN,
+                                L.DTYPES[sub.cfg.dtype], device=prompts.device)
+    with Count():
+        engine.serve_step(sub.params, sub.cfg, prompts[:, :1], states,
+                          SERVE_PROMPT, chunk=sub.chunk)
+    return Count.n
+
+
+def stream_phase(dev, cfg, seq: int) -> tuple[dict, dict]:
+    """The weight stream and the serving path at full width, over the
+    world-size-1 NCCL group (inside ``process_group``).
+
+    Train and publish: ``Session.run`` of ``STREAM_STEPS`` ``lags_dp`` +
+    kernel steps with a ``StreamPublisher(every=STREAM_EVERY,
+    compressor="topk_block_kernel")`` writing packets to the git-ignored
+    ``.stream_scratch/``, then a flush; every ``block_topk`` launch of the
+    first delta held bitwise to its plain version, and that delta encoded
+    again under ``topk_hier_ef_kernel`` with every launch held the same
+    way.  Follow: a cold ``ServeSession`` guarded by a ``RolloutGuard``
+    applies every packet file; after the flush its parameters equal the
+    trained ones bit for bit.  Serve: two requests of ``SERVE_BATCH``
+    prompts of ``SERVE_PROMPT`` tokens, ``SERVE_GEN`` generated, from the
+    streamed weights (their ``RequestRecord``s).  A dropped version is
+    refused and ``resync`` recovers.  Then ``block_topk``'s timing at the
+    stream's k_b (``stream_timings``, outside the counted window) and the
+    handoff check on TinyLlama, gemma3's smoke config and the paper LSTM.
+    Returns (launch counts of the phase, results)."""
+    import shutil
+
+    import torch
+    from repro_torch import api, kernels, tree
+    from repro_torch.configs import gemma3_27b, paper_lstm_ptb
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.stream import (DeltaCodec, RolloutGuard, ServeSession,
+                                    StreamPublisher, quality_probe)
+
+    def say(msg: str) -> None:
+        print(f"stream: {msg}", flush=True)
+
+    shutil.rmtree(STREAM_SCRATCH, ignore_errors=True)
+    STREAM_SCRATCH.mkdir(parents=True)
+    res: dict = {}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = M.make_mesh(device=dev.type)
+        sess = api.Session(cfg, api.RunConfig(
+            mode="lags_dp", selection_backend="kernel", lr=0.01),
+            mesh=mesh)
+        state, _ = sess.init_state(seed=0)
+        data = synthetic.MarkovLM(vocab=cfg.vocab, seed=5)
+        pub = StreamPublisher(state["params"], every=STREAM_EVERY,
+                              compressor="topk_block_kernel",
+                              out_dir=str(STREAM_SCRATCH))
+        codec = pub.codec
+        say(f"codec {codec.compressor.name}, {len(codec.keys)} leaves, "
+            f"full_bytes {codec.full_bytes}, budget {pub.budget_bytes} "
+            f"bytes per packet")
+        encode_s: list = []
+
+        def timed(fn):
+            def call(*args):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize(dev)
+                encode_s.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        codec.encode = timed(codec.encode)
+        codec.encode_full = timed(codec.encode_full)
+        errs: dict = {}
+        shapes: dict = {}
+        largest = max(codec.keys, key=lambda k: codec.sizes[k])
+        first: dict = {}
+        check_counts: dict = {}
+
+        class Watched:
+            """The publisher as ``Session.run`` sees it; its first delta
+            runs with every kernel launch held to the plain version."""
+
+            def maybe_publish(self, step, params):
+                if not pub.due(step):
+                    return None
+                if pub.version != 1:
+                    return pub.publish(step, params)
+                first["plan"] = pub.split_budget()
+                ks = {e.key: e.k for e in first["plan"]}
+                now = dict(zip(tree.leaf_paths(params),
+                               tree.leaves(params)))[largest]
+                was = dict(zip(tree.leaf_paths(pub.published),
+                               tree.leaves(pub.published)))[largest]
+                first["acc"] = pub.residual[largest] + (
+                    now.detach().float().reshape(-1)
+                    - was.float().reshape(-1))
+                hier = DeltaCodec(params, compressor="topk_hier_ef_kernel")
+                hier_errs: dict = {}
+                hier_shapes: dict = {}
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                # a check only: the publisher never takes this path
+                with aside(check_counts), held_to_plain(hier_errs,
+                                                        hier_shapes):
+                    _, _, n_hier, _ = hier.encode(pub.published, params,
+                                                  hier.zero_residual(), ks)
+                torch.cuda.synchronize(dev)
+                first["hier"] = {"nbytes": n_hier,
+                                 "s_held": time.perf_counter() - t0,
+                                 "launches": {k: sorted(v) for k, v in
+                                              hier_shapes.items()}}
+                for name, e in hier_errs.items():
+                    errs[name] = max(errs.get(name, 0.0), e)
+                say(f"first delta again under topk_hier_ef_kernel: "
+                    f"{n_hier} bytes, every launch bitwise to its plain "
+                    f"version: {first['hier']['launches']}")
+                if "ef_block_candidates" not in hier_shapes or \
+                        "ef_select_pack" not in hier_shapes:
+                    raise AssertionError("stream: the hierarchical re-encode "
+                                         "launched no kernel")
+                with held_to_plain(errs, shapes):
+                    pkt = pub.publish(step, params)
+                if "block_topk" not in shapes:
+                    raise AssertionError("stream: the first delta launched "
+                                         "no block_topk")
+                say(f"first delta: every block_topk launch bitwise to its "
+                    f"plain version: (rows, bs, k_b) "
+                    f"{sorted(shapes['block_topk'])}")
+                return pkt
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = sess.run(lambda t: data.batch(t, 1, seq, device=dev),
+                               STREAM_STEPS, state=state, publisher=Watched(),
+                               print_fn=lambda *_: None)
+        pub.flush(STREAM_STEPS, state["params"])
+        train_s = time.perf_counter() - t0
+        losses = [r["loss"] for r in hist]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"stream: losses {losses}")
+        say(f"{STREAM_STEPS} steps + {pub.n_publishes} packets in "
+            f"{train_s:.2f} s; losses {[round(x, 4) for x in losses]}")
+        plan = [{"key": e.key, "d": e.d, "k": e.k,
+                 "k_b": block_kb(e.d, e.k), "kind": e.kind,
+                 "nbytes": e.nbytes} for e in first["plan"]]
+        for e in plan:
+            say(f"plan {e['key']}: d {e['d']}, k {e['k']}, k_b {e['k_b']}, "
+                f"{e['kind']}, {e['nbytes']} bytes")
+        packets = [{"version": p.version, "step": p.step, "kind": p.kind,
+                    "nbytes": p.nbytes, "of_full": p.nbytes / codec.full_bytes,
+                    "encode_s": s} for p, s in zip(pub.packets, encode_s)]
+        for p in packets:
+            say(f"packet v{p['version']} (step {p['step']}, {p['kind']}): "
+                f"{p['nbytes']} bytes = {p['of_full']:.4f} of full_bytes "
+                f"{codec.full_bytes}; encode {p['encode_s']:.4f} s"
+                + (" (its block_topk launches held to plain)"
+                   if p["version"] == 2 else ""))
+        say(f"streamed {pub.bytes_streamed} bytes against "
+            f"{pub.bytes_full_equiv} in full checkpoints "
+            f"({pub.bytes_streamed / pub.bytes_full_equiv:.4f})")
+        res.update(losses=losses, train_s=train_s, plan=plan,
+                   packets=packets, full_bytes=codec.full_bytes,
+                   first_hier=first["hier"])
+
+        # follow: a cold guarded subscriber, from the files alone
+        shape = InputShape("serve", SERVE_PROMPT + SERVE_GEN, SERVE_BATCH,
+                           "decode")
+        heldout = data.batch(10_000, 2, 256, device=dev)
+        guard = RolloutGuard(quality_probe(cfg, heldout, chunk=256,
+                                           loss_chunk=256))
+        sub = ServeSession(cfg, shape, tree.map(
+            lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device),
+            state["params"]), guard=guard)
+        t0 = time.perf_counter()
+        applied = []
+        for path in pub.packet_paths:
+            t1 = time.perf_counter()
+            status = sub.apply_packet_file(path)
+            applied.append((status, time.perf_counter() - t1))
+            if status != "applied":
+                raise AssertionError(f"stream: {path} {status}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(sub.params), tree.leaves(state["params"])))
+        if not same or sub.version != pub.version:
+            raise AssertionError("stream: the subscriber is not bitwise the "
+                                 "trained parameters after the flush")
+        nll = [round(s.t_step, 4) for s in guard.samples]
+        say(f"follow: {len(applied)} packet files applied through the guard "
+            f"in {time.perf_counter() - t0:.2f} s "
+            f"({[round(t, 3) for _, t in applied]} s each), version "
+            f"{sub.version}, held-out NLL per version {nll}, guard halted "
+            f"{guard.halted}; parameters bitwise equal to the trained ones")
+        res["follow"] = {"apply_s": [t for _, t in applied], "nll": nll,
+                         "bitwise": same}
+
+        # serve from the streamed weights
+        prompts = data.batch(20_000, SERVE_BATCH, SERVE_PROMPT,
+                             device=dev)["tokens"]
+        records = []
+        for _ in range(2):
+            out = sub.generate(prompts, SERVE_GEN)
+            if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or \
+                    int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+                raise AssertionError(f"stream: generated {tuple(out.shape)}")
+            rec = dataclasses.asdict(sub.requests[-1])
+            records.append(rec)
+            say(f"request {rec['index']}: batch {rec['batch']}, prompt "
+                f"{rec['prompt_len']}, {rec['n_tokens']} tokens: prefill "
+                f"{rec['prefill_s']:.4f} s, decode {rec['decode_s']:.4f} s "
+                f"= {rec['decode_tok_s']:.1f} tok/s, version "
+                f"{rec['version']}, cache {rec['cache']}, prefill "
+                f"{rec['prefill_jit']}, decode {rec['decode_jit']}")
+        if [r["decode_jit"] for r in records] != ["miss", "hit"]:
+            raise AssertionError("stream: the step cache did not hit")
+        res["requests"] = records
+        res["decode_ops"] = decode_op_count(sub, prompts)
+        say(f"one decode step (batch {SERVE_BATCH}, cache "
+            f"{SERVE_PROMPT + SERVE_GEN}) dispatches {res['decode_ops']} "
+            f"aten ops ({res['decode_ops'] / cfg.n_layers:.0f} a layer)")
+
+        # a dropped version is refused; resync recovers
+        status = sub.apply_packet_file(pub.packet_paths[2])
+        if status != "gap" or not sub.needs_resync:
+            raise AssertionError(f"stream: a dropped version gave {status}")
+        t0 = time.perf_counter()
+        version = sub.resync(pub.save_full(str(STREAM_SCRATCH / "full"),
+                                           step=STREAM_STEPS))
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(sub.params), tree.leaves(state["params"])))
+        if not same or version != pub.version or sub.needs_resync:
+            raise AssertionError("stream: resync did not recover")
+        say(f"a dropped version refused ({status}); save_full + resync to "
+            f"version {version} in {time.perf_counter() - t0:.2f} s, "
+            f"bitwise equal")
+        counts = kernels.launch_counts()
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        res["check_launches"] = check_counts
+        say(f"launches in the phase: {counts} (training: ef_select_pack; "
+            f"the publisher: block_topk); the topk_hier_ef_kernel "
+            f"re-encode's, not among them: {check_counts}; peak device "
+            f"memory {res['peak_gib']:.3f} GiB")
+        for name in ("ef_select_pack", "block_topk"):
+            if not counts[name]:
+                raise AssertionError(f"stream: {name} never launched")
+
+        # outside the counted window
+        k_b = block_kb(codec.sizes[largest],
+                       {e["key"]: e["k"] for e in plan}[largest])
+        res["block_topk"] = stream_timings(dev, first.pop("acc"), k_b)
+        res["block_topk"]["leaf"] = largest
+        res["handoff"] = {"tinyllama_1_1b": handoff_check(
+            dev, "tinyllama_1_1b", cfg, sub.params)}
+        # the same weights in f32: the handoff itself exact to the sums
+        f32 = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+        params = tree.map(lambda p: p.detach().float(), sub.params)
+        del sub, guard, pub, codec, state, sess
+        torch.cuda.empty_cache()
+        res["handoff"]["tinyllama_1_1b f32"] = handoff_check(
+            dev, "tinyllama_1_1b f32", f32, params)
+        del params
+        for name, small in (("gemma3_27b smoke", gemma3_27b.smoke_config()),
+                            ("paper_lstm_ptb", paper_lstm_ptb.CONFIG)):
+            params = T.init_params(small, seed=0, device=dev)
+            res["handoff"][name] = handoff_check(dev, name, small, params)
+            del params
+        res["errs"] = errs
+        return counts, res
+    finally:
+        shutil.rmtree(STREAM_SCRATCH, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2189,12 +2693,10 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     plans, autotune = autotune_phase(dev, cfg, seq, out_dir)
     planned = planned_pack_timings(dev, cfg, plans)
-    totals, results = main_path(dev, cfg, seq, steps, plans,
-                                out_dir if args.profile else None)
+    main_totals, results = main_path(dev, cfg, seq, steps, plans,
+                                     out_dir if args.profile else None)
     # each later path: counts set to 0 just before it, read just after
     path_counts, path_err = ef_accum_path(dev, cfg, seq)
-    for k, v in path_counts.items():
-        totals[k] += v
     errs["ef_accum_sparsify"] = max(
         errs["ef_accum_sparsify"], path_err,
         times["ef_accum_sparsify_bf16"]["max_abs_err"])
@@ -2209,12 +2711,20 @@ def main(argv=None) -> int:
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
             configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
         observe_totals, observe = observe_phase(dev, cfg, seq, out_dir)
-    for part in (paper_errs, dist_errs, lstm_errs):
+        stream_totals, stream = stream_phase(dev, cfg, seq)
+    for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs")):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
-    for part in (paper_totals, dist_totals, lstm_totals, observe_totals):
-        for k, v in part.items():
-            totals[k] += v
+    errs["block_topk"] = max(errs["block_topk"],
+                             stream["block_topk"]["max_abs_err"])
+    phases = {"main": main_totals, "ef_accum": path_counts,
+              "paper": paper_totals, "distributed": dist_totals,
+              "paper_distributed": lstm_totals, "observe": observe_totals,
+              "stream": stream_totals}
+    totals = {name: sum(c[name] for c in phases.values())
+              for name in REPLACES}
+    # the stream phase's topk_hier_ef_kernel re-encode: a check, apart
+    check_launches = stream["check_launches"]
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -2223,7 +2733,9 @@ def main(argv=None) -> int:
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
-         "library_ms": times[name]["library_ms"]}
+         "library_ms": times[name]["library_ms"],
+         "phase_launches": {**{ph: c[name] for ph, c in phases.items()},
+                            "stream_check": check_launches.get(name, 0)}}
         for name in REPLACES]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
@@ -2232,7 +2744,7 @@ def main(argv=None) -> int:
          "main": results, "distributed": dist_results,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
-         **kernels_line}, indent=1))
+         "stream": stream, **kernels_line}, indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card_line())
     print(result_line(torch))

@@ -273,3 +273,33 @@ def _hier2_factory(spec: ExchangeSpec):
         inner_compressor_name=(
             inner_name if inner_name != outer_name else None),
         inner_compressor_kwargs=_sel_kwargs(inner_name, spec))
+
+
+# ---------------------------------------------------------------------------
+# compressor registry (backed by core.compressors)
+# ---------------------------------------------------------------------------
+
+def register_compressor(name: str, compress=None, *, needs_key: bool = False,
+                        fused_select=None):
+    """Register a compressor ``compress(x, k, **kw) -> (values, indices)``.
+
+    Usable as a decorator (``@register_compressor("name")``) or a plain
+    call.  Entries land in ``core.compressors.REGISTRY``, so every
+    strategy (and every ``compressor_name=`` field, the stream codec's
+    too) can name them.  ``fused_select`` optionally provides the
+    one-pass variant ``(u, e, k, **kw) -> (values, indices, residual)``
+    that ``lags.local_select_ef`` prefers."""
+    def add(fn):
+        C.REGISTRY[name] = C.Compressor(name, fn, needs_key=needs_key,
+                                        fused_select=fused_select)
+        return fn
+    if compress is None:
+        return add
+    return add(compress)
+
+
+get_compressor = C.get_compressor
+
+
+def compressor_names() -> list[str]:
+    return sorted(C.REGISTRY)

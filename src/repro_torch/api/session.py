@@ -174,12 +174,13 @@ class Session:
         the static step function, and its re-plan decisions — including
         which *trigger* fired — are logged as they happen).
         ``state=None`` initializes via :meth:`init_state`.
-        ``publisher``: anything with ``maybe_publish(step, params)``
-        returning None or a packet with ``version``/``kind``/``nbytes``
-        (the reference's ``repro.stream.StreamPublisher``; the stream
-        subsystem is not ported yet).  ``metrics`` / ``events``: an
-        ``observe.metrics.MetricsRegistry`` and ``observe.events.EventLog``
-        (default: the process-wide plane).
+        ``publisher``: a ``repro_torch.stream.StreamPublisher`` (or
+        anything with its ``maybe_publish(step, params)``): after every
+        step the live parameters are offered, and an emitted
+        ``DeltaPacket`` is logged as the row's ``publish`` field.
+        ``metrics`` / ``events``: an ``observe.metrics.MetricsRegistry``
+        and ``observe.events.EventLog`` (default: the process-wide
+        plane).
 
         ``health_every`` (default: ``run.health_every``): every N steps
         the convergence-health quantities the step computed

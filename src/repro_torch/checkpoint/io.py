@@ -92,6 +92,15 @@ def load_metadata(path: str) -> dict:
         return json.load(f)
 
 
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A loaded array as a host tensor; 2-byte ``'V2'`` records (a bf16
+    leaf) as ``torch.bfloat16``."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _as_like(key: str, arr: np.ndarray, like):
     """``arr`` in the type, dtype and device of ``like``."""
     if tuple(arr.shape) != tuple(np.shape(like)):
@@ -102,10 +111,8 @@ def _as_like(key: str, arr: np.ndarray, like):
             if arr.dtype.kind != "V" or arr.dtype.itemsize != 2:
                 raise ValueError(f"{key}: a bf16 leaf needs 2-byte records, "
                                  f"got {arr.dtype}")
-            host = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-            return host.view(torch.bfloat16).to(like.device)
-        host = torch.from_numpy(np.ascontiguousarray(arr))
-        return host.to(device=like.device, dtype=like.dtype)
+            return host_tensor(arr).to(like.device)
+        return host_tensor(arr).to(device=like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     return type(like)(arr.item())

@@ -7,6 +7,8 @@ selection of ``topk_block_kernel``.  A CPU tensor runs the plain version
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import build, ref
@@ -29,11 +31,11 @@ HIST_BINS = 2048
 def check_rows(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
     """Raise unless ``t`` is a contiguous 2-D CUDA tensor of an accepted
     dtype (and ``shape``, when given)."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if t.ndim != 2 or (shape is not None and tuple(t.shape) != shape):
+    if t.dim() != 2 or (shape is not None and t.shape != shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} is not "
                          f"{shape or '2-D (rows, bs)'}")
     if not t.is_contiguous():
@@ -67,13 +69,22 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(dev: torch.device):
+    """The launch's device as the current one: a no-op context when it
+    already is (entering ``torch.cuda.device`` costs two device switches
+    per launch)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def block_topk(blocks: torch.Tensor, r: int, *,
                radix_min_k: int = RADIX_MIN_K):
     """(values (n, r) in ``blocks``' dtype, local indices (n, r) int32) of
     each row's top-``r`` by |x|, descending, ties to the lowest index.
     ``radix_min_k``: the kernel's crossover (the same result on both
     paths)."""
-    if blocks.device.type == "cpu":
+    if blocks.is_cpu:
         return ref.block_topk_ref(blocks, r)
     check_rows("block_topk x", blocks, DTYPES)
     n, bs = blocks.shape
@@ -81,7 +92,7 @@ def block_topk(blocks: torch.Tensor, r: int, *,
     vals = torch.empty((n, r), dtype=blocks.dtype, device=blocks.device)
     idx = torch.empty((n, r), dtype=torch.int32, device=blocks.device)
     if n:
-        with torch.cuda.device(blocks.device):
+        with on_device(blocks.device):
             err = build.lib().block_topk(
                 blocks.data_ptr(), int(blocks.dtype == torch.bfloat16),
                 vals.data_ptr(), idx.data_ptr(), n, bs, r, radix_min_k,

@@ -84,6 +84,8 @@ def build(verbose: bool = False) -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
+    if _lib is not None:         # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))

@@ -87,6 +87,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -567,17 +568,52 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Above 48 KiB of shared memory a block needs the opt-in attribute; the
-// kernel's static shared memory counts toward the 48 KiB too.
+// kernel's static shared memory counts toward the 48 KiB too.  Querying
+// the attributes and opting in cost host time on every launch (the paper
+// CNN's narrow rows launch ~50 times a step), so each (kernel, device)
+// remembers the largest dynamic size it was prepared for: a launch at or
+// below it skips both calls.  A full table prepares again every time.
+struct Prepared {
+  const void* kernel;
+  int device;
+  size_t smem;
+};
+constexpr int kMaxPrepared = 64;
+std::mutex g_prepared_mu;
+Prepared g_prepared[kMaxPrepared];
+int g_n_prepared = 0;
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem_bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(g_prepared_mu);
+  Prepared* slot = nullptr;
+  for (int i = 0; i < g_n_prepared; ++i) {
+    if (g_prepared[i].kernel == key && g_prepared[i].device == device) {
+      slot = &g_prepared[i];
+      break;
+    }
+  }
+  if (slot != nullptr && smem_bytes <= slot->smem) return cudaSuccess;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   if (attr.sharedSizeBytes + smem_bytes > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem_bytes));
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes));
+    if (err != cudaSuccess) return err;
   }
+  if (slot == nullptr) {
+    if (g_n_prepared == kMaxPrepared) return cudaSuccess;
+    slot = &g_prepared[g_n_prepared++];
+    slot->kernel = key;
+    slot->device = device;
+  }
+  slot->smem = smem_bytes;
   return cudaSuccess;
 }
 

@@ -18,11 +18,14 @@ a stacked (P·n_blocks, bs) launch each have their own.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.block_topk import (DTYPES, RADIX_MIN_K, check_k,
-                                            check_rows, row_smem, stream_of)
+                                            check_rows, on_device, row_smem,
+                                            stream_of)
 
 
 def _device_scalar(x, device) -> torch.Tensor:
@@ -31,7 +34,15 @@ def _device_scalar(x, device) -> torch.Tensor:
             raise ValueError(f"scalar must be one f32 on {device}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
         return x.reshape(())
-    return torch.full((), float(x), dtype=torch.float32, device=device)
+    return _constant(device, float(x))
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(device: torch.device, value: float) -> torch.Tensor:
+    """A Python float as one f32 on ``device``, written once: the kernels
+    only read it, so every launch with that lr or threshold shares it
+    (a fill per launch was one more allocation and kernel launch)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def _thr_arg(thr, n: int, device):
@@ -50,8 +61,8 @@ def _thr_arg(thr, n: int, device):
 
 def _check_ge(name, g_rows, e_rows):
     check_rows(f"{name} g", g_rows, DTYPES)
-    check_rows(f"{name} e", e_rows, (torch.float32,), tuple(g_rows.shape))
-    if e_rows.device != g_rows.device:
+    check_rows(f"{name} e", e_rows, (torch.float32,), g_rows.shape)
+    if e_rows.get_device() != g_rows.get_device():
         raise ValueError(f"{name}: g and e on different devices")
 
 
@@ -63,7 +74,7 @@ def ef_select_pack(g_rows, e_rows, lr, thr, k: int, *,
     the gate off; ``radix_min_k``: the kernel's crossover (the same
     result on both paths).  Returns (vals (n, k) f32, local idx (n, k)
     int32, residual (n, bs) f32)."""
-    if g_rows.device.type == "cpu":
+    if g_rows.is_cpu:
         return ref.ef_select_pack_ref(g_rows, e_rows, lr, thr, k)
     _check_ge("ef_select_pack", g_rows, e_rows)
     n, bs = g_rows.shape
@@ -75,7 +86,7 @@ def ef_select_pack(g_rows, e_rows, lr, thr, k: int, *,
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     res = torch.empty((n, bs), dtype=torch.float32, device=dev)
     if n:
-        with torch.cuda.device(dev):
+        with on_device(dev):
             err = build.lib().ef_select_pack(
                 g_rows.data_ptr(), int(g_rows.dtype == torch.bfloat16),
                 e_rows.data_ptr(), lr_t.data_ptr(),
@@ -91,7 +102,7 @@ def ef_block_candidates(g_rows, e_rows, lr, r: int, *,
                         radix_min_k: int = RADIX_MIN_K):
     """Per-row top-``r`` candidates of ``acc = e + lr·g``, accumulate
     fused.  Returns (vals (n, r) f32, local idx (n, r) int32)."""
-    if g_rows.device.type == "cpu":
+    if g_rows.is_cpu:
         return ref.ef_block_candidates_ref(g_rows, e_rows, lr, r)
     _check_ge("ef_block_candidates", g_rows, e_rows)
     n, bs = g_rows.shape
@@ -101,7 +112,7 @@ def ef_block_candidates(g_rows, e_rows, lr, r: int, *,
     vals = torch.empty((n, r), dtype=torch.float32, device=dev)
     idx = torch.empty((n, r), dtype=torch.int32, device=dev)
     if n:
-        with torch.cuda.device(dev):
+        with on_device(dev):
             err = build.lib().ef_block_candidates(
                 g_rows.data_ptr(), int(g_rows.dtype == torch.bfloat16),
                 e_rows.data_ptr(), lr_t.data_ptr(), vals.data_ptr(),
@@ -124,7 +135,7 @@ def ef_accum_sparsify(g, e, lr, thr):
     lr = 1 and within rtol = atol = 1e-6 (the reference's own kernel
     tolerance) elsewhere, where XLA may contract ``e + lr·g`` into one
     fma."""
-    if g.device.type == "cpu":
+    if g.is_cpu:
         return ref.ef_accum_sparsify_ref(g, e, lr, thr)
     for name, t, dtypes in (("g", g, DTYPES), ("e", e, (torch.float32,))):
         if t.device.type != "cuda":
@@ -145,7 +156,7 @@ def ef_accum_sparsify(g, e, lr, thr):
     sel = torch.empty(g.shape, dtype=torch.float32, device=dev)
     res = torch.empty(g.shape, dtype=torch.float32, device=dev)
     if g.numel():
-        with torch.cuda.device(dev):
+        with on_device(dev):
             err = build.lib().ef_accum_sparsify(
                 g.data_ptr(), int(g.dtype == torch.bfloat16), e.data_ptr(),
                 lr_t.data_ptr(), thr_t.data_ptr(), sel.data_ptr(),

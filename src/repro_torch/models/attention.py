@@ -1,10 +1,16 @@
-"""Grouped-query attention with the causal online softmax of
-``repro.models.attention.chunked_attention``, in plain PyTorch.
+"""Grouped-query attention with the online softmax of
+``repro.models.attention.chunked_attention``, sliding windows and the
+KV-cache decode path, in plain PyTorch.
 
 Layouts are the reference's: ``wq`` (d, h, hd), ``wk``/``wv``
 (d, kv, hd), ``wo`` (h, hd, d); queries grouped as (B, S, KV, G, hd).
 Scores exist only per KV chunk, (B, KV, G, Sq, chunk), with the
 running (max, sum, acc) state in f32.
+
+Cache layouts (the reference's):
+  full cache : k/v (B, S_cap, KV, hd); entries at index <= pos are valid.
+  ring cache : k/v (B, W, KV, hd) for a windowed layer; token ``pos`` at
+               slot ``pos % W``.
 """
 from __future__ import annotations
 
@@ -33,11 +39,15 @@ def _out_proj(p, o, dtype):
 
 
 def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
-                      chunk: int = 1024):
+                      window: int | None = None, chunk: int = 1024,
+                      k_valid_len=None):
     """Online-softmax attention over KV chunks.
 
     q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd); positions: (Sq,), (Sk,).
-    Returns (B, Sq, KV, G, hd) in q's dtype."""
+    ``window``: keys more than ``window - 1`` positions before a query
+    are masked; ``k_valid_len`` (an int or a 0-d integer tensor): keys
+    at index >= it are masked.  Padding the keys to whole chunks masks
+    the pad the same way.  Returns (B, Sq, KV, G, hd) in q's dtype."""
     b, sq, kvh, g, hd = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
@@ -48,11 +58,15 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         k_positions = torch.nn.functional.pad(k_positions, (0, pad),
                                               value=2 ** 30)
+        if k_valid_len is None:
+            k_valid_len = sk
     scale = 1.0 / math.sqrt(hd)
     qf = (q.float() * scale).permute(0, 2, 3, 1, 4)      # B,KV,G,Sq,hd
     kc = k.reshape(b, n_chunks, chunk, kvh, hd).permute(1, 0, 3, 2, 4)
     vc = v.reshape(b, n_chunks, chunk, kvh, hd).permute(1, 0, 3, 2, 4)
     kpos_c = k_positions.reshape(n_chunks, chunk)
+    kidx_c = torch.arange(n_chunks * chunk,
+                          device=q.device).reshape(n_chunks, chunk)
 
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -61,8 +75,16 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
                       device=q.device)
     for j in range(n_chunks):
         s = torch.einsum("bhgqd,bhcd->bhgqc", qf, kc[j].float())
+        mask = None
         if causal:
             mask = kpos_c[j][None, :] <= q_positions[:, None]
+        if window is not None:
+            win = kpos_c[j][None, :] > q_positions[:, None] - window
+            mask = win if mask is None else mask & win
+        if k_valid_len is not None:
+            valid = (kidx_c[j] < k_valid_len)[None, :]
+            mask = valid if mask is None else mask & valid
+        if mask is not None:
             s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
@@ -75,16 +97,100 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)        # B,Sq,KV,G,hd
 
 
+def _window(window):
+    """The mask width of a layer's ``window`` (None and -1: no window)."""
+    return None if window in (None, -1) else window
+
+
+def _rope_qk(q, k, positions, rope_theta):
+    b, s, kvh, g, hd = q.shape
+    q = L.apply_rope(q.reshape(b, s, kvh * g, hd), positions,
+                     rope_theta).reshape(b, s, kvh, g, hd)
+    return q, L.apply_rope(k, positions, rope_theta)
+
+
 def attention_forward(p, x, *, n_kv_heads: int, rope_theta: float = 10000.0,
-                      chunk: int = 1024):
-    """Causal self-attention (training path) with rotary embedding."""
+                      window: int | None = None, chunk: int = 1024):
+    """Self-attention (training path) with rotary embedding: causal,
+    masked to the last ``window`` positions when given."""
     b, s, d = x.shape
     q, k, v = _qkv(p, x, n_kv_heads)
     positions = torch.arange(s, device=x.device)
-    _, _, kvh, g, hd = q.shape
-    q = L.apply_rope(q.reshape(b, s, kvh * g, hd), positions,
-                     rope_theta).reshape(b, s, kvh, g, hd)
-    k = L.apply_rope(k, positions, rope_theta)
+    q, k = _rope_qk(q, k, positions, rope_theta)
     o = chunked_attention(q, k, v, q_positions=positions,
-                          k_positions=positions, causal=True, chunk=chunk)
+                          k_positions=positions, causal=True,
+                          window=_window(window), chunk=chunk)
     return _out_proj(p, o, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+def init_cache(batch: int, capacity: int, n_kv_heads: int, head_dim: int,
+               dtype, device) -> dict:
+    shape = (batch, capacity, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_axes() -> dict:
+    """The reference's logical axes of a cache: batch over the data axes,
+    the sequence over ``model`` (one device here: names only)."""
+    return {"k": ("cache_batch", "cache_seq", None, None),
+            "v": ("cache_batch", "cache_seq", None, None)}
+
+
+def prefill_attention(p, x, *, n_kv_heads: int, rope_theta: float = 10000.0,
+                      window: int | None = None, chunk: int = 1024):
+    """Forward, and the populated cache: the whole prompt's keys and
+    values, or its last ``window`` of them for a windowed layer."""
+    b, s, d = x.shape
+    q, k, v = _qkv(p, x, n_kv_heads)
+    positions = torch.arange(s, device=x.device)
+    q, k = _rope_qk(q, k, positions, rope_theta)
+    win = _window(window)
+    o = chunked_attention(q, k, v, q_positions=positions,
+                          k_positions=positions, causal=True, window=win,
+                          chunk=chunk)
+    out = _out_proj(p, o, x.dtype)
+    if win is not None and win < s:
+        return out, {"k": k[:, -win:], "v": v[:, -win:]}
+    return out, {"k": k, "v": v}
+
+
+def decode_attention(p, x, cache, pos: int, *, n_kv_heads: int,
+                     rope_theta: float = 10000.0, window: int | None = None,
+                     chunk: int = 2048):
+    """One-token decode.  x: (B, 1, D); ``pos``: the token's absolute
+    position.  Writes its key and value into ``cache`` IN PLACE (the
+    reference donates the cache) and returns (out (B, 1, D), cache).
+
+    A full cache takes the token at slot ``min(pos, cap - 1)`` and masks
+    by absolute position; a ring (a windowed layer whose capacity is at
+    most its window) at slot ``pos % cap``, every slot within the window,
+    the slots not yet written masked until the ring wraps."""
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, n_kv_heads)
+    posv = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k_new = _rope_qk(q, k_new, posv, rope_theta)
+    cap = cache["k"].shape[1]
+    win = _window(window)
+    ring = win is not None and cap <= win
+    slot = pos % cap if ring else min(pos, cap - 1)
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    valid = min(pos + 1, cap)
+    if ring:
+        # rope was applied at write time; no causal mask inside the ring
+        o = chunked_attention(
+            q, cache["k"], cache["v"], q_positions=posv,
+            k_positions=torch.zeros((cap,), dtype=torch.long,
+                                    device=x.device),
+            causal=False, chunk=chunk, k_valid_len=valid)
+    else:
+        o = chunked_attention(
+            q, cache["k"], cache["v"], q_positions=posv,
+            k_positions=torch.arange(cap, device=x.device), causal=True,
+            window=win, chunk=chunk, k_valid_len=valid)
+    return _out_proj(p, o, x.dtype), cache

@@ -20,8 +20,10 @@ tree — and so every per-leaf budget and leaf id — is the reference's.
 ``loss_fn(params, cfg, batch)`` is functional, like the reference's;
 :class:`Transformer` owns the parameters.  :func:`from_jax_params` and
 :func:`to_numpy_tree` carry the reference's parameters, as numpy arrays,
-into the port and back.  The mLSTM, Mamba, MoE, sliding windows,
-encoders and frontends raise (ROADMAP.md queue 1 item 13d).
+into the port and back.  Attention layers may be windowed
+(``sliding_window``, every layer or the local ones of a local/global
+interleave).  The mLSTM, Mamba, MoE, encoders and frontends raise
+(ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
@@ -94,7 +96,6 @@ def check_supported(cfg) -> None:
         "xlstm_pattern (mlstm)": "mlstm" in (cfg.xlstm_pattern or ()),
         "attn_period (mamba)": cfg.attn_period is not None,
         "n_experts": bool(cfg.n_experts),
-        "sliding_window": cfg.sliding_window is not None,
         "n_encoder_layers": bool(cfg.n_encoder_layers),
         "frontend": cfg.frontend is not None,
     }
@@ -103,7 +104,7 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {bad} not ported yet (ROADMAP.md queue 1 item "
             f"13d: the other model families); the port runs dense "
-            f"attention decoders and sLSTM stacks")
+            f"attention decoders (full or windowed) and sLSTM stacks")
 
 
 def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
@@ -233,7 +234,8 @@ def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int):
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
     if spec.kind == "attn":
         h = A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
-                                rope_theta=cfg.rope_theta, chunk=chunk)
+                                rope_theta=cfg.rope_theta,
+                                window=spec.window or None, chunk=chunk)
     else:
         h = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads)
     x = x + h

@@ -7,7 +7,10 @@ Layouts are the reference's: ``w_gates`` (4, D, H, hd) and ``b_gates``
 head-local recurrent matrices; ``out_norm`` (D,), an RMS norm with
 ``(1 + scale)``; ``up_proj`` (D, 2·d_up) and ``down_proj`` (d_up, D),
 ``d_up = int(4/3 · D)``.  The recurrence and the gate projections run
-in f32.  The mLSTM is not ported (ROADMAP.md queue 1 item 13d).
+in f32.  ``slstm_forward(state=, return_state=True)`` carries the
+(c, n, m, h) state across calls: the serving engine's prefill and
+one-token decode.  The mLSTM is not ported (ROADMAP.md queue 1 item
+13d).
 """
 from __future__ import annotations
 
@@ -71,29 +74,49 @@ def _slstm_cell(state, gates_x, r_gates):
     return (c, n, m_new, h_new), h_new
 
 
-def _slstm_scan(p, x, n_heads: int):
-    """x: (B, S, D) -> h (B, S, D) f32."""
+def _slstm_scan(p, x, n_heads: int, state=None):
+    """x: (B, S, D) -> (h (B, S, D) f32, the final (c, n, m, h)).
+    ``state``: the (c, n, m, h) to start from (zeros by default)."""
     b, s, d = x.shape
     hd = d // n_heads
     xf = x.float()
     gates = torch.einsum("bsd,gdhk->gbshk", xf, p["w_gates"].float()) \
         + p["b_gates"].float()[:, None, None]
-    z = torch.zeros((b, n_heads, hd), dtype=torch.float32, device=x.device)
-    state = (z, z, z, z)      # the stabiliser m starts at 0, as c, n and h
+    if state is None:
+        # the stabiliser m starts at 0, as c, n and h
+        state = init_slstm_state(b, d, n_heads, device=x.device)
     r = p["r_gates"].float()
     hs = []
     for t in range(s):
         state, h = _slstm_cell(state, gates[:, :, t], r)
         hs.append(h)
-    return torch.stack(hs, dim=1).reshape(b, s, d)
+    return torch.stack(hs, dim=1).reshape(b, s, d), state
 
 
-def slstm_forward(p, x, *, n_heads: int):
-    """x: (B, S, D) -> (B, S, D) in x's dtype."""
-    h = _slstm_scan(p, x, n_heads)
+def slstm_forward(p, x, *, n_heads: int, state=None,
+                  return_state: bool = False):
+    """x: (B, S, D) -> (B, S, D) in x's dtype; with ``return_state`` also
+    the final (c, n, m, h), each (B, H, hd) f32 (the decode state)."""
+    h, new_state = _slstm_scan(p, x, n_heads, state)
     h = L.rms_norm(h, p["out_norm"])
     uz = torch.einsum("bsd,du->bsu", h.to(x.dtype), p["up_proj"].to(x.dtype))
     u, z = torch.chunk(uz, 2, dim=-1)
-    return torch.einsum("bsu,ud->bsd",
-                        L.ACTIVATIONS["gelu"](u) * torch.sigmoid(z),
-                        p["down_proj"].to(x.dtype))
+    out = torch.einsum("bsu,ud->bsd",
+                       L.ACTIVATIONS["gelu"](u) * torch.sigmoid(z),
+                       p["down_proj"].to(x.dtype))
+    if return_state:
+        return out, new_state
+    return out
+
+
+def init_slstm_state(batch: int, d_model: int, n_heads: int, *,
+                     device="cuda"):
+    """(c, n, m, h), each (B, H, hd) f32 zeros: the O(1) decode state."""
+    z = torch.zeros((batch, n_heads, d_model // n_heads),
+                    dtype=torch.float32, device=device)
+    return (z, z.clone(), z.clone(), z.clone())
+
+
+def slstm_state_axes():
+    a = ("cache_batch", None, "head_dim")
+    return (a, a, a, a)

@@ -14,8 +14,8 @@ Subsystem prefixes (see :func:`subsystem`):
     predicted exchange payload bytes under the live schedule;
   * ``replan_*``  — ``runtime.ReplanController``: per-trigger fire
     counts, swap decisions, trace-attributed step times;
-  * ``publish_*`` / ``guard_*`` — ``repro.stream`` (the *stream*
-    subsystem; not ported yet, ROADMAP.md 13c): delta bytes vs
+  * ``publish_*`` / ``guard_*`` — ``repro_torch.stream`` (the *stream*
+    subsystem): delta bytes vs
     full-checkpoint-equivalent bytes, packet kinds, held-out-NLL probe +
     trip count;
   * ``serve_*``   — ``stream.ServeSession``: per-request records

@@ -1,0 +1,259 @@
+"""The serving path of ``repro.serving.engine``: prefill (build the
+caches) and one-token decode.
+
+Sliding-window attention layers keep ring caches of the window's size;
+sLSTM layers carry their O(1) (c, n, m, h) state.  The states mirror the
+parameter layout: ``{"blocks": [one stack per period position, leading
+n_periods axis], "tail": [one state per tail layer]}``, an attention
+layer's state ``{"self": {"k", "v"}}`` (B, capacity, KV, hd) and an
+sLSTM layer's a 4-tuple of (B, H, hd) f32.
+
+The reference scans over the stacked periods; here a loop over them
+indexes the stacks (as ``models.transformer.forward`` does).
+:func:`serve_step` writes the new token into the caches and states IN
+PLACE (the reference's decode step donates them) and returns the same
+tree.  Everything runs under ``torch.no_grad``.  The Mamba, mLSTM, MoE
+and cross-attention branches raise, naming ROADMAP.md queue 1 item 13d.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F_
+
+from repro_torch import tree
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as F
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"serving {what} is not ported yet (ROADMAP.md queue 1 item 13d: "
+        f"the other model families)")
+
+
+def _attn_capacity(spec: T.BlockSpec, capacity: int) -> int:
+    if spec.window:
+        return min(capacity, spec.window)
+    return capacity
+
+
+def _check_ffn(spec: T.BlockSpec) -> None:
+    if spec.ffn == "moe":
+        raise _unported("an MoE feed-forward")
+    if spec.cross_attn:
+        raise _unported("cross-attention (encoder-decoder)")
+
+
+def init_layer_state(cfg, spec: T.BlockSpec, batch: int, capacity: int,
+                     dtype: torch.dtype, *, device="cuda"):
+    """One layer's zero decode state (attention caches in ``dtype``)."""
+    _check_ffn(spec)
+    if spec.kind == "attn":
+        return {"self": A.init_cache(batch, _attn_capacity(spec, capacity),
+                                     cfg.n_kv_heads, cfg.hd, dtype, device)}
+    if spec.kind == "slstm":
+        return X.init_slstm_state(batch, cfg.d_model, cfg.n_heads,
+                                  device=device)
+    raise _unported(f"a {spec.kind} layer")
+
+
+def _layout(cfg) -> tuple[list, int, int]:
+    specs = T.build_blockspecs(cfg)
+    per = T.find_period(specs)
+    return specs, per, len(specs) // per
+
+
+def init_states(cfg, batch: int, capacity: int, dtype: torch.dtype, *,
+                device="cuda"):
+    """Stacked per-period zero states mirroring the params layout."""
+    specs, per, n_periods = _layout(cfg)
+
+    def stacked(j):
+        one = init_layer_state(cfg, specs[j], batch, capacity, dtype,
+                               device=device)
+        return tree.map(lambda x: x.expand((n_periods,) + x.shape).clone(),
+                        one)
+
+    return {"blocks": [stacked(j) for j in range(per)],
+            "tail": [init_layer_state(cfg, specs[i], batch, capacity, dtype,
+                                      device=device)
+                     for i in range(n_periods * per, len(specs))]}
+
+
+def layer_state_axes(cfg, spec: T.BlockSpec):
+    if spec.kind == "attn":
+        return {"self": A.cache_axes()}
+    if spec.kind == "slstm":
+        return X.slstm_state_axes()
+    raise _unported(f"a {spec.kind} layer")
+
+
+def states_axes(cfg):
+    """Logical-axis tree mirroring :func:`init_states`' structure."""
+    specs, per, n_periods = _layout(cfg)
+
+    def stacked(j):
+        one = layer_state_axes(cfg, specs[j])
+        if isinstance(one, dict):
+            return {"self": {k: ("layers",) + a
+                             for k, a in one["self"].items()}}
+        return tuple(("layers",) + a for a in one)
+
+    return {"blocks": [stacked(j) for j in range(per)],
+            "tail": [layer_state_axes(cfg, specs[i])
+                     for i in range(n_periods * per, len(specs))]}
+
+
+def _fit_cache_time(x, cap: int, prompt_len: int, ring: bool):
+    """One prefill cache leaf on the decode slot layout.
+
+    The time axis is ``-3``: ``(B, S, KV, hd)`` per layer, with a leading
+    n_periods dim under the stacked ``blocks`` layout.  Decode writes
+    token ``pos`` at slot ``pos % cap`` (ring) or ``min(pos, cap - 1)``
+    (full), so a prefill cache holding the tokens in order is zero-padded
+    at the end (prompt shorter than the cache) or rotated so token ``j``
+    lands at slot ``j % cap`` (a full ring)."""
+    axis = x.ndim - 3
+    s = x.shape[axis]
+    if s > cap:
+        if not ring:
+            raise ValueError(f"prompt of {prompt_len} tokens cannot hand "
+                             f"off to a full cache of capacity {cap}")
+        x = x.narrow(axis, s - cap, cap)
+        s = cap
+    if s < cap:
+        return F_.pad(x, (0, 0) * (x.ndim - 1 - axis) + (0, cap - s))
+    if ring:
+        return torch.roll(x, prompt_len % cap, dims=axis)
+    return x
+
+
+def pad_states_for_decode(cfg, states, prompt_len: int, capacity: int):
+    """Grow :func:`prefill`'s caches to the :func:`init_states` decode
+    layout, so a prompt is processed once (no token-by-token replay):
+    self-attention caches sized to the prompt (ring-truncated to the
+    window for windowed layers) become capacity-sized caches with each
+    token at its decode slot; sLSTM states pass through unchanged."""
+    specs, per, n_periods = _layout(cfg)
+
+    def fix(spec: T.BlockSpec, st):
+        if spec.kind != "attn":
+            return st
+        cap = _attn_capacity(spec, capacity)
+        out = dict(st)
+        out["self"] = {k: _fit_cache_time(v, cap, prompt_len,
+                                          ring=bool(spec.window))
+                       for k, v in st["self"].items()}
+        return out
+
+    return {"blocks": [fix(specs[j], st)
+                       for j, st in enumerate(states["blocks"])],
+            "tail": [fix(specs[n_periods * per + i], st)
+                     for i, st in enumerate(states["tail"])]}
+
+
+# ---------------------------------------------------------------------------
+# per-block decode
+# ---------------------------------------------------------------------------
+
+def _ffn(bp, spec: T.BlockSpec, x, cfg):
+    if spec.ffn == "dense":
+        h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
+        x = x + F.ffn_forward(bp["ffn"], h, cfg.activation)
+    return x
+
+
+def _decode_block(bp, spec: T.BlockSpec, x, state, pos: int, cfg,
+                  chunk: int):
+    """One layer on one token; ``state`` (views into the stacks) is
+    updated in place."""
+    _check_ffn(spec)
+    h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
+    if spec.kind == "attn":
+        h, _ = A.decode_attention(
+            bp["attn"], h, state["self"], pos, n_kv_heads=cfg.n_kv_heads,
+            rope_theta=cfg.rope_theta, window=spec.window or None,
+            chunk=chunk)
+    elif spec.kind == "slstm":
+        h, new = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads,
+                                 state=tuple(state), return_state=True)
+        for dst, src in zip(state, new):
+            dst.copy_(src)
+    else:
+        raise _unported(f"a {spec.kind} layer")
+    return _ffn(bp, spec, x + h, cfg)
+
+
+def _slices(stacks, t: int):
+    return tree.map(lambda w: w[t], stacks)
+
+
+@torch.no_grad()
+def serve_step(params, cfg, token, states, pos, *, chunk: int = 2048):
+    """One-token decode.  token: (B, 1) integer; ``pos``: the absolute
+    position being generated (an int or a 0-d tensor).  Returns (logits
+    (B, V) f32, ``states`` updated in place)."""
+    pos = int(pos)
+    x = L.embed(params["embed"], token, L.DTYPES[cfg.dtype])
+    specs, per, n_periods = _layout(cfg)
+    blocks = params["decoder"]["blocks"]
+    for t in range(n_periods):
+        for j in range(per):
+            x = _decode_block(_slices(blocks[j], t), specs[j], x,
+                              _slices(states["blocks"][j], t), pos, cfg,
+                              chunk)
+    for i, tp in enumerate(params["decoder"]["tail"]):
+        x = _decode_block(tp, specs[n_periods * per + i], x,
+                          states["tail"][i], pos, cfg, chunk)
+    x = L.apply_norm(cfg.norm, x, params["final_norm"])
+    return T.logits_fn(params, cfg, x)[:, 0], states
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int):
+    _check_ffn(spec)
+    h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
+    if spec.kind == "attn":
+        h, cache = A.prefill_attention(
+            bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
+            rope_theta=cfg.rope_theta, window=spec.window or None,
+            chunk=chunk)
+        state = {"self": cache}
+    elif spec.kind == "slstm":
+        h, state = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads,
+                                   return_state=True)
+    else:
+        raise _unported(f"a {spec.kind} layer")
+    return _ffn(bp, spec, x + h, cfg), state
+
+
+@torch.no_grad()
+def prefill(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024):
+    """Run the prompt (B, L); return (last-position logits (B, V) f32,
+    states).  Encoders and frontends raise (item 13d)."""
+    if cfg.n_encoder_layers or frontend_embeds is not None:
+        raise _unported("an encoder or a frontend")
+    x = L.embed(params["embed"], tokens, L.DTYPES[cfg.dtype])
+    specs, per, n_periods = _layout(cfg)
+    blocks = params["decoder"]["blocks"]
+    per_t: list[list] = [[] for _ in range(per)]
+    for t in range(n_periods):
+        for j in range(per):
+            x, st = _prefill_block(_slices(blocks[j], t), specs[j], x, cfg,
+                                   chunk)
+            per_t[j].append(st)
+    stacked = [tree.map(lambda *xs: torch.stack(xs), *sts) for sts in per_t
+               if sts]
+    tail = []
+    for i, tp in enumerate(params["decoder"]["tail"]):
+        x, st = _prefill_block(tp, specs[n_periods * per + i], x, cfg, chunk)
+        tail.append(st)
+    x = L.apply_norm(cfg.norm, x, params["final_norm"])
+    logits = T.logits_fn(params, cfg, x[:, -1:])[:, 0]
+    return logits, {"blocks": stacked, "tail": tail}

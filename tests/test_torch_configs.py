@@ -21,12 +21,12 @@ ALL_IDS = JB.ARCH_IDS + JB.PAPER_IDS
 #: ids whose models the port builds, each counted at full size or at
 #: smoke size (nemotron's)
 BUILT = {"tinyllama_1_1b": "full", "llama3_8b": "full",
-         "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke"}
+         "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke",
+         "gemma3_27b": "full"}
 #: id -> what the port refuses in it
 UNPORTED = {"llava_next_mistral_7b": "frontend",
             "seamless_m4t_large_v2": "n_encoder_layers",
             "granite_moe_3b_a800m": "n_experts",
-            "gemma3_27b": "sliding_window",
             "olmoe_1b_7b": "n_experts",
             "xlstm_1_3b": "mlstm",
             "jamba_v0_1_52b": "mamba"}

@@ -408,3 +408,94 @@ def test_scheduled_step_on_each_surface(cuda):
         assert kernels.launch_counts()["ef_select_pack"] == n_sparse
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("compressor", ["topk_block_kernel",
+                                        "topk_hier_ef_kernel"])
+def test_stream_codec_on_the_card_is_bitwise_the_plain_codec(cuda,
+                                                             compressor):
+    """The weight stream's kernel-backed encode on the card against the
+    same encode on the CPU (the kernels' plain versions): bf16 leaves
+    whose first delta is a difference of bf16 values, so |acc| ties at
+    the selection boundary, payload and residual bit for bit; the packet
+    applied on the card equals the one applied on the CPU."""
+    from repro_torch.stream import DeltaCodec, DeltaPacket
+    gen = torch.Generator().manual_seed(2)
+    shapes = {"w": (3, 4096), "b": (5000,), "n": (700,)}
+    pub = {k: torch.randn(s, generator=gen).to(torch.bfloat16)
+           for k, s in shapes.items()}
+    now = {k: (v.float() + 0.02 * torch.randn(v.shape, generator=gen))
+           .to(torch.bfloat16) for k, v in pub.items()}
+    ks = {"w": 384, "b": 160, "n": 20}
+    outs = {}
+    for dev in ("cpu", cuda):
+        on = {k: v.to(dev) for k, v in pub.items()}
+        codec = DeltaCodec(on, compressor=compressor)
+        payload, res, nbytes, _ = codec.encode(
+            on, {k: v.to(dev) for k, v in now.items()},
+            codec.zero_residual(), ks)
+        pkt = DeltaPacket(2, 0, codec.fingerprint, "delta", payload, nbytes)
+        outs[str(dev)] = (payload, res, codec.apply(on, pkt, donate=False))
+    (cp, cr, ca), (gp, gr, ga) = outs["cpu"], outs[str(cuda)]
+    for k in shapes:
+        _bitwise((gp[k]["values"], gp[k]["idx"], gr[k], ga[k]),
+                 (cp[k]["values"], cp[k]["idx"], cr[k], ca[k]))
+
+
+def test_publisher_device_memory_stays_flat_over_many_packets(cuda):
+    """The publisher keeps its packets on the host: after the baseline
+    and a first delta, twelve more publishes leave the card's allocated
+    memory within one delta payload of where it was (a device packet
+    kept per publish would add twelve)."""
+    from repro_torch.stream import StreamPublisher
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    live = {"w": torch.randn((512, 4096), generator=gen, device=cuda),
+            "b": torch.randn((70_000,), generator=gen, device=cuda)}
+    pub = StreamPublisher(live, every=1, compressor="topk_block_kernel")
+    for step in range(2):
+        live = {k: v + 1e-3 * torch.randn(v.shape, generator=gen,
+                                          device=cuda)
+                for k, v in live.items()}
+        pub.publish(step, live)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for step in range(2, 14):
+        live = {k: v + 1e-3 * torch.randn(v.shape, generator=gen,
+                                          device=cuda)
+                for k, v in live.items()}
+        pkt = pub.publish(step, live)
+        assert pkt.kind == "delta"
+    delta_bytes = sum(v.numel() * v.element_size()
+                      for entry in pkt.payload.values()
+                      for v in entry.values())
+    del pkt
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base < delta_bytes
+    assert len(pub.packets) == 14
+    assert all(v.device.type == "cpu" for p in pub.packets
+               for entry in p.payload.values() for v in entry.values())
+
+
+def test_serving_engine_on_the_card_matches_the_cpu(cuda):
+    """Prefill, the handoff and two decode steps of TinyLlama's smoke
+    config (f32) on the card against the CPU, within 1e-4 of max |logit|
+    (the same ops, summed in another order)."""
+    from repro_torch.serving import engine
+    cfg = tinyllama_1_1b.smoke_config()
+    params = TT.init_params(cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree.map(lambda x: x.to(dev), params)
+        logits, st = engine.prefill(p, cfg, toks[:, :10].to(dev), chunk=8)
+        st = engine.pad_states_for_decode(cfg, st, 10, 12)
+        seq = [logits]
+        for i in range(2):
+            logits, st = engine.serve_step(p, cfg, toks[:, 10 + i:11 + i]
+                                           .to(dev), st, 10 + i, chunk=8)
+            seq.append(logits)
+        outs[str(dev)] = [x.cpu() for x in seq]
+    for g, c in zip(outs[str(cuda)], outs["cpu"]):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())

@@ -220,3 +220,40 @@ def test_block_budget_of_a_whole_block_is_bitwise_the_reference(use_kernel):
                 a.numpy().view(np.int32),
                 np.asarray(b, np.float32).view(np.int32))
     assert et["d"].abs().sum() > 0 and not et["a"].any()
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_adamw_three_steps_match_reference(weight_decay):
+    """``AdamW`` on a small tree: three updates from the same numpy
+    gradients and f32 parameters, applied with
+    ``apply_deltas``; moments and parameters allclose at rtol 1e-6, atol
+    1e-7 (f32; XLA's and torch's ``pow``/``sqrt`` may differ in the last
+    bit), the step count equal."""
+    import jax.numpy as jnp
+    from repro.optim import optimizers as JO
+    from repro_torch.optim import optimizers as TO
+    rng = np.random.default_rng(3)
+    shapes = {"w": (8, 6), "b": {"x": (5,)}}
+    params = {"w": rng.standard_normal((8, 6)).astype(np.float32),
+              "b": {"x": rng.standard_normal(5).astype(np.float32)}}
+    grads = [jax.tree.map(lambda s: rng.standard_normal(s).astype(
+        np.float32), shapes, is_leaf=lambda s: isinstance(s, tuple))
+        for _ in range(3)]
+    jopt, topt = JO.AdamW(weight_decay=weight_decay), \
+        TO.AdamW(weight_decay=weight_decay)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = tree.map(lambda a: torch.from_numpy(a.copy()), params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    for g in grads:
+        jd, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp, lr=1e-2)
+        td, ts = topt.update(tree.map(torch.from_numpy, g), ts, tp, lr=1e-2)
+        jp = JO.apply_deltas(jp, jd)
+        tp = TO.apply_deltas(tp, td)
+    assert ts["count"] == int(js["count"]) == 3
+    for name in ("mu", "nu"):
+        for a, b in zip(tree.leaves(ts[name]), jax.tree.leaves(js[name])):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-7)
+    for a, b in zip(tree.leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
