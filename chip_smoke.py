@@ -146,6 +146,25 @@
    TinyLlama at full width (bf16, and the same weights in f32), gemma3's
    smoke config (ring and local/global caches) and the paper LSTM at
    full width (sLSTM state).
+6d. The MoE family (``moe_phase``), in the same NCCL group:
+   Granite-3.0-MoE-3B at its published width (32 layers, d 1536, 40
+   experts top 8, expert d_ff 512, bf16, seeded random weights) trains 3
+   distributed ``lags_dp`` + kernel steps on one 1024-token ``MarkovLM``
+   sequence ``off`` and 3 under ``wave`` (``MOE_DIST``, the health plane
+   on: the Eq. 20 δ of every leaf printed each step): losses finite,
+   step 0 of ``off`` with every ``ef_select_pack`` launch held to its
+   plain version inside the step (the expert stacks: 245,760 rows of
+   4096), ``wave``'s step 0 bitwise to it; step time and peak memory per
+   step.  Outside the counted window ``ef_select_pack`` is timed on one
+   expert stack (f32 updates and residuals, the step's k_b) beside its
+   byte bound, ``torch.topk`` and its plain version.  The trained weights
+   (residuals and gradients freed) serve two requests of 4 prompts of 128
+   tokens + 32 generated, OLMoE-1B-7B at its published width (16 layers,
+   64 experts top 8, untied head, seeded random weights) one; their
+   ``RequestRecord``, the aten ops of one decode step, and the handoff
+   check in bf16 (``HANDOFF_RTOL_MOE``) and in f32 on the same weights,
+   with the planted fault and the tokens whose experts differ between
+   the two paths.
 7. Print the kernels' JSON line (each kernel's launches in every phase
    under ``phase_launches``, the re-encode check's beside them and not in
    ``launches``), the card line and the result line.
@@ -1444,7 +1463,8 @@ def process_group(dev, world: int = 1, rank: int = 0,
 def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                 rank: int = 0, plans: dict | None = None,
                 out_dir: Path | None = None, configs: dict = DIST_CONFIGS,
-                per_rank: int = 1, name: str = "") -> tuple[dict, dict, dict]:
+                per_rank: int = 1, name: str = "", step0: str = "simulation",
+                keep: dict | None = None) -> tuple[dict, dict, dict]:
     """The data-parallel surface on ``world`` NCCL ranks (inside
     ``process_group``; this process is ``rank``; ``per_rank`` sequences
     per rank, the same global batch every step): ``steps`` steps of each
@@ -1454,8 +1474,15 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     step 0 of lags_dp and slgs is held against the simulation path, step
     0's parameters and residuals of each ``wave`` configuration against
     its ``off`` twin bit for bit, and each ``async1`` configuration's
-    losses against ``[L0, L0, L1]`` of its twin.  Several ranks: after
-    every step each rank's parameters must equal rank 0's bit for bit.
+    losses against ``[L0, L0, L1]`` of its twin.  ``step0="launches"``
+    (a model whose step-0 simulation replay would not fit beside its
+    state) holds every kernel launch of an ``off`` step 0 against its
+    plain version inside the step itself instead (``held_to_plain``).
+    ``keep`` takes the last configuration's parameters (``"params"``)
+    when it ends; its residuals go.  Configurations with
+    ``health_every`` print the Eq. 20 δ of every leaf each step.
+    Several ranks: after every step each rank's parameters must equal
+    rank 0's bit for bit.
     ``plans``: the schedules of the autotune phase; None (``--ranks``)
     runs that phase here, over the ranks (``ranks_plans``, writing its
     artifacts to ``out_dir``).  Returns (launch counts summed over the run, per-step rows, each
@@ -1503,16 +1530,23 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
             rows, losses = [], []
             for t in range(steps):
                 det = world == 1 and t == 0
+                # step 0 of an exchange without a wave twin to hold it
+                inside = (det and step0 == "launches"
+                          and run.mode != "dense" and run.pipeline == "off")
+                shapes0: dict = {}
                 if det:
-                    p0 = [x.detach().clone()
-                          for x in tree.leaves(state["params"])]
+                    p0 = ([x.detach().clone()
+                           for x in tree.leaves(state["params"])]
+                          if step0 == "simulation" else None)
                     torch.use_deterministic_algorithms(True)
                 kernels.reset_launch_counts()
                 torch.cuda.reset_peak_memory_stats()
                 marks = [] if run.pipeline == "wave" else None
                 t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch, marks=marks)
-                loss = float(metrics["loss"])                # device sync
+                with (held_to_plain(errs, shapes0) if inside
+                      else contextlib.nullcontext()):
+                    state, metrics = step_fn(state, batch, marks=marks)
+                    loss = float(metrics["loss"])            # device sync
                 step_s = time.perf_counter() - t0
                 step_counts = kernels.launch_counts()
                 for k, v in step_counts.items():
@@ -1520,9 +1554,19 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                 mem = torch.cuda.max_memory_allocated()
                 losses.append(loss)
                 leads = None if marks is None else WS.launch_leads(marks)
+                if inside:
+                    if not shapes0:
+                        raise AssertionError(f"{shown} step 0: no kernel "
+                                             f"launched in the exchange")
+                    print(f"distributed {shown} step 0: every kernel launch "
+                          f"of the step's exchange == its plain version on "
+                          f"the same inputs, bitwise (checked inside the "
+                          f"step, its time included); (rows, bs, k) "
+                          f"{dict((k, sorted(v)) for k, v in shapes0.items())}")
                 if det:    # its comparison launches are not counted
                     try:
-                        if run.mode != "dense" and run.pipeline == "off":
+                        if p0 is not None and run.mode != "dense" \
+                                and run.pipeline == "off":
                             for k, v in check_step0(sess, state, p0,
                                                     batch).items():
                                 errs[k] = max(errs.get(k, 0.0), v)
@@ -1530,12 +1574,19 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                     finally:
                         torch.use_deterministic_algorithms(False)
                     del p0
+                delta = None
+                if "health_delta" in metrics:
+                    delta = dict(zip(tree.leaf_paths(state["params"]),
+                                     metrics["health_delta"].tolist()))
+                    print(f"distributed {shown} step {t}: Eq. 20 delta per "
+                          f"leaf " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in delta.items()))
                 if world > 1:
                     check_replicas(state["params"], f"{shown} step {t}")
                 rows.append({"step": t, "loss": loss, "step_s": step_s,
                              "max_memory_allocated": mem,
                              "launches": step_counts, "wave_leads": leads,
-                             "deterministic": det})
+                             "deterministic": det, "delta": delta})
                 who = f" rank {rank}/{world}" if world > 1 else ""
                 print(f"distributed {shown}{who} step {t}: loss {loss:.6f} "
                       f"step_s {step_s:.4f} max_memory_allocated "
@@ -1573,6 +1624,9 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                               else waves.n_waves,
                               "mesh": dict(zip(mesh.mesh_dim_names,
                                                mesh.mesh.shape))}
+            if keep is not None:
+                keep["params"] = tree.map(lambda x: x.detach(),
+                                          state["params"])
             del state, step_fn, sess
             torch.cuda.empty_cache()
     finally:
@@ -2208,6 +2262,11 @@ HANDOFF_BATCH, HANDOFF_PROMPT, HANDOFF_GEN = 2, 32, 4
 #: TinyLlama's sound bf16 handoff reads at most 1.641e-2 and a cache one
 #: slot off (``slot_fault``) at least 1.453e-1 on the steps it touches
 HANDOFF_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the MoE models' bf16 tolerance: a token near a tie between experts
+#: can route differently along the two paths (``route_flips``).  On an
+#: H100 at 700 W the sound handoff reads at most 2.493e-2 (Granite) and
+#: 5.085e-2 (OLMoE), the planted fault at least 7.066e-2 and 9.759e-2
+HANDOFF_RTOL_MOE = {"granite_moe_3b_a800m": 4e-2, "olmoe_1b_7b": 7e-2}
 STREAM_SCRATCH = ROOT / ".stream_scratch"
 
 
@@ -2226,17 +2285,60 @@ def slot_fault(states):
     return {k: slot_fault(v) for k, v in states.items()}
 
 
-def handoff_check(dev, name: str, cfg, params) -> dict:
+@contextlib.contextmanager
+def routes_recorded(calls: list):
+    """Inside the block, every MoE router call appends the expert sets it
+    picked (``expert_idx`` sorted along k) to ``calls``."""
+    import torch
+    from repro_torch.models import moe
+    route = moe._route
+
+    def recording(p, xt, top_k):
+        out = route(p, xt, top_k)
+        calls.append(torch.sort(out[1], dim=-1).values)
+        return out
+
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def route_flips(handoff_calls: list, replay_calls: list, n_moe: int,
+                prompt: int) -> int:
+    """(token, layer) pairs whose expert set differs between the handoff
+    (one prefill call per MoE layer over every prompt token, then one
+    call per layer per decode step) and the token-by-token replay (one
+    call per layer per position)."""
+    flips = 0
+    prefill, decode = handoff_calls[:n_moe], handoff_calls[n_moe:]
+    for i, got in enumerate(replay_calls):
+        pos, layer = divmod(i, n_moe)
+        got = got.reshape(-1, got.shape[-1])
+        if pos < prompt:
+            want = prefill[layer].reshape(got.shape[0], prompt, -1)[:, pos]
+        else:
+            want = decode[(pos - prompt) * n_moe + layer].reshape(got.shape)
+        flips += int((got != want).any(-1).sum())
+    return flips
+
+
+def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
+                  rtol: float | None = None) -> dict:
     """Prefill -> ``pad_states_for_decode`` -> decode against a
     token-by-token replay of the same tokens from cold caches, on the
     card: the prompt's last logits and ``HANDOFF_GEN - 1`` decode steps'
     (the same known tokens fed to both paths) within ``HANDOFF_RTOL`` of
-    max |logit| (the dtype's), finite.  The same handoff through
-    ``slot_fault`` must land outside that tolerance: the check sees a
-    cache one slot off."""
+    max |logit| (the dtype's, or ``rtol``), finite.  The same handoff
+    through ``slot_fault`` must land outside that tolerance: the check
+    sees a cache one slot off.  For an MoE model, the (token, layer)
+    pairs whose experts differ between the two paths are counted
+    (``route_flips``).  ``tag`` prefixes the printed line."""
     import torch
     from repro_torch import tree
     from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
     from repro_torch.serving import engine
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -2259,16 +2361,26 @@ def handoff_check(dev, name: str, cfg, params) -> dict:
             out.append(logits)
         return out
 
-    sound = handoff(False)
+    n_moe = sum(s.ffn == "moe" for s in T.build_blockspecs(cfg))
+    handoff_routes: list = []
+    replay_routes: list = []
+    with (routes_recorded(handoff_routes) if n_moe
+          else contextlib.nullcontext()):
+        sound = handoff(False)
     st = engine.init_states(cfg, HANDOFF_BATCH, cap, L.DTYPES[cfg.dtype],
                             device=dev)
     replay = []
-    for pos in range(cap - 1):
-        logits, st = engine.serve_step(params, cfg, toks[:, pos:pos + 1], st,
-                                       pos, chunk=64)
-        if pos >= HANDOFF_PROMPT - 1:
-            replay.append(logits)
-    rtol = HANDOFF_RTOL[cfg.dtype]
+    with (routes_recorded(replay_routes) if n_moe
+          else contextlib.nullcontext()):
+        for pos in range(cap - 1):
+            logits, st = engine.serve_step(params, cfg, toks[:, pos:pos + 1],
+                                           st, pos, chunk=64)
+            if pos >= HANDOFF_PROMPT - 1:
+                replay.append(logits)
+    flips = (route_flips(handoff_routes, replay_routes, n_moe,
+                         HANDOFF_PROMPT) if n_moe else None)
+    del handoff_routes, replay_routes
+    rtol = HANDOFF_RTOL[cfg.dtype] if rtol is None else rtol
 
     def rel_err(got) -> list:
         rel = []
@@ -2290,11 +2402,17 @@ def handoff_check(dev, name: str, cfg, params) -> dict:
     out = {"rel_err": rel, "fault_rel_err": fault, "rtol": rtol,
            "s": time.perf_counter() - t0,
            "cache": [tuple(x.shape) for x in tree.leaves(st)][:2]}
-    print(f"stream: handoff {name} ({cfg.dtype}, prompt {HANDOFF_PROMPT}, "
+    routed = ""
+    if n_moe:
+        pairs = HANDOFF_BATCH * (cap - 1) * n_moe
+        out["route_flips"] = [flips, pairs]
+        routed = (f"; experts differ between the paths on {flips} of "
+                  f"{pairs} (token, layer) pairs")
+    print(f"{tag}: handoff {name} ({cfg.dtype}, prompt {HANDOFF_PROMPT}, "
           f"then {HANDOFF_GEN - 1} decode steps, batch {HANDOFF_BATCH}): "
           f"|prefill->decode - replay| / max|logit| per step "
           f"{[f'{x:.3e}' for x in rel]} (tolerance {rtol}); one slot off "
-          f"{[f'{x:.3e}' for x in fault]}; states {out['cache']}",
+          f"{[f'{x:.3e}' for x in fault]}; states {out['cache']}{routed}",
           flush=True)
     return out
 
@@ -2633,6 +2751,167 @@ def stream_phase(dev, cfg, seq: int) -> tuple[dict, dict]:
         shutil.rmtree(STREAM_SCRATCH, ignore_errors=True)
 
 
+#: the MoE phase: Granite-3.0-MoE-3B trains in the distributed step at
+#: world size 1 (lags_dp + kernel, off and its wave twin, the health
+#: plane on for Eq. 20's delta per leaf)
+MOE_DIST = {k: {**DIST_CONFIGS[k], "health_every": 1}
+            for k in ("lags_dp/kernel", "lags_dp/kernel/wave")}
+
+
+def expert_pack_timing(dev, cfg, chunk: int = 1 << 15) -> dict:
+    """``ef_select_pack`` on one expert stack of ``cfg`` as the step
+    launches it: the (layers, E, d, F) leaf's rows of 4096, f32 updates
+    (the step scales the gradient into f32) and f32 residuals, lr 1, at
+    the k_b of the config's ratio; beside its byte bound (rows read
+    twice over: updates and residuals; the residual written; the (value,
+    index) pairs written), ``torch.topk`` on |e + u| and the plain
+    version, which runs (and is timed) chunk by chunk of ``chunk`` rows
+    so that its sort fits beside the inputs; the outputs bitwise to the
+    plain version's."""
+    import torch
+    from repro_torch.kernels import ef_sparsify, ref
+    from repro_torch.kernels.block_topk import RADIX_MIN_K
+    bs = 4096
+    d = cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
+    n = -(-d // bs)
+    k_b = block_kb(d, max(1, round(d / cfg.compression_ratio)), bs)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    u = 1e-3 * torch.randn((n, bs), generator=gen, device=dev)
+    e = 1e-4 * torch.randn((n, bs), generator=gen, device=dev)
+
+    def plain(lo: int, hi: int):
+        return ref.ef_select_pack_ref(u[lo:hi], e[lo:hi], 1.0, None, k_b)
+
+    got = ef_sparsify.ef_select_pack(u, e, 1.0, None, k_b)
+    err = 0.0
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        err = max(err, assert_bitwise(
+            f"moe ef_select_pack {n}x{bs} k_b={k_b} [{lo}:{hi}]",
+            tuple(o[lo:hi] for o in got), plain(lo, hi)))
+    del got
+    ms = cuda_ms(lambda: ef_sparsify.ef_select_pack(u, e, 1.0, None, k_b), 10)
+
+    def plain_all() -> None:
+        for lo in range(0, n, chunk):
+            plain(lo, min(n, lo + chunk))
+
+    plain_ms = cuda_ms(plain_all, 2)
+    mag = (e + u).abs()
+    library_ms = cuda_ms(lambda: torch.topk(mag, k_b, dim=1), 5)
+    del mag, u, e
+    torch.cuda.empty_cache()
+    nbytes = n * bs * 12 + n * k_b * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"rows": n, "bs": bs, "k_b": k_b, "dtypes": "f32 u, f32 e",
+           "path": "radix" if k_b >= RADIX_MIN_K else "arg-max",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "share": bound_ms / ms, "max_abs_err": err}
+    print(f"moe: ef_select_pack on one expert stack ({cfg.n_layers} x "
+          f"{cfg.n_experts} x {cfg.d_model} x {cfg.d_ff}), {n} x {bs} f32 "
+          f"u and e, k_b {k_b} ({out['path']} path): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes), {bound_ms / ms:.3f} of the bound; "
+          f"bitwise equal to the plain version", flush=True)
+    return out
+
+
+def moe_serve(dev, name: str, cfg, params, n_requests: int) -> dict:
+    """Serve ``params`` at full width: ``n_requests`` requests of
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens, ``SERVE_GEN``
+    generated (their ``RequestRecord``s), the aten ops of one decode
+    step, then the handoff check (``handoff_check``) in the config's
+    bf16 and in f32 on the same weights, each with its planted fault;
+    the peak device memory of the requests."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.stream import ServeSession
+    shape = InputShape("serve", SERVE_PROMPT + SERVE_GEN, SERVE_BATCH,
+                       "decode")
+    sub = ServeSession(cfg, shape, params)
+    prompts = synthetic.MarkovLM(vocab=cfg.vocab, seed=7).batch(
+        20_000, SERVE_BATCH, SERVE_PROMPT, device=dev)["tokens"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    records = []
+    for _ in range(n_requests):
+        out = sub.generate(prompts, SERVE_GEN)
+        if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or \
+                int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+            raise AssertionError(f"moe {name}: generated {tuple(out.shape)}")
+        rec = dataclasses.asdict(sub.requests[-1])
+        records.append(rec)
+        print(f"moe: {name} request {rec['index']}: batch {rec['batch']}, "
+              f"prompt {rec['prompt_len']}, {rec['n_tokens']} tokens: "
+              f"prefill {rec['prefill_s']:.4f} s, decode "
+              f"{rec['decode_s']:.4f} s = {rec['decode_tok_s']:.1f} tok/s, "
+              f"cache {rec['cache']}", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ops = decode_op_count(sub, prompts)
+    print(f"moe: {name} one decode step (batch {SERVE_BATCH}, cache "
+          f"{SERVE_PROMPT + SERVE_GEN}) dispatches {ops} aten ops "
+          f"({ops / cfg.n_layers:.0f} a layer); peak device memory of the "
+          f"requests {peak:.3f} GiB", flush=True)
+    del sub
+    handoff = {cfg.dtype: handoff_check(dev, name, cfg, params, tag="moe",
+                                        rtol=HANDOFF_RTOL_MOE[name])}
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree.map(lambda p: p.float(), params)
+    handoff["float32"] = handoff_check(dev, f"{name} f32", f32, p32,
+                                       tag="moe")
+    del p32
+    torch.cuda.empty_cache()
+    return {"requests": records, "decode_ops": ops, "peak_gib": peak,
+            "handoff": handoff}
+
+
+def moe_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
+    """The MoE family at full width, over the world-size-1 NCCL group
+    (inside ``process_group``).  Granite-3.0-MoE-3B (32 layers, 40
+    experts top 8, seeded random weights) trains ``steps`` distributed
+    ``lags_dp`` + kernel steps on one ``seq``-token ``MarkovLM`` sequence
+    under ``off`` and ``wave`` (``MOE_DIST``): step 0 of ``off`` with
+    every ``ef_select_pack`` launch held to its plain version inside the
+    step, ``wave``'s step 0 bitwise to it; then, outside the counted
+    window, ``ef_select_pack`` timed on one expert stack; then the
+    trained weights (residuals and gradients freed) serve two requests,
+    and OLMoE-1B-7B (16 layers, 64 experts top 8, seeded random weights)
+    one.  Returns (launch counts of the training, results, each kernel's
+    largest absolute error against its plain version)."""
+    import torch
+    from repro_torch.configs import granite_moe_3b_a800m, olmoe_1b_7b
+    from repro_torch.models import transformer as T
+    res: dict = {}
+    kept: dict = {}
+    torch.cuda.empty_cache()
+    granite = granite_moe_3b_a800m.CONFIG
+    print(f"moe: {granite.name}: {granite.param_count()} parameters, "
+          f"{granite.active_param_count()} active per token", flush=True)
+    totals, res["train"], errs = distributed(
+        dev, granite, seq, steps, plans={}, configs=MOE_DIST,
+        name="granite-moe ", step0="launches", keep=kept)
+    params = kept.pop("params")
+    torch.cuda.empty_cache()
+    res["pack"] = expert_pack_timing(dev, granite)
+    errs["ef_select_pack"] = max(errs.get("ef_select_pack", 0.0),
+                                 res["pack"]["max_abs_err"])
+    res["granite"] = moe_serve(dev, "granite_moe_3b_a800m", granite, params,
+                               2)
+    del params
+    torch.cuda.empty_cache()
+    olmoe = olmoe_1b_7b.CONFIG
+    print(f"moe: {olmoe.name}: {olmoe.param_count()} parameters, "
+          f"{olmoe.active_param_count()} active per token", flush=True)
+    params = T.init_params(olmoe, seed=0, device=dev)
+    res["olmoe"] = moe_serve(dev, "olmoe_1b_7b", olmoe, params, 1)
+    del params
+    torch.cuda.empty_cache()
+    return totals, res, errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2712,7 +2991,9 @@ def main(argv=None) -> int:
             configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
         observe_totals, observe = observe_phase(dev, cfg, seq, out_dir)
         stream_totals, stream = stream_phase(dev, cfg, seq)
-    for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs")):
+        moe_totals, moe, moe_errs = moe_phase(dev, seq, steps)
+    for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs"),
+                 moe_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
     errs["block_topk"] = max(errs["block_topk"],
@@ -2720,7 +3001,7 @@ def main(argv=None) -> int:
     phases = {"main": main_totals, "ef_accum": path_counts,
               "paper": paper_totals, "distributed": dist_totals,
               "paper_distributed": lstm_totals, "observe": observe_totals,
-              "stream": stream_totals}
+              "stream": stream_totals, "moe": moe_totals}
     totals = {name: sum(c[name] for c in phases.values())
               for name in REPLACES}
     # the stream phase's topk_hier_ef_kernel re-encode: a check, apart
@@ -2744,7 +3025,8 @@ def main(argv=None) -> int:
          "main": results, "distributed": dist_results,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
-         "stream": stream, **kernels_line}, indent=1, default=str))
+         "stream": stream, "moe": moe, **kernels_line}, indent=1,
+        default=str))
     print(json.dumps(kernels_line))
     print(card_line())
     print(result_line(torch))

@@ -5,9 +5,10 @@
 Each config module ``repro_torch/configs/<id>.py`` exposes ``CONFIG``
 (the exact full-size spec, source cited) and ``smoke_config()`` (a
 reduced same-family variant for CPU tests), field for field the
-reference's.  ``models.transformer`` builds dense attention decoders
-(RMS or layer norm) and sLSTM stacks, ``models.cnn`` the paper's CNN;
-the other families raise, naming ROADMAP.md queue 1 item 13d.
+reference's.  ``models.transformer`` builds attention decoders (RMS or
+layer norm, dense or MoE FFNs) and sLSTM stacks, ``models.cnn`` the
+paper's CNN; the other families raise, naming ROADMAP.md queue 1 item
+13d.
 """
 from __future__ import annotations
 
@@ -74,10 +75,24 @@ class ModelConfig:
                    for x in tree.leaves(T.abstract_params(self)))
 
     def active_param_count(self) -> int:
-        """Parameters active per token.  The reference scales expert
-        weights by top_k / n_experts; the port builds no MoE (its count
-        raises, item 13d), so every parameter it builds is active."""
-        return self.param_count()
+        """Parameters active per token: an MoE layer runs top_k of its
+        n_experts experts, so each leaf with the ``experts`` logical
+        axis counts top_k / n_experts of its size (summed in floats and
+        truncated, as the reference does)."""
+        if not self.n_experts:
+            return self.param_count()
+        from repro_torch import tree
+        from repro_torch.models import transformer as T
+        params = T.abstract_params(self)
+        axes = tree.flatten_up_to(tree.flatten(params)[1],
+                                  T.logical_axes(self))
+        total = 0.0
+        for x, ax in zip(tree.leaves(params), axes):
+            n = math.prod(x.shape)
+            if "experts" in ax:
+                n = n * self.moe_top_k / self.n_experts
+            total += n
+        return int(total)
 
 
 ARCH_IDS = [

@@ -11,9 +11,10 @@ not fill a period:
      "embed": {"embedding"}, "final_norm": {...}, "lm_head"?: {"w"}}
 
 An attention block holds ``attn/{wq (d,h,hd), wk, wv (d,kv,hd),
-wo (h,hd,d)}``, ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` and the
-norms ``ln_attn``/``ln_ffn``; an sLSTM block (``models.xlstm``) holds
-``slstm`` and ``ln_attn`` and no FFN.  A norm is ``{"scale"}`` (RMS
+wo (h,hd,d)}``, ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` or, in an
+MoE layer (``models.moe``), ``moe/{router (d,E), w_gate?, w_up (E,d,f),
+w_down (E,f,d)}``, and the norms ``ln_attn``/``ln_ffn``; an sLSTM block
+(``models.xlstm``) holds ``slstm`` and ``ln_attn`` and no FFN.  A norm is ``{"scale"}`` (RMS
 norm) or ``{"bias", "scale"}`` (layer norm).  The flatten order of the
 tree — and so every per-leaf budget and leaf id — is the reference's.
 
@@ -22,8 +23,9 @@ tree — and so every per-leaf budget and leaf id — is the reference's.
 :func:`to_numpy_tree` carry the reference's parameters, as numpy arrays,
 into the port and back.  Attention layers may be windowed
 (``sliding_window``, every layer or the local ones of a local/global
-interleave).  The mLSTM, Mamba, MoE, encoders and frontends raise
-(ROADMAP.md queue 1 item 13d).
+interleave).  ``forward`` returns the MoE layers' load-balance loss,
+summed over the layers in order.  The mLSTM, Mamba, encoders and
+frontends raise (ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from repro_torch import resolve_device, tree
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import xlstm as X
 
 
@@ -95,7 +98,6 @@ def check_supported(cfg) -> None:
     unported = {
         "xlstm_pattern (mlstm)": "mlstm" in (cfg.xlstm_pattern or ()),
         "attn_period (mamba)": cfg.attn_period is not None,
-        "n_experts": bool(cfg.n_experts),
         "n_encoder_layers": bool(cfg.n_encoder_layers),
         "frontend": cfg.frontend is not None,
     }
@@ -104,7 +106,8 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {bad} not ported yet (ROADMAP.md queue 1 item "
             f"13d: the other model families); the port runs dense "
-            f"attention decoders (full or windowed) and sLSTM stacks")
+            f"attention decoders (full or windowed, dense or MoE FFNs) and "
+            f"sLSTM stacks")
 
 
 def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
@@ -134,8 +137,11 @@ def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
         if cfg.gated_ffn:
             p["ffn"]["w_gate"] = ((d, f), s_in)
             ax["ffn"]["w_gate"] = ("embed", "ffn")
+    elif spec.ffn == "moe":
+        p["moe"], ax["moe"] = M.moe_specs(d, cfg.d_ff, cfg.n_experts,
+                                          gated=cfg.gated_ffn)
     p["ln_attn"], ax["ln_attn"] = norm, norm_ax
-    if spec.ffn == "dense":
+    if spec.ffn in ("dense", "moe"):
         p["ln_ffn"], ax["ln_ffn"] = norm, norm_ax
     return p, ax
 
@@ -231,6 +237,7 @@ def _map_axes(fn, axes):
 
 
 def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int):
+    """One layer -> (x, its MoE load-balance loss, or None)."""
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
     if spec.kind == "attn":
         h = A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
@@ -242,17 +249,25 @@ def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int):
     if spec.ffn == "dense":
         h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
         x = x + F.ffn_forward(bp["ffn"], h, cfg.activation)
-    return x
+    elif spec.ffn == "moe":
+        h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
+        out, aux = M.moe_forward_auto(bp["moe"], h, top_k=cfg.moe_top_k,
+                                      activation=cfg.activation)
+        return x + out, aux
+    return x, None
 
 
 def forward(params, cfg, tokens, *, chunk: int = 1024):
-    """tokens (B, S) -> (final hidden states (B, S, D), aux loss 0).
-    Layer t·p + j is position j of period t: the stacks are indexed
-    layer by layer, period by period, as the reference's scan runs."""
+    """tokens (B, S) -> (final hidden states (B, S, D), the MoE layers'
+    aux loss, f32, added layer after layer from 0 as the reference's
+    scan carries it).  Layer t·p + j is position j of period t: the
+    stacks are indexed layer by layer, period by period, as the
+    reference's scan runs."""
     x = L.embed(params["embed"], tokens, L.DTYPES[cfg.dtype])
     specs = build_blockspecs(cfg)
     per = find_period(specs)
     n_periods = len(specs) // per
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stacks = []
     for stack in params["decoder"]["blocks"]:
         flat, treedef = tree.flatten(stack)
@@ -261,11 +276,14 @@ def forward(params, cfg, tokens, *, chunk: int = 1024):
     for t in range(n_periods):
         for j, (treedef, per_layer) in enumerate(stacks):
             bp = tree.unflatten(treedef, [w[t] for w in per_layer])
-            x = _apply_block(bp, specs[j], x, cfg, chunk=chunk)
+            x, a = _apply_block(bp, specs[j], x, cfg, chunk=chunk)
+            aux = aux if a is None else aux + a
     for i, bp in enumerate(params["decoder"]["tail"]):
-        x = _apply_block(bp, specs[n_periods * per + i], x, cfg, chunk=chunk)
+        x, a = _apply_block(bp, specs[n_periods * per + i], x, cfg,
+                            chunk=chunk)
+        aux = aux if a is None else aux + a
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def logits_fn(params, cfg, hidden):

@@ -12,8 +12,10 @@ The reference scans over the stacked periods; here a loop over them
 indexes the stacks (as ``models.transformer.forward`` does).
 :func:`serve_step` writes the new token into the caches and states IN
 PLACE (the reference's decode step donates them) and returns the same
-tree.  Everything runs under ``torch.no_grad``.  The Mamba, mLSTM, MoE
-and cross-attention branches raise, naming ROADMAP.md queue 1 item 13d.
+tree.  Everything runs under ``torch.no_grad``.  An MoE feed-forward
+serves drop-free (capacity for every token in flight), in prefill and
+in decode alike.  The Mamba, mLSTM and cross-attention branches raise,
+naming ROADMAP.md queue 1 item 13d.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch import tree
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as X
 
@@ -41,8 +44,6 @@ def _attn_capacity(spec: T.BlockSpec, capacity: int) -> int:
 
 
 def _check_ffn(spec: T.BlockSpec) -> None:
-    if spec.ffn == "moe":
-        raise _unported("an MoE feed-forward")
     if spec.cross_attn:
         raise _unported("cross-attention (encoder-decoder)")
 
@@ -163,6 +164,16 @@ def _ffn(bp, spec: T.BlockSpec, x, cfg):
     if spec.ffn == "dense":
         h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
         x = x + F.ffn_forward(bp["ffn"], h, cfg.activation)
+    elif spec.ffn == "moe":
+        h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
+        # drop-free, as the reference serves: at the training capacity
+        # factor a decode step's b tokens get ~1 slot an expert and ties
+        # drop, and prefill must route as decode does for the handoff
+        e = bp["moe"]["w_up"].shape[0]
+        out, _ = M.moe_forward_auto(bp["moe"], h, top_k=cfg.moe_top_k,
+                                    activation=cfg.activation,
+                                    capacity_factor=float(e) / cfg.moe_top_k)
+        x = x + out
     return x
 
 

@@ -2,8 +2,9 @@
 reference's: every registered id's ``CONFIG`` and ``smoke_config()``
 field for field, the input shapes, and the parameter counts, which the
 port takes from its own model layout as ``meta`` tensors (no storage)
-and the reference from ``jax.eval_shape`` of its init.  The families the
-port does not build raise, naming ROADMAP.md item 13d.
+and the reference from ``jax.eval_shape`` of its init (the MoE configs'
+active counts too).  The families the port does not build raise, naming
+ROADMAP.md item 13d.
 """
 import dataclasses
 
@@ -22,12 +23,11 @@ ALL_IDS = JB.ARCH_IDS + JB.PAPER_IDS
 #: smoke size (nemotron's)
 BUILT = {"tinyllama_1_1b": "full", "llama3_8b": "full",
          "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke",
-         "gemma3_27b": "full"}
+         "gemma3_27b": "full", "granite_moe_3b_a800m": "full",
+         "olmoe_1b_7b": "full"}
 #: id -> what the port refuses in it
 UNPORTED = {"llava_next_mistral_7b": "frontend",
             "seamless_m4t_large_v2": "n_encoder_layers",
-            "granite_moe_3b_a800m": "n_experts",
-            "olmoe_1b_7b": "n_experts",
             "xlstm_1_3b": "mlstm",
             "jamba_v0_1_52b": "mamba"}
 
@@ -83,6 +83,19 @@ def test_param_counts_of_the_paper_lstm_and_tinyllama():
     11 leaves) and 1,100,048,384."""
     assert TB.get_config("paper_lstm_ptb").param_count() == 55_524_000
     assert TB.get_config("tinyllama_1_1b").param_count() == 1_100_048_384
+
+
+def test_moe_param_counts_total_and_active():
+    """The reference's counts of the MoE configs: every parameter, and
+    those a token runs (top_k of n_experts experts)."""
+    granite = TB.get_config("granite_moe_3b_a800m")
+    olmoe = TB.get_config("olmoe_1b_7b")
+    assert granite.param_count() == 3_298_793_472
+    assert granite.active_param_count() == 882_874_368
+    assert olmoe.param_count() == 6_919_096_320
+    assert olmoe.active_param_count() == 1_281_951_744
+    dense = TB.get_config("tinyllama_1_1b")
+    assert dense.active_param_count() == dense.param_count()
 
 
 @pytest.mark.parametrize("arch", list(UNPORTED))

@@ -499,3 +499,44 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda):
         outs[str(dev)] = [x.cpu() for x in seq]
     for g, c in zip(outs[str(cuda)], outs["cpu"]):
         assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+def test_moe_layer_repeats_bitwise_and_expert_stacks_pack_as_plain(cuda):
+    """The MoE layer (Granite's widths cut to d 256, F 128; 40 experts,
+    top 8; 512 bf16 tokens at capacity factor 1.25, so pairs drop):
+    forward and backward give the same bits on two runs, with
+    deterministic algorithms off (its gathers never collide) and on.
+    Then ``ef_select_pack`` at ratio 1000's k_b 5 on a Granite
+    expert-stack-shaped leaf ((1, 40, 1536, 128): 1920 rows of 4096, bf16
+    updates, f32 residual) equals its plain version bit for bit."""
+    import os
+    from repro_torch.models import moe
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    d, f, e = 256, 128, 40
+    p = {"router": torch.randn((d, e), generator=gen, device=cuda) / 16,
+         "w_up": torch.randn((e, d, f), generator=gen, device=cuda) / 16,
+         "w_gate": torch.randn((e, d, f), generator=gen, device=cuda) / 16,
+         "w_down": torch.randn((e, f, d), generator=gen, device=cuda) / 11}
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    x = torch.randn((2, 256, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        runs = []
+        for _ in range(2):
+            leaves = [v.clone().requires_grad_() for v in p.values()]
+            xx = x.clone().requires_grad_()
+            out, aux = moe.moe_forward_auto(dict(zip(p, leaves)), xx,
+                                            top_k=8)
+            loss = (out.float() ** 2).mean() + aux
+            runs.append([out, aux] + list(torch.autograd.grad(
+                loss, [xx] + leaves)))
+        _bitwise(runs[0], runs[1])
+        assert float(runs[0][0].float().abs().sum(-1).eq(0).float()
+                     .mean()) < 0.5
+    u = torch.randn((1920, 4096), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    resid = torch.randn((1920, 4096), generator=gen, device=cuda) * 1e-2
+    _bitwise(ef_sparsify.ef_select_pack(u, resid, 0.01, None, 5),
+             ref.ef_select_pack_ref(u, resid, 0.01, None, 5))

@@ -134,10 +134,7 @@ def test_random_init_matches_reference_distributions():
 
 
 def test_other_families_raise_naming_roadmap():
-    """MoE and the mLSTM are not ported (item 13d)."""
-    cfg = dataclasses.replace(tcfg.smoke_config(), family="moe", n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13d"):
-        TT.Transformer(cfg, device="cpu")
+    """The mLSTM is not ported (item 13d)."""
     cfg = dataclasses.replace(tcfg.smoke_config(), family="ssm",
                               xlstm_pattern=("mlstm", "slstm"), d_ff=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.*13d"):
