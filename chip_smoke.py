@@ -150,7 +150,7 @@
    Granite-3.0-MoE-3B at its published width (32 layers, d 1536, 40
    experts top 8, expert d_ff 512, bf16, seeded random weights) trains 3
    distributed ``lags_dp`` + kernel steps on one 1024-token ``MarkovLM``
-   sequence ``off`` and 3 under ``wave`` (``MOE_DIST``, the health plane
+   sequence ``off`` and 3 under ``wave`` (``LARGE_DIST``, the health plane
    on: the Eq. 20 δ of every leaf printed each step): losses finite,
    step 0 of ``off`` with every ``ef_select_pack`` launch held to its
    plain version inside the step (the expert stacks: 245,760 rows of
@@ -165,6 +165,21 @@
    check in bf16 (``HANDOFF_RTOL_MOE``) and in f32 on the same weights,
    with the planted fault and the tokens whose experts differ between
    the two paths.
+6e. The xLSTM family (``xlstm_phase``), in the same NCCL group:
+   xLSTM-1.3B at its published width and depth (48 layers alternating
+   mLSTM and sLSTM, d 2048, 4 heads, vocab 50304, untied, bf16, seeded
+   random weights) trains ``XLSTM_STEPS`` distributed ``lags_dp`` +
+   kernel steps on one ``XLSTM_SEQ``-token ``MarkovLM`` sequence ``off``
+   and as many under ``wave`` (``LARGE_DIST``), each period of the stack
+   recomputed in the backward (``loss_fn``'s ``remat``, the training
+   default): losses
+   finite and falling, step 0 of ``off`` with every ``ef_select_pack``
+   launch held to its plain version inside the step, ``wave``'s step 0
+   bitwise to it; step time, peak memory and δ per leaf per step.  The
+   trained weights (residuals and gradients freed) serve two requests of
+   4 prompts of 128 tokens + 32 generated; the handoff is checked in
+   bf16 (``HANDOFF_RTOL_XLSTM``) and in f32 with the planted fault (the
+   mLSTM and sLSTM states zeroed).
 7. Print the kernels' JSON line (each kernel's launches in every phase
    under ``phase_launches``, the re-encode check's beside them and not in
    ``launches``), the card line and the result line.
@@ -2267,13 +2282,19 @@ HANDOFF_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: H100 at 700 W the sound handoff reads at most 2.493e-2 (Granite) and
 #: 5.085e-2 (OLMoE), the planted fault at least 7.066e-2 and 9.759e-2
 HANDOFF_RTOL_MOE = {"granite_moe_3b_a800m": 4e-2, "olmoe_1b_7b": 7e-2}
+#: xLSTM-1.3B's bf16 tolerance: prefill runs each bf16 projection over
+#: every prompt token at once and decode over one, and their rounding
+#: differences carry through 48 recurrent layers (the prompt's own last
+#: logits read the same gap).  On an H100 at 700 W the sound handoff reads
+#: at most 3.778e-2, the planted fault at least 1.149 on its decode steps
+HANDOFF_RTOL_XLSTM = 6e-2
 STREAM_SCRATCH = ROOT / ".stream_scratch"
 
 
 def slot_fault(states):
     """A broken handoff, for the check to catch: every attention cache
     one slot off its decode layout (rolled one slot along time), every
-    other state (the sLSTM's) dropped to zeros."""
+    other state (the xLSTM's) dropped to zeros."""
     import torch
     if isinstance(states, torch.Tensor):
         return torch.zeros_like(states)
@@ -2754,8 +2775,10 @@ def stream_phase(dev, cfg, seq: int) -> tuple[dict, dict]:
 #: the MoE phase: Granite-3.0-MoE-3B trains in the distributed step at
 #: world size 1 (lags_dp + kernel, off and its wave twin, the health
 #: plane on for Eq. 20's delta per leaf)
-MOE_DIST = {k: {**DIST_CONFIGS[k], "health_every": 1}
-            for k in ("lags_dp/kernel", "lags_dp/kernel/wave")}
+#: the large models' distributed rows (the moe and xlstm phases): lags_dp
+#: + kernel off and its wave twin, the health plane's δ on
+LARGE_DIST = {k: {**DIST_CONFIGS[k], "health_every": 1}
+              for k in ("lags_dp/kernel", "lags_dp/kernel/wave")}
 
 
 def expert_pack_timing(dev, cfg, chunk: int = 1 << 15) -> dict:
@@ -2818,13 +2841,15 @@ def expert_pack_timing(dev, cfg, chunk: int = 1 << 15) -> dict:
     return out
 
 
-def moe_serve(dev, name: str, cfg, params, n_requests: int) -> dict:
+def serve_full(dev, tag: str, name: str, cfg, params, n_requests: int, *,
+               rtol: float) -> dict:
     """Serve ``params`` at full width: ``n_requests`` requests of
     ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens, ``SERVE_GEN``
     generated (their ``RequestRecord``s), the aten ops of one decode
     step, then the handoff check (``handoff_check``) in the config's
-    bf16 and in f32 on the same weights, each with its planted fault;
-    the peak device memory of the requests."""
+    bf16 (within ``rtol``) and in f32 on the same weights, each with its
+    planted fault; the peak device memory of the requests.  ``tag``
+    prefixes the printed lines."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.base import InputShape
@@ -2841,27 +2866,28 @@ def moe_serve(dev, name: str, cfg, params, n_requests: int) -> dict:
         out = sub.generate(prompts, SERVE_GEN)
         if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or \
                 int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-            raise AssertionError(f"moe {name}: generated {tuple(out.shape)}")
+            raise AssertionError(f"{tag} {name}: generated "
+                                 f"{tuple(out.shape)}")
         rec = dataclasses.asdict(sub.requests[-1])
         records.append(rec)
-        print(f"moe: {name} request {rec['index']}: batch {rec['batch']}, "
+        print(f"{tag}: {name} request {rec['index']}: batch {rec['batch']}, "
               f"prompt {rec['prompt_len']}, {rec['n_tokens']} tokens: "
               f"prefill {rec['prefill_s']:.4f} s, decode "
               f"{rec['decode_s']:.4f} s = {rec['decode_tok_s']:.1f} tok/s, "
               f"cache {rec['cache']}", flush=True)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     ops = decode_op_count(sub, prompts)
-    print(f"moe: {name} one decode step (batch {SERVE_BATCH}, cache "
+    print(f"{tag}: {name} one decode step (batch {SERVE_BATCH}, cache "
           f"{SERVE_PROMPT + SERVE_GEN}) dispatches {ops} aten ops "
           f"({ops / cfg.n_layers:.0f} a layer); peak device memory of the "
           f"requests {peak:.3f} GiB", flush=True)
     del sub
-    handoff = {cfg.dtype: handoff_check(dev, name, cfg, params, tag="moe",
-                                        rtol=HANDOFF_RTOL_MOE[name])}
+    handoff = {cfg.dtype: handoff_check(dev, name, cfg, params, tag=tag,
+                                        rtol=rtol)}
     f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     p32 = tree.map(lambda p: p.float(), params)
     handoff["float32"] = handoff_check(dev, f"{name} f32", f32, p32,
-                                       tag="moe")
+                                       tag=tag)
     del p32
     torch.cuda.empty_cache()
     return {"requests": records, "decode_ops": ops, "peak_gib": peak,
@@ -2891,22 +2917,75 @@ def moe_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
     print(f"moe: {granite.name}: {granite.param_count()} parameters, "
           f"{granite.active_param_count()} active per token", flush=True)
     totals, res["train"], errs = distributed(
-        dev, granite, seq, steps, plans={}, configs=MOE_DIST,
+        dev, granite, seq, steps, plans={}, configs=LARGE_DIST,
         name="granite-moe ", step0="launches", keep=kept)
     params = kept.pop("params")
     torch.cuda.empty_cache()
     res["pack"] = expert_pack_timing(dev, granite)
     errs["ef_select_pack"] = max(errs.get("ef_select_pack", 0.0),
                                  res["pack"]["max_abs_err"])
-    res["granite"] = moe_serve(dev, "granite_moe_3b_a800m", granite, params,
-                               2)
+    res["granite"] = serve_full(dev, "moe", "granite_moe_3b_a800m", granite,
+                                params, 2,
+                                rtol=HANDOFF_RTOL_MOE["granite_moe_3b_a800m"])
     del params
     torch.cuda.empty_cache()
     olmoe = olmoe_1b_7b.CONFIG
     print(f"moe: {olmoe.name}: {olmoe.param_count()} parameters, "
           f"{olmoe.active_param_count()} active per token", flush=True)
     params = T.init_params(olmoe, seed=0, device=dev)
-    res["olmoe"] = moe_serve(dev, "olmoe_1b_7b", olmoe, params, 1)
+    res["olmoe"] = serve_full(dev, "moe", "olmoe_1b_7b", olmoe, params, 1,
+                              rtol=HANDOFF_RTOL_MOE["olmoe_1b_7b"])
+    del params
+    torch.cuda.empty_cache()
+    return totals, res, errs
+
+
+#: xLSTM-1.3B's training sequence, the longest of 1024, 512 and 256 whose
+#: step peaks under ~70 GiB (``PERF.md`` §4): the parameters, gradients,
+#: EF residual and the exchange's f32 copies peak at ~50 GiB, and the
+#: recompute of one period keeps ~0.1 GiB at 1024 tokens (the mLSTM's
+#: chunkwise form holds (B, H, S, S) weights, not a C a token)
+XLSTM_SEQ = 1024
+#: steps per configuration: two show the loss fall, and the sLSTM's time
+#: loop makes each ~24–42 s (``PERF.md`` §5)
+XLSTM_STEPS = 2
+
+
+def xlstm_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
+    """The xLSTM family at full width, over the world-size-1 NCCL group
+    (inside ``process_group``).  xLSTM-1.3B (48 layers alternating
+    mLSTM and sLSTM, d 2048, 4 heads, vocab 50304, untied, bf16, seeded
+    random weights) trains ``steps`` distributed ``lags_dp`` + kernel
+    steps on one ``seq``-token ``MarkovLM`` sequence under ``off`` and
+    ``wave`` (``LARGE_DIST``; each period recomputed in the backward,
+    the training default): step 0 of ``off`` with every
+    ``ef_select_pack`` launch held to its plain version inside the
+    step, ``wave``'s step 0 bitwise to it; then the trained weights
+    (residuals and gradients freed) serve two requests, with the
+    handoff checked in bf16 and f32.  Returns (launch counts of the
+    training, results, each kernel's largest absolute error against its
+    plain version)."""
+    import torch
+    from repro_torch.configs import xlstm_1_3b
+    res: dict = {}
+    kept: dict = {}
+    torch.cuda.empty_cache()
+    cfg = xlstm_1_3b.CONFIG
+    print(f"xlstm: {cfg.name}: {cfg.param_count()} parameters, "
+          f"{cfg.n_layers} layers {cfg.xlstm_pattern}, d {cfg.d_model}, "
+          f"{cfg.param_dtype}, {seq} tokens a step", flush=True)
+    totals, res["train"], errs = distributed(
+        dev, cfg, seq, steps, plans={}, configs=LARGE_DIST, name="xlstm ",
+        step0="launches", keep=kept)
+    for label, row in res["train"].items():
+        losses = [r["loss"] for r in row["steps"]]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"xlstm {label}: losses {losses} do not "
+                                 f"fall")
+    params = kept.pop("params")
+    torch.cuda.empty_cache()
+    res["serve"] = serve_full(dev, "xlstm", "xlstm_1_3b", cfg, params, 2,
+                              rtol=HANDOFF_RTOL_XLSTM)
     del params
     torch.cuda.empty_cache()
     return totals, res, errs
@@ -2992,8 +3071,10 @@ def main(argv=None) -> int:
         observe_totals, observe = observe_phase(dev, cfg, seq, out_dir)
         stream_totals, stream = stream_phase(dev, cfg, seq)
         moe_totals, moe, moe_errs = moe_phase(dev, seq, steps)
+        xlstm_totals, xlstm, xlstm_errs = xlstm_phase(dev, XLSTM_SEQ,
+                                                      XLSTM_STEPS)
     for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs"),
-                 moe_errs):
+                 moe_errs, xlstm_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
     errs["block_topk"] = max(errs["block_topk"],
@@ -3001,7 +3082,8 @@ def main(argv=None) -> int:
     phases = {"main": main_totals, "ef_accum": path_counts,
               "paper": paper_totals, "distributed": dist_totals,
               "paper_distributed": lstm_totals, "observe": observe_totals,
-              "stream": stream_totals, "moe": moe_totals}
+              "stream": stream_totals, "moe": moe_totals,
+              "xlstm": xlstm_totals}
     totals = {name: sum(c[name] for c in phases.values())
               for name in REPLACES}
     # the stream phase's topk_hier_ef_kernel re-encode: a check, apart
@@ -3025,7 +3107,8 @@ def main(argv=None) -> int:
          "main": results, "distributed": dist_results,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
-         "stream": stream, "moe": moe, **kernels_line}, indent=1,
+         "stream": stream, "moe": moe, "xlstm": xlstm, **kernels_line},
+        indent=1,
         default=str))
     print(json.dumps(kernels_line))
     print(card_line())

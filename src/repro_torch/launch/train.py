@@ -8,7 +8,10 @@ reference's shard_map ``worker`` runs on its manual-axis shard:
 
   1. the gradient of the loss on this rank's rows of the global batch
      (rank r of the data axes takes rows [r·B/R, (r+1)·B/R) of R ranks,
-     pod-major: the simulation surface's split);
+     pod-major: the simulation surface's split), each MoE layer
+     dispatching the reference's token groups (one, or under
+     ``pod_auto`` those of ``pod_auto_moe_groups``), and each period of
+     the stack recomputed in the backward (``loss_fn``'s ``remat``);
   2. ``u = lr·g`` in f32; under the ``pod_auto`` axis plan (``lags_hier``)
      the dense mean of ``u`` over the pod's ranks (the 'data' axis), the
      reference's per-pod gradient; the DGC velocity ``mom = mc·mom + u``
@@ -106,6 +109,31 @@ def _mode(cfg, mesh, method: str | None):
         manual = M.data_axis_names(mesh)
         return mode, manual, manual
     return mode, (), ()
+
+
+def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
+    """The MoE token groups among one rank's rows under the ``pod_auto``
+    plan (``lags_hier``) on ``pods`` × ``data`` ranks.
+
+    The reference takes each pod's gradient on its B/pods rows inside a
+    vmap, where ``moe_forward_auto`` counts the auto 'pod' and 'data'
+    axes as pods·data token groups, each dispatched with its own
+    capacity.  A rank holds B/(pods·data) contiguous rows of its pod's
+    slice, so when the groups divide the slice its rows are exactly
+    ``pods`` of them.  Otherwise the reference dispatches the whole
+    slice as one group: this rank's rows when ``data`` is 1; else a
+    group that spans ranks, which the port would have to gather."""
+    slice_rows = batch_rows // pods
+    if slice_rows % (pods * data) == 0:
+        return pods
+    if data == 1:
+        return 1
+    raise NotImplementedError(
+        f"lags_hier on {pods} pods x {data}: the reference dispatches each "
+        f"pod's {slice_rows} rows as one MoE token group (its "
+        f"{pods * data} groups do not divide them), a group across the "
+        f"pod's ranks; gathering its tokens is not ported (ROADMAP.md "
+        f"queue 1 item 7, its tensor-parallel tail)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,9 +333,14 @@ def build_train_step(cfg, mesh, run: RunConfig):
                 wsum(torch.stack([sum(stale[1])])))[0]
         return out
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, moe_groups):
         return T.loss_fn(params, cfg, batch, chunk=run.chunk,
-                         loss_chunk=run.loss_chunk)
+                         loss_chunk=run.loss_chunk, moe_groups=moe_groups)
+
+    def moe_groups(batch_rows: int) -> int:
+        if strat.axes != "pod_auto" or not cfg.n_experts:
+            return 1
+        return pod_auto_moe_groups(batch_rows, meta["n_workers"], inner.size)
 
     def shard(x):
         b = x.shape[0]
@@ -359,6 +392,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
         params = state["params"]
         leaves, treedef = tree.flatten(params)
         local_batch = tree.map(shard, batch)
+        groups = moe_groups(batch["tokens"].shape[0])
         lr = torch.as_tensor(run.lr_at(state["step"]), dtype=torch.float32,
                              device=dev)
         ef_local = local(state["ef"])
@@ -368,8 +402,9 @@ def build_train_step(cfg, mesh, run: RunConfig):
         if pipeline == "wave" and inner is None:
             # each wave's exchange launches inside backprop (hooks)
             (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
-                lambda p: loss_fn(p, local_batch), step_exch, waves.waves,
-                params, WS.unflatten_state(ef_local, treedef), axes, lr=lr,
+                lambda p: loss_fn(p, local_batch, groups), step_exch,
+                waves.waves, params, WS.unflatten_state(ef_local, treedef),
+                axes, lr=lr,
                 key=key, has_aux=True, tiers=ef_tiers, marks=marks)
             flat_mean = tree.leaves(mean_upd)
             new_ef = WS.flatten_state(new_ef_local, ef_tiers)
@@ -390,7 +425,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
                         stale = ([], [])
                 if stale is None or mc > 0.0:
                     del pend
-            loss, _aux = loss_fn(params, local_batch)
+            loss, _aux = loss_fn(params, local_batch, groups)
             grads = list(torch.autograd.grad(loss, leaves))
             moms = (tree.leaves(state["extra"]["mom"]) if mc > 0.0
                     else [None] * len(grads))

@@ -4,13 +4,23 @@ norm, rotary embedding on split halves, embedding, linear and the
 activations."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
-#: the init of a (shape, init) leaf spec that is not a normal's scale
-ZEROS, ONES = None, "ones"
+
+
+@dataclasses.dataclass(frozen=True)
+class Full:
+    """The init of a (shape, init) leaf spec that is not a normal's
+    scale: every entry ``value`` (``jnp.full``)."""
+    value: float
+
+
+ZEROS, ONES = Full(0.0), Full(1.0)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -203,11 +203,14 @@ def moe_forward_ep(p, x, *, top_k: int, activation: str = "silu",
 
 
 def moe_forward_auto(p, x, *, top_k: int, activation: str = "silu",
-                     capacity_factor: float = 1.25):
+                     capacity_factor: float = 1.25, groups: int = 1):
     """The dispatch the model runs.  The reference groups tokens by the
-    mesh's auto-partitioned data axes; in its ``lags_dp`` step those
-    axes are manual, so each worker dispatches its own tokens as one
-    group.  Every rank of the port holds only its own tokens, so this is
-    one group here too (``moe_forward_grouped(groups=1)``)."""
+    mesh's auto-partitioned data axes.  In its data-manual steps
+    (``lags_dp`` and the rest) those axes are manual, so each worker
+    dispatches its own tokens as one group, as every rank of the port
+    does by default.  Under its ``pod_auto`` step (``lags_hier``) a
+    rank's rows hold several of the reference's groups: the step passes
+    their number (``launch.train.pod_auto_moe_groups``)."""
     return moe_forward_grouped(p, x, top_k=top_k, activation=activation,
-                               capacity_factor=capacity_factor, groups=1)
+                               capacity_factor=capacity_factor,
+                               groups=groups)

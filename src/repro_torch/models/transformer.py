@@ -13,8 +13,9 @@ not fill a period:
 An attention block holds ``attn/{wq (d,h,hd), wk, wv (d,kv,hd),
 wo (h,hd,d)}``, ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` or, in an
 MoE layer (``models.moe``), ``moe/{router (d,E), w_gate?, w_up (E,d,f),
-w_down (E,f,d)}``, and the norms ``ln_attn``/``ln_ffn``; an sLSTM block
-(``models.xlstm``) holds ``slstm`` and ``ln_attn`` and no FFN.  A norm is ``{"scale"}`` (RMS
+w_down (E,f,d)}``, and the norms ``ln_attn``/``ln_ffn``; an mLSTM or
+sLSTM block (``models.xlstm``) holds ``mlstm`` or ``slstm`` and
+``ln_attn`` and no FFN.  A norm is ``{"scale"}`` (RMS
 norm) or ``{"bias", "scale"}`` (layer norm).  The flatten order of the
 tree — and so every per-leaf budget and leaf id — is the reference's.
 
@@ -24,8 +25,11 @@ tree — and so every per-leaf budget and leaf id — is the reference's.
 into the port and back.  Attention layers may be windowed
 (``sliding_window``, every layer or the local ones of a local/global
 interleave).  ``forward`` returns the MoE layers' load-balance loss,
-summed over the layers in order.  The mLSTM, Mamba, encoders and
-frontends raise (ROADMAP.md queue 1 item 13d).
+summed over the layers in order.  ``forward(remat=True)`` and
+``loss_fn(remat=True)``, the reference's default, keep no activation
+inside a period of the stack and recompute the period in the backward
+(``torch.utils.checkpoint``); ``remat=False`` keeps them all.  Mamba,
+encoders and frontends raise (ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device, tree
@@ -96,7 +101,6 @@ def find_period(specs: list[BlockSpec]) -> int:
 def check_supported(cfg) -> None:
     """Raise for what the port has not ported."""
     unported = {
-        "xlstm_pattern (mlstm)": "mlstm" in (cfg.xlstm_pattern or ()),
         "attn_period (mamba)": cfg.attn_period is not None,
         "n_encoder_layers": bool(cfg.n_encoder_layers),
         "frontend": cfg.frontend is not None,
@@ -107,12 +111,12 @@ def check_supported(cfg) -> None:
             f"{cfg.name}: {bad} not ported yet (ROADMAP.md queue 1 item "
             f"13d: the other model families); the port runs dense "
             f"attention decoders (full or windowed, dense or MoE FFNs) and "
-            f"sLSTM stacks")
+            f"xLSTM stacks")
 
 
 def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
     """(leaf specs as (shape, init), logical axes) of one layer: normal
-    times a scale, or ``layers.ZEROS``/``layers.ONES``."""
+    times a scale, or a constant (``layers.Full``)."""
     d = cfg.d_model
     norm = L.norm_specs(cfg.norm, (d,))
     norm_ax = L.norm_axes(cfg.norm, ("embed",))
@@ -127,6 +131,8 @@ def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
                       "wk": ("embed", "kv_heads", "head_dim"),
                       "wv": ("embed", "kv_heads", "head_dim"),
                       "wo": ("heads", "head_dim", "embed")}
+    elif spec.kind == "mlstm":
+        p["mlstm"], ax["mlstm"] = X.mlstm_specs(d, cfg.n_heads)
     elif spec.kind == "slstm":
         p["slstm"], ax["slstm"] = X.slstm_specs(d, cfg.n_heads)
     if spec.ffn == "dense":
@@ -176,7 +182,7 @@ def _layout(cfg) -> tuple[dict, dict]:
 
 def _shapes(cfg) -> dict:
     """Leaf shapes and inits, ``(shape, init)`` with ``init`` a normal's
-    scale, ``layers.ZEROS`` (None) or ``layers.ONES``."""
+    scale or a constant (``layers.Full``)."""
     check_supported(cfg)
     return _layout(cfg)[0]
 
@@ -200,10 +206,8 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
 
     def make(spec):
         shape, init = spec
-        if init is L.ZEROS:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        if init is L.ONES:
-            return torch.ones(shape, dtype=dtype, device=dev)
+        if isinstance(init, L.Full):
+            return torch.full(shape, init.value, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=dev)
         return w.mul_(init).to(dtype)
@@ -236,13 +240,17 @@ def _map_axes(fn, axes):
     return fn(tuple(axes))
 
 
-def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int):
-    """One layer -> (x, its MoE load-balance loss, or None)."""
+def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int,
+                 moe_groups: int = 1):
+    """One layer -> (x, its MoE load-balance loss, or None).  ``chunk``:
+    the sequence chunk of attention's queries and of the mLSTM's scan."""
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
     if spec.kind == "attn":
         h = A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
                                 rope_theta=cfg.rope_theta,
                                 window=spec.window or None, chunk=chunk)
+    elif spec.kind == "mlstm":
+        h = X.mlstm_forward(bp["mlstm"], h, n_heads=cfg.n_heads, chunk=chunk)
     else:
         h = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads)
     x = x + h
@@ -252,17 +260,38 @@ def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int):
     elif spec.ffn == "moe":
         h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
         out, aux = M.moe_forward_auto(bp["moe"], h, top_k=cfg.moe_top_k,
-                                      activation=cfg.activation)
+                                      activation=cfg.activation,
+                                      groups=moe_groups)
         return x + out, aux
     return x, None
 
 
-def forward(params, cfg, tokens, *, chunk: int = 1024):
+def _period(blocks, specs, x, aux, cfg, **kw):
+    """One period of the stack: its layer j is ``blocks[j]``."""
+    for bp, spec in zip(blocks, specs):
+        x, a = _apply_block(bp, spec, x, cfg, **kw)
+        aux = aux if a is None else aux + a
+    return x, aux
+
+
+def forward(params, cfg, tokens, *, chunk: int = 1024, remat: bool = True,
+            moe_groups: int = 1):
     """tokens (B, S) -> (final hidden states (B, S, D), the MoE layers'
     aux loss, f32, added layer after layer from 0 as the reference's
-    scan carries it).  Layer t·p + j is position j of period t: the
-    stacks are indexed layer by layer, period by period, as the
-    reference's scan runs."""
+    scan carries it).  The stacks are indexed layer by layer, period by
+    period, as the reference's scan runs.
+
+    ``remat`` (with gradients on): each period runs under a
+    non-reentrant ``torch.utils.checkpoint`` and is recomputed in the
+    backward; the tail layers are not, as in the reference.  The
+    recompute repeats the forward bit for bit (so ``wave`` == ``off``
+    and the step-0 replays hold): nothing in a period draws random
+    numbers or adds in an order that varies, the MoE router sorts
+    stably and its dispatch and combine are collision-free gathers
+    (no atomics).
+
+    ``moe_groups``: the token groups each MoE layer dispatches apart,
+    each with its own capacity (``models.moe.moe_forward_grouped``)."""
     x = L.embed(params["embed"], tokens, L.DTYPES[cfg.dtype])
     specs = build_blockspecs(cfg)
     per = find_period(specs)
@@ -271,16 +300,25 @@ def forward(params, cfg, tokens, *, chunk: int = 1024):
     stacks = []
     for stack in params["decoder"]["blocks"]:
         flat, treedef = tree.flatten(stack)
-        # one unbind per leaf: one gradient buffer per stacked leaf
+        # one unbind per leaf, outside the checkpoints: one gradient
+        # buffer per stacked leaf, whose hook fires once
         stacks.append((treedef, [w.unbind(0) for w in flat]))
+    kw = dict(chunk=chunk, moe_groups=moe_groups)
+    remat = remat and torch.is_grad_enabled()
     for t in range(n_periods):
-        for j, (treedef, per_layer) in enumerate(stacks):
-            bp = tree.unflatten(treedef, [w[t] for w in per_layer])
-            x, a = _apply_block(bp, specs[j], x, cfg, chunk=chunk)
-            aux = aux if a is None else aux + a
+        # layer t·p + j is position j of period t
+        blocks = [tree.unflatten(treedef, [w[t] for w in per_layer])
+                  for treedef, per_layer in stacks]
+        if remat:
+            # no random draws to replay; the checkpoint walks its
+            # arguments, so it gets this period's leaves only
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _period, blocks, specs[:per], x, aux, cfg,
+                use_reentrant=False, preserve_rng_state=False, **kw)
+        else:
+            x, aux = _period(blocks, specs[:per], x, aux, cfg, **kw)
     for i, bp in enumerate(params["decoder"]["tail"]):
-        x, a = _apply_block(bp, specs[n_periods * per + i], x, cfg,
-                            chunk=chunk)
+        x, a = _apply_block(bp, specs[n_periods * per + i], x, cfg, **kw)
         aux = aux if a is None else aux + a
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return x, aux
@@ -293,13 +331,16 @@ def logits_fn(params, cfg, hidden):
                         params["lm_head"]["w"].float())
 
 
-def loss_fn(params, cfg, batch, *, chunk: int = 1024, loss_chunk: int = 512,
-            aux_weight: float = 0.01):
+def loss_fn(params, cfg, batch, *, chunk: int = 1024, remat: bool = True,
+            loss_chunk: int = 512, aux_weight: float = 0.01,
+            moe_groups: int = 1):
     """Mean next-token cross-entropy over ``batch`` = {"tokens" (B, S),
     "labels" (B, S) (label -1 = masked)}.  The vocab projection runs in
     sequence chunks of ``loss_chunk``; like the reference, the
-    ``s % loss_chunk`` remainder tokens are dropped."""
-    hidden, aux = forward(params, cfg, batch["tokens"], chunk=chunk)
+    ``s % loss_chunk`` remainder tokens are dropped.  ``remat`` and
+    ``moe_groups``: as :func:`forward`'s."""
+    hidden, aux = forward(params, cfg, batch["tokens"], chunk=chunk,
+                          remat=remat, moe_groups=moe_groups)
     labels = batch["labels"]
     hidden = hidden[:, -labels.shape[1]:]
     b, s, d = hidden.shape
@@ -340,8 +381,9 @@ class Transformer(nn.Module):
                            tree.leaves(self.params)):
             self.register_parameter(path.replace("/", "__"), p)
 
-    def forward(self, tokens, *, chunk: int = 1024):
-        return forward(self.params, self.cfg, tokens, chunk=chunk)
+    def forward(self, tokens, *, chunk: int = 1024, remat: bool = True):
+        return forward(self.params, self.cfg, tokens, chunk=chunk,
+                       remat=remat)
 
 
 def from_jax_params(np_tree, cfg, *, device="cuda") -> Transformer:

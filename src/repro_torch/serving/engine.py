@@ -2,11 +2,12 @@
 caches) and one-token decode.
 
 Sliding-window attention layers keep ring caches of the window's size;
-sLSTM layers carry their O(1) (c, n, m, h) state.  The states mirror the
+xLSTM layers carry their O(1) state.  The states mirror the
 parameter layout: ``{"blocks": [one stack per period position, leading
 n_periods axis], "tail": [one state per tail layer]}``, an attention
-layer's state ``{"self": {"k", "v"}}`` (B, capacity, KV, hd) and an
-sLSTM layer's a 4-tuple of (B, H, hd) f32.
+layer's state ``{"self": {"k", "v"}}`` (B, capacity, KV, hd), an mLSTM
+layer's (C (B, H, hd, hd), n (B, H, hd), m (B, H)) f32 and an sLSTM
+layer's a 4-tuple of (B, H, hd) f32.
 
 The reference scans over the stacked periods; here a loop over them
 indexes the stacks (as ``models.transformer.forward`` does).
@@ -14,7 +15,7 @@ indexes the stacks (as ``models.transformer.forward`` does).
 PLACE (the reference's decode step donates them) and returns the same
 tree.  Everything runs under ``torch.no_grad``.  An MoE feed-forward
 serves drop-free (capacity for every token in flight), in prefill and
-in decode alike.  The Mamba, mLSTM and cross-attention branches raise,
+in decode alike.  The Mamba and cross-attention branches raise,
 naming ROADMAP.md queue 1 item 13d.
 """
 from __future__ import annotations
@@ -55,6 +56,9 @@ def init_layer_state(cfg, spec: T.BlockSpec, batch: int, capacity: int,
     if spec.kind == "attn":
         return {"self": A.init_cache(batch, _attn_capacity(spec, capacity),
                                      cfg.n_kv_heads, cfg.hd, dtype, device)}
+    if spec.kind == "mlstm":
+        return X.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
+                                  device=device)
     if spec.kind == "slstm":
         return X.init_slstm_state(batch, cfg.d_model, cfg.n_heads,
                                   device=device)
@@ -87,6 +91,8 @@ def init_states(cfg, batch: int, capacity: int, dtype: torch.dtype, *,
 def layer_state_axes(cfg, spec: T.BlockSpec):
     if spec.kind == "attn":
         return {"self": A.cache_axes()}
+    if spec.kind == "mlstm":
+        return X.mlstm_state_axes()
     if spec.kind == "slstm":
         return X.slstm_state_axes()
     raise _unported(f"a {spec.kind} layer")
@@ -137,7 +143,7 @@ def pad_states_for_decode(cfg, states, prompt_len: int, capacity: int):
     layout, so a prompt is processed once (no token-by-token replay):
     self-attention caches sized to the prompt (ring-truncated to the
     window for windowed layers) become capacity-sized caches with each
-    token at its decode slot; sLSTM states pass through unchanged."""
+    token at its decode slot; xLSTM states pass through unchanged."""
     specs, per, n_periods = _layout(cfg)
 
     def fix(spec: T.BlockSpec, st):
@@ -188,9 +194,10 @@ def _decode_block(bp, spec: T.BlockSpec, x, state, pos: int, cfg,
             bp["attn"], h, state["self"], pos, n_kv_heads=cfg.n_kv_heads,
             rope_theta=cfg.rope_theta, window=spec.window or None,
             chunk=chunk)
-    elif spec.kind == "slstm":
-        h, new = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads,
-                                 state=tuple(state), return_state=True)
+    elif spec.kind in ("mlstm", "slstm"):
+        fwd = X.mlstm_forward if spec.kind == "mlstm" else X.slstm_forward
+        h, new = fwd(bp[spec.kind], h, n_heads=cfg.n_heads,
+                     state=tuple(state), return_state=True)
         for dst, src in zip(state, new):
             dst.copy_(src)
     else:
@@ -236,6 +243,9 @@ def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int):
             rope_theta=cfg.rope_theta, window=spec.window or None,
             chunk=chunk)
         state = {"self": cache}
+    elif spec.kind == "mlstm":
+        h, state = X.mlstm_forward(bp["mlstm"], h, n_heads=cfg.n_heads,
+                                   return_state=True, chunk=chunk)
     elif spec.kind == "slstm":
         h, state = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads,
                                    return_state=True)

@@ -47,7 +47,7 @@ def quality_probe(cfg, batch, *, chunk: int = 64, loss_chunk: int = 64):
 
     @torch.no_grad()
     def nll(params):
-        _, parts = T.loss_fn(params, cfg, batch, chunk=chunk,
+        _, parts = T.loss_fn(params, cfg, batch, chunk=chunk, remat=False,
                              loss_chunk=loss_chunk)
         return float(parts["ce"])
 

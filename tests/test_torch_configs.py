@@ -24,11 +24,10 @@ ALL_IDS = JB.ARCH_IDS + JB.PAPER_IDS
 BUILT = {"tinyllama_1_1b": "full", "llama3_8b": "full",
          "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke",
          "gemma3_27b": "full", "granite_moe_3b_a800m": "full",
-         "olmoe_1b_7b": "full"}
+         "olmoe_1b_7b": "full", "xlstm_1_3b": "full"}
 #: id -> what the port refuses in it
 UNPORTED = {"llava_next_mistral_7b": "frontend",
             "seamless_m4t_large_v2": "n_encoder_layers",
-            "xlstm_1_3b": "mlstm",
             "jamba_v0_1_52b": "mamba"}
 
 
@@ -80,9 +79,11 @@ def test_param_count_equals_the_reference(arch):
 
 def test_param_counts_of_the_paper_lstm_and_tinyllama():
     """The published sizes: 55,524,000 (2 x 1500 sLSTM, vocab 10,000,
-    11 leaves) and 1,100,048,384."""
+    11 leaves) and 1,100,048,384; and xLSTM-1.3B's 2,925,086,912, the
+    reference's count."""
     assert TB.get_config("paper_lstm_ptb").param_count() == 55_524_000
     assert TB.get_config("tinyllama_1_1b").param_count() == 1_100_048_384
+    assert TB.get_config("xlstm_1_3b").param_count() == 2_925_086_912
 
 
 def test_moe_param_counts_total_and_active():

@@ -501,6 +501,40 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda):
         assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
 
 
+@pytest.mark.parametrize("arch,seq", [("tinyllama_1_1b", 1024),
+                                      ("xlstm_1_3b", 128)])
+def test_remat_lowers_peak_memory_and_keeps_the_bits(cuda, arch, seq):
+    """4 layers at the published width (bf16): the loss and every
+    gradient with ``remat`` equal those without it bit for bit, and the
+    step's peak device memory above its start is lower with it."""
+    import os
+    from repro_torch.configs import base
+    from repro_torch.data import synthetic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(base.get_config(arch), n_layers=4)
+    params = TT.Transformer(cfg, device=cuda).params
+    leaves = tree.leaves(params)
+    batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=3).batch(
+        0, 1, seq, device=cuda)
+    peaks, bits = {}, {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        loss, _ = TT.loss_fn(params, cfg, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - start
+        bits[remat] = [x.detach().cpu() for x in (loss,) + grads]
+        del loss, grads
+    _bitwise(bits[True], bits[False])
+    print(f"{arch} 4 layers, {seq} tokens: peak above start "
+          f"{peaks[False] / 2**20:.1f} MiB without remat, "
+          f"{peaks[True] / 2**20:.1f} MiB with it")
+    assert peaks[True] < peaks[False]
+
+
 def test_moe_layer_repeats_bitwise_and_expert_stacks_pack_as_plain(cuda):
     """The MoE layer (Granite's widths cut to d 256, F 128; 40 experts,
     top 8; 512 bf16 tokens at capacity factor 1.25, so pairs drop):

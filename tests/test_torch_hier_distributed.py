@@ -11,7 +11,10 @@ Contracts:
     selection backends;
   * 3 steps of ``lags_hier2`` and ``lags_hier`` through ``Session(cfg,
     run, mesh=...).train_step()`` (``off``, ``async1`` + momentum
-    correction 0.9, and ``lags_hier``'s post-backward ``wave``) match the
+    correction 0.9, and ``lags_hier``'s post-backward ``wave``; and the
+    Granite MoE model under ``lags_hier``, whose token groups follow the
+    reference's pod x data grouping, and under ``lags_dp``, one group of
+    local tokens) match the
     reference's ``build_train_step`` at the battery's tolerances: losses
     rtol 1e-5, parameters, both tiers' residuals, velocities and pending
     updates rtol 1e-4 atol 1e-5 (``lags_hier``'s per-pod gradient is the
@@ -46,12 +49,22 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
              param_dtype="float32")
 RUN_KW = dict(lr=0.1, chunk=16, loss_chunk=16, ratio_inner=4.0,
               inner_compressor="topk_block")
-# against the reference: name -> (mode, mc, pipeline, one repeated batch)
-REF_MODES = {"hier2": ("lags_hier2", 0.0, "off", False),
-             "hier": ("lags_hier", 0.0, "off", False),
-             "hier2_async1_mc": ("lags_hier2", 0.9, "async1", True),
-             "hier_async1_mc": ("lags_hier", 0.9, "async1", True),
-             "hier_wave": ("lags_hier", 0.0, "wave", False)}
+# the models, each a smoke config cut to SMALL's widths
+ARCHS = ("tinyllama_1_1b", "granite_moe_3b_a800m")
+# against the reference: name -> (mode, mc, pipeline, one repeated batch,
+# model)
+REF_MODES = {"hier2": ("lags_hier2", 0.0, "off", False, "tinyllama_1_1b"),
+             "hier": ("lags_hier", 0.0, "off", False, "tinyllama_1_1b"),
+             "hier2_async1_mc": ("lags_hier2", 0.9, "async1", True,
+                                 "tinyllama_1_1b"),
+             "hier_async1_mc": ("lags_hier", 0.9, "async1", True,
+                                "tinyllama_1_1b"),
+             "hier_wave": ("lags_hier", 0.0, "wave", False,
+                           "tinyllama_1_1b"),
+             "moe_hier": ("lags_hier", 0.0, "off", False,
+                          "granite_moe_3b_a800m"),
+             "moe_dp": ("lags_dp", 0.0, "off", False,
+                        "granite_moe_3b_a800m")}
 # wave == off, bitwise: name -> (mode, selection backend)
 WAVE_PARITY = {"hier2_xla": ("lags_hier2", "xla"),
                "hier2_kernel": ("lags_hier2", "kernel"),
@@ -68,11 +81,10 @@ from repro.configs import base
 from repro.launch import mesh as M, train as TR
 
 inp = np.load(sys.argv[1])
-cfg = dataclasses.replace(base.get_smoke_config("tinyllama_1_1b"),
-                          **SMALL)
 mesh = M.make_host_mesh(data=WORLD // PODS, model=1, pod=PODS)
 out = {}
-for name, (mode, mc, pipeline, fixed) in REF_MODES.items():
+for name, (mode, mc, pipeline, fixed, arch) in REF_MODES.items():
+    cfg = dataclasses.replace(base.get_smoke_config(arch), **SMALL)
     run = api.RunConfig(mode=mode, momentum_correction=mc, donate=False,
                         pipeline=pipeline, wave_target_bytes=WAVE_BYTES,
                         **RUN_KW)
@@ -81,7 +93,7 @@ for name, (mode, mc, pipeline, fixed) in REF_MODES.items():
                              momentum_correction=mc)
     flat, treedef = jax.tree.flatten(state["params"])
     state["params"] = jax.tree.unflatten(treedef, [
-        jax.device_put(inp[f"param{i}"], x.sharding)
+        jax.device_put(inp[f"{arch}/param{i}"], x.sharding)
         for i, x in enumerate(flat)])
     with compat.set_mesh(mesh):
         for t in range(STEPS):
@@ -104,7 +116,7 @@ import dataclasses, sys
 import numpy as np, torch
 import torch.distributed as dist
 from repro_torch import api, tree
-from repro_torch.configs import tinyllama_1_1b
+from repro_torch.configs import base
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as TT
 
@@ -139,16 +151,20 @@ for backend in ("xla", "kernel"):
             for tier in ("inner", "outer"):
                 out[f"ex/{backend}/{t}/{tier}/{k}"] = e[tier][k].numpy()
 
-cfg = dataclasses.replace(tinyllama_1_1b.smoke_config(), **SMALL)
-leaves, treedef = tree.flatten(TT.abstract_params(cfg))
-start = tree.unflatten(treedef, [inp[f"param{i}"]
-                                 for i in range(len(leaves))])
+cfgs, starts = {}, {}
+for arch in ARCHS:
+    cfgs[arch] = dataclasses.replace(base.get_smoke_config(arch), **SMALL)
+    leaves, treedef = tree.flatten(TT.abstract_params(cfgs[arch]))
+    starts[arch] = tree.unflatten(treedef, [inp[f"{arch}/param{i}"]
+                                            for i in range(len(leaves))])
 
 
-def train(name, steps, fixed, save_after, on=None, **kw):
+def train(name, steps, fixed, save_after, on=None, arch="tinyllama_1_1b",
+          **kw):
+    cfg = cfgs[arch]
     run = api.RunConfig(wave_target_bytes=WAVE_BYTES, **RUN_KW, **kw)
     sess = api.Session(cfg, run, mesh=on or mesh)
-    module = TT.from_jax_params(start, cfg, device="cpu")
+    module = TT.from_jax_params(starts[arch], cfg, device="cpu")
     state, _ = sess.init_state(params=module.params)
     for t in range(steps):
         b = 0 if fixed else t
@@ -169,10 +185,10 @@ def train(name, steps, fixed, save_after, on=None, **kw):
     out[f"{name}/n_workers"] = sess.meta["n_workers"]
 
 
-for name, (mode, mc, pipeline, fixed) in REF_MODES.items():
+for name, (mode, mc, pipeline, fixed, arch) in REF_MODES.items():
     # async1: a 4th step shows the honest staleness after the prefix
     train(name, STEPS + (pipeline == "async1"), fixed, STEPS, mode=mode,
-          momentum_correction=mc, pipeline=pipeline,
+          momentum_correction=mc, pipeline=pipeline, arch=arch,
           selection_backend="xla" if mode == "lags_hier2" else "kernel")
 for name, (mode, backend) in WAVE_PARITY.items():
     for pipeline in ("off", "wave"):
@@ -194,7 +210,7 @@ print("OK rank", rank)
 
 def _constants() -> str:
     return "".join(f"{name} = {globals()[name]!r}\n" for name in (
-        "WORLD", "PODS", "STEPS", "SMALL", "RUN_KW", "REF_MODES",
+        "WORLD", "PODS", "STEPS", "SMALL", "ARCHS", "RUN_KW", "REF_MODES",
         "WAVE_PARITY", "WAVE_BYTES", "EX_LEAVES", "EX_BLOCK"))
 
 
@@ -220,14 +236,15 @@ def runs(tmp_path_factory):
     import dataclasses
     from repro.configs import base
     tmp = tmp_path_factory.mktemp("hier")
-    cfg = dataclasses.replace(base.get_smoke_config("tinyllama_1_1b"),
-                              **SMALL)
-    params, _ = JT.init_model(jax.random.PRNGKey(0), cfg)
+    inp = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(base.get_smoke_config(arch), **SMALL)
+        params, _ = JT.init_model(jax.random.PRNGKey(0), cfg)
+        inp.update({f"{arch}/param{i}": np.asarray(p)
+                    for i, p in enumerate(jax.tree.leaves(params))})
     rng = np.random.default_rng(14)
     toks = rng.integers(0, SMALL["vocab"], (STEPS, B, S + 1)).astype(
         np.int32)
-    inp = {f"param{i}": np.asarray(p)
-           for i, p in enumerate(jax.tree.leaves(params))}
     inp.update(tokens=toks[..., :-1], labels=toks[..., 1:],
                **_exchange_inputs(rng))
     np.savez(tmp / "in.npz", **inp)
@@ -302,23 +319,25 @@ def test_three_steps_match_jax_build_train_step(runs, name):
     rank for lags_hier2, per pod for lags_hier."""
     _, jres, ranks = runs
     got = ranks[0]
-    mode, mc, pipeline, _ = REF_MODES[name]
+    mode, mc, pipeline, _, _ = REF_MODES[name]
     np.testing.assert_allclose(
         [got[f"{name}/loss{t}"] for t in range(STEPS)],
         [jres[f"{name}/loss{t}"] for t in range(STEPS)], rtol=1e-5)
     assert got[f"{name}/n_waves"] == jres[f"{name}/n_waves"]
     assert got[f"{name}/n_workers"] == (PODS if mode == "lags_hier"
                                         else WORLD)
-    for i in range(12):
+    n = len([k for k in jres if k.startswith(f"{name}/params")])
+    assert n >= 12
+    for i in range(n):
         key = f"{name}/params{i}"
         np.testing.assert_allclose(got[key], jres[key], rtol=1e-4,
                                    atol=1e-5, err_msg=key)
         for res in ranks[1:]:
             np.testing.assert_array_equal(res[key], got[key], err_msg=key)
     per_pod = mode == "lags_hier"
-    for part, want in (("ef", 24 if mode == "lags_hier2" else 12),
-                       ("mom", 12 if mc else 0),
-                       ("pending", 12 if pipeline == "async1" else 0)):
+    for part, want in (("ef", 2 * n if mode == "lags_hier2" else n),
+                       ("mom", n if mc else 0),
+                       ("pending", n if pipeline == "async1" else 0)):
         keys = [k for k in jres if k.startswith(f"{name}/{part}")]
         assert len(keys) == want, (part, keys)
         assert len([k for k in got if k.startswith(f"{name}/{part}")]) \

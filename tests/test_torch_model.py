@@ -134,9 +134,12 @@ def test_random_init_matches_reference_distributions():
 
 
 def test_other_families_raise_naming_roadmap():
-    """The mLSTM is not ported (item 13d)."""
+    """Mamba is not ported (item 13d); the mLSTM is, since item 13d's
+    xLSTM part."""
     cfg = dataclasses.replace(tcfg.smoke_config(), family="ssm",
                               xlstm_pattern=("mlstm", "slstm"), d_ff=0)
+    assert len(tree.leaves(TT.Transformer(cfg, device="cpu").params)) == 21
+    cfg = dataclasses.replace(tcfg.smoke_config(), attn_period=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.*13d"):
         TT.Transformer(cfg, device="cpu")
 

@@ -196,6 +196,34 @@ def test_moe_forward_grouped_matches_reference(groups):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("rows,pods,data,want", [
+    (8, 2, 2, 2), (16, 2, 2, 2), (8, 1, 4, 1), (6, 2, 1, 1), (4, 1, 1, 1),
+    (4, 2, 2, None), (12, 2, 2, None)])
+def test_pod_auto_token_groups_follow_the_reference(rows, pods, data, want):
+    """``lags_hier``'s grouping: each rank's rows dispatched in
+    ``pod_auto_moe_groups`` groups, concatenated over a pod's ranks, give
+    the reference's dispatch of the pod's slice in pods·data groups (its
+    vmap over pods, its auto 'pod' and 'data' axes), output and mean aux;
+    a group that would span ranks raises naming item 7."""
+    from repro_torch.launch import train as TTR
+    if want is None:
+        with pytest.raises(NotImplementedError, match="item 7"):
+            TTR.pod_auto_moe_groups(rows, pods, data)
+        return
+    assert TTR.pod_auto_moe_groups(rows, pods, data) == want
+    p, x = _layer(), _x(shape=(rows, 4, D))
+    per_pod, per_rank = rows // pods, rows // (pods * data)
+    for pod in range(pods):
+        xs = x[pod * per_pod:(pod + 1) * per_pod]
+        jo, ja = JM.moe_forward_grouped(_jax(p), jnp.asarray(xs), top_k=2,
+                                        groups=pods * data)
+        outs, auxs = zip(*(TM.moe_forward_grouped(
+            _torch(p), torch.from_numpy(xs[r * per_rank:(r + 1) * per_rank]),
+            top_k=2, groups=want) for r in range(data)))
+        _close(torch.cat(outs), jo, f"pod {pod} output")
+        _close(torch.stack(auxs).mean(), ja, f"pod {pod} aux")
+
+
 @pytest.mark.parametrize("capacity_factor", [0.01, 1.25])
 def test_gradients_match_reference(capacity_factor):
     """d(sum(out²) + aux) with respect to x and every leaf: the dropped

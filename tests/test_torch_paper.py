@@ -192,12 +192,20 @@ def test_slstm_forward_matches_reference():
 
 
 def test_mlstm_pattern_raises_naming_item_13d():
+    """The mLSTM pattern that raised builds now (item 13d's xLSTM part;
+    its parity is ``test_torch_xlstm.py``'s): an mLSTM/sLSTM stack at the
+    paper LSTM's smoke widths runs.  A Mamba stack still raises naming
+    13d."""
     cfg = dataclasses.replace(TB.get_smoke_config("paper_lstm_ptb"),
                               xlstm_pattern=("mlstm", "slstm"))
-    with pytest.raises(NotImplementedError, match="mlstm.*13d"):
-        TT.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="13d"):
-        TX.mlstm_forward({}, torch.zeros(1, 1, 4), n_heads=1)
+    module = TT.Transformer(cfg, device="cpu")
+    assert "mlstm" in module.params["decoder"]["blocks"][0]
+    hidden, _ = module(torch.zeros((1, 3), dtype=torch.int32))
+    assert tuple(hidden.shape) == (1, 3, cfg.d_model)
+    assert bool(torch.isfinite(hidden).all())
+    with pytest.raises(NotImplementedError, match="mamba.*13d"):
+        TT.Transformer(dataclasses.replace(cfg, xlstm_pattern=None,
+                                           attn_period=2), device="cpu")
 
 
 # --- the CNN ----------------------------------------------------------------

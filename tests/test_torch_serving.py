@@ -1,7 +1,7 @@
 """The serving path of the port against the reference: ``serving.engine``
 (prefill, the prefill→decode handoff, one-token decode) on full KV
-caches, sliding-window rings, local/global interleaves, sLSTM states
-and MoE feed-forwards (Granite-3.0-MoE and OLMoE smoke configs, served
+caches, sliding-window rings, local/global interleaves, mLSTM and sLSTM
+states and MoE feed-forwards (Granite-3.0-MoE and OLMoE smoke configs, served
 drop-free); ``launch/serve`` (the long-context rewrite, the one-device
 steps); ``launch/specs``; windowed attention in training (gemma3's smoke
 config, loss and gradients).
@@ -40,10 +40,10 @@ from repro_torch.serving import engine as TE  # noqa: E402
 
 RTOL, ATOL = 1e-4, 2e-5
 #: the smoke configs the parity tests run: a full cache, ring and
-#: local/global caches (window 16, period 2), the sLSTM state, and the
-#: MoE feed-forwards (drop-free in serving)
+#: local/global caches (window 16, period 2), the sLSTM state, the MoE
+#: feed-forwards (drop-free in serving) and the mLSTM/sLSTM states
 PARITY_IDS = ("tinyllama_1_1b", "gemma3_27b", "paper_lstm_ptb",
-              "granite_moe_3b_a800m", "olmoe_1b_7b")
+              "granite_moe_3b_a800m", "olmoe_1b_7b", "xlstm_1_3b")
 
 
 def _close(got, want, what):
@@ -206,8 +206,7 @@ def test_handoff_matches_token_by_token_replay():
                                    rtol=1e-4, err_msg=f"decode step {i}")
 
 
-@pytest.mark.parametrize("arch,what", [("jamba_v0_1_52b", "mamba"),
-                                       ("xlstm_1_3b", "mlstm")])
+@pytest.mark.parametrize("arch,what", [("jamba_v0_1_52b", "mamba")])
 def test_unported_families_raise_naming_item_13d(arch, what):
     cfg = TB.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match=f"{what}.*13d"):
