@@ -180,6 +180,28 @@
    4 prompts of 128 tokens + 32 generated; the handoff is checked in
    bf16 (``HANDOFF_RTOL_XLSTM``) and in f32 with the planted fault (the
    mLSTM and sLSTM states zeroed).
+6f. Encoders and frontends (``encdec_phase``), in the same NCCL group:
+   SeamlessM4T-Large-v2 at its published width and depth (12 encoder and
+   12 decoder layers with cross-attention, d 1024, vocab 256,206, tied,
+   layer norm, bf16, seeded random weights; ratio 250, so k_b 17 and
+   every ``ef_select_pack`` launch on the radix path) trains 3 simulated
+   steps (P = 2, ``lags_dp`` + kernel backend + ``topk_exact``, step 0's
+   every launch held to its plain version) and 3 + 3 distributed
+   ``lags_dp`` + kernel steps ``off`` and ``wave`` (``LARGE_DIST``), each
+   worker on one 1024-token sequence beside its 256 frames
+   (``frontend_batch``: ``launch/specs.concrete_batch``'s frames, uniform
+   tokens); then the trained weights serve two requests of 4 prompts of
+   128 tokens + 256 frames, 32 generated, through ``launch/serve``'s
+   prefill and decode steps (``serve_frontend``).  LLaVA-NeXT-Mistral-7B
+   at its published width trains the same distributed steps cut to
+   ``LLAVA_TRAIN_LAYERS`` layers on 2048 patches + 2048 tokens, and
+   serves at full depth (32 layers) two requests of 4 prompts of 2880
+   patches + 128 tokens.  Every run's losses fall, every leaf's δ is at
+   most 1, ``wave``'s step 0 is bitwise ``off``'s; the handoff is checked
+   in bf16 (LLaVA's within ``HANDOFF_RTOL_LLAVA``) and f32 against
+   prefills of the prompt and the tokens fed so far, with the planted
+   faults (SeamlessM4T: the cross caches zeroed; LLaVA: decode at
+   positions without the patches).
 7. Print the kernels' JSON line (each kernel's launches in every phase
    under ``phase_launches``, the re-encode check's beside them and not in
    ``launches``), the card line and the result line.
@@ -1121,11 +1143,12 @@ DELTA_MIN_D = 64
 
 
 def sim_run(dev, label: str, trainer, batches, expect, errs: dict,
-            shapes: dict) -> tuple[dict, list]:
+            shapes: dict, tag: str = "paper") -> tuple[dict, list]:
     """``len(batches)`` steps of ``trainer``; step 0 with every kernel
     launch held to its plain version (``held_to_plain``), every loss
-    finite, every kernel of ``expect`` launched.  Returns (the launch
-    counts of the run, per-step rows)."""
+    finite, every kernel of ``expect`` launched; ``tag`` prefixes the
+    printed lines.  Returns (the launch counts of the run, per-step
+    rows)."""
     import torch
     from repro_torch import kernels
     kernels.reset_launch_counts()
@@ -1149,16 +1172,16 @@ def sim_run(dev, label: str, trainer, batches, expect, errs: dict,
         if "delta_per_leaf" in metrics:
             row["delta_per_leaf"] = metrics["delta_per_leaf"].tolist()
         rows.append(row)
-        print(f"paper {label} step {t}: loss {loss:.6f} step_s {step_s:.4f}"
+        print(f"{tag} {label} step {t}: loss {loss:.6f} step_s {step_s:.4f}"
               f" max_memory_allocated {mem / 2**30:.3f} GiB launches "
               f"{counts}" + (" (every launch held to its plain version)"
                              if row["held_to_plain"] else ""))
         if not math.isfinite(loss):
-            raise AssertionError(f"paper {label} step {t}: loss {loss}")
+            raise AssertionError(f"{tag} {label} step {t}: loss {loss}")
     counts = kernels.launch_counts()
     missing = [k for k in expect if counts[k] == 0]
     if missing:
-        raise AssertionError(f"paper {label}: kernels {missing} never "
+        raise AssertionError(f"{tag} {label}: kernels {missing} never "
                              f"launched")
     return counts, rows
 
@@ -1479,12 +1502,16 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                 rank: int = 0, plans: dict | None = None,
                 out_dir: Path | None = None, configs: dict = DIST_CONFIGS,
                 per_rank: int = 1, name: str = "", step0: str = "simulation",
-                keep: dict | None = None) -> tuple[dict, dict, dict]:
+                keep: dict | None = None,
+                batch: dict | None = None) -> tuple[dict, dict, dict]:
     """The data-parallel surface on ``world`` NCCL ranks (inside
     ``process_group``; this process is ``rank``; ``per_rank`` sequences
     per rank, the same global batch every step): ``steps`` steps of each
     configuration of ``configs`` (``DIST_CONFIGS`` or a part of it);
-    ``name`` prefixes its lines.  One rank:
+    ``name`` prefixes its lines.  ``batch``: the global batch of every
+    step (default: ``MarkovLM`` sequences of ``seq`` tokens, which a
+    vocab of SeamlessM4T's size cannot hold, and which carry no
+    frontend's embeddings).  One rank:
     step 0 of every configuration runs under deterministic algorithms;
     step 0 of lags_dp and slgs is held against the simulation path, step
     0's parameters and residuals of each ``wave`` configuration against
@@ -1509,8 +1536,9 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     from repro_torch.launch import mesh as M
     from repro_torch.pipeline import step as WS
 
-    data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
-    batch = data.batch(0, world * per_rank, seq, device=dev)
+    if batch is None:
+        batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=3).batch(
+            0, world * per_rank, seq, device=dev)
     totals = dict.fromkeys(kernels.WRAPPERS, 0)
     results, twins, errs = {}, {}, {}
     try:
@@ -2288,6 +2316,14 @@ HANDOFF_RTOL_MOE = {"granite_moe_3b_a800m": 4e-2, "olmoe_1b_7b": 7e-2}
 #: logits read the same gap).  On an H100 at 700 W the sound handoff reads
 #: at most 3.778e-2, the planted fault at least 1.149 on its decode steps
 HANDOFF_RTOL_XLSTM = 6e-2
+#: LLaVA-NeXT-Mistral-7B's bf16 tolerance: decode's one-token
+#: projections round apart from a prefill's batched ones by about one
+#: bf16 ulp at the first layer (3.1e-3 of the hidden state's largest
+#: entry), and the gap grows through the 32 layers to 2.8e-2 (f32 on the
+#: same weights: 2.6e-6 to 1.0e-5 at every layer).  On an H100 at 700 W
+#: the sound handoff reads at most 2.796e-2, the planted fault at least
+#: 1.159
+HANDOFF_RTOL_LLAVA = 6e-2
 STREAM_SCRATCH = ROOT / ".stream_scratch"
 
 
@@ -2345,17 +2381,34 @@ def route_flips(handoff_calls: list, replay_calls: list, n_moe: int,
     return flips
 
 
+def cross_zeroed(states):
+    """A broken encoder-decoder handoff, for the check to catch: every
+    cross-attention cache zeroed (decode attends over no encoder)."""
+    import torch
+    return {part: [{**st, "cross": {k: torch.zeros_like(v)
+                                    for k, v in st["cross"].items()}}
+                   for st in sts]
+            for part, sts in states.items()}
+
+
 def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
-                  rtol: float | None = None) -> dict:
-    """Prefill -> ``pad_states_for_decode`` -> decode against a
-    token-by-token replay of the same tokens from cold caches, on the
-    card: the prompt's last logits and ``HANDOFF_GEN - 1`` decode steps'
-    (the same known tokens fed to both paths) within ``HANDOFF_RTOL`` of
-    max |logit| (the dtype's, or ``rtol``), finite.  The same handoff
-    through ``slot_fault`` must land outside that tolerance: the check
-    sees a cache one slot off.  For an MoE model, the (token, layer)
-    pairs whose experts differ between the two paths are counted
-    (``route_flips``).  ``tag`` prefixes the printed line."""
+                  rtol: float | None = None, frontend=None) -> dict:
+    """Prefill -> ``pad_states_for_decode`` -> decode against a replay of
+    the same tokens, on the card: the prompt's last logits and
+    ``HANDOFF_GEN - 1`` decode steps' (the same known tokens fed to both
+    paths) within ``HANDOFF_RTOL`` of max |logit| (the dtype's, or
+    ``rtol``), finite.  The replay feeds the tokens one at a time from
+    cold caches; with a frontend's embeddings (``frontend`` (B, N, D),
+    fed to every prefill), which a token-by-token replay can neither
+    feed nor put in the cross caches, the replay of decode step i is a
+    prefill of the prompt and the i tokens fed so far, its last
+    position's logits.  The same handoff with a planted fault must land
+    outside that tolerance: every attention cache one slot off
+    (``slot_fault``), or with a frontend a VLM's decode at positions that
+    leave out its N patches, an encoder-decoder's cross caches zeroed
+    (``cross_zeroed``).  For an MoE model, the (token, layer) pairs whose
+    experts differ between the two paths are counted (``route_flips``).
+    ``tag`` prefixes the printed line."""
     import torch
     from repro_torch import tree
     from repro_torch.models import layers as L
@@ -2367,37 +2420,56 @@ def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
                          (HANDOFF_BATCH, HANDOFF_PROMPT + HANDOFF_GEN),
                          generator=gen, device=dev, dtype=torch.int32)
     cap = HANDOFF_PROMPT + HANDOFF_GEN
+    # the patches a VLM's prompt holds ahead of its tokens
+    n_f = 0 if frontend is None or cfg.n_encoder_layers \
+        else frontend.shape[1]
+    fault_name = ("one slot off" if frontend is None else
+                  "cross caches zeroed" if cfg.n_encoder_layers else
+                  f"decode positions without the {n_f} patches")
     t0 = time.perf_counter()
 
-    def handoff(fault: bool) -> list:
+    def handoff(fault: bool) -> tuple[list, dict]:
         logits, st = engine.prefill(params, cfg, toks[:, :HANDOFF_PROMPT],
-                                    chunk=64)
-        st = engine.pad_states_for_decode(cfg, st, HANDOFF_PROMPT, cap)
-        if fault:
+                                    frontend_embeds=frontend, chunk=64)
+        st = engine.pad_states_for_decode(cfg, st, n_f + HANDOFF_PROMPT,
+                                          n_f + cap)
+        offset = n_f
+        if fault and frontend is None:
             st = slot_fault(st)
+        elif fault and cfg.n_encoder_layers:
+            st = cross_zeroed(st)
+        elif fault:
+            offset = 0
         out = [logits]
         for pos in range(HANDOFF_PROMPT, cap - 1):
             logits, st = engine.serve_step(params, cfg, toks[:, pos:pos + 1],
-                                           st, pos, chunk=64)
+                                           st, offset + pos, chunk=64)
             out.append(logits)
-        return out
+        return out, st
 
     n_moe = sum(s.ffn == "moe" for s in T.build_blockspecs(cfg))
     handoff_routes: list = []
     replay_routes: list = []
     with (routes_recorded(handoff_routes) if n_moe
           else contextlib.nullcontext()):
-        sound = handoff(False)
-    st = engine.init_states(cfg, HANDOFF_BATCH, cap, L.DTYPES[cfg.dtype],
-                            device=dev)
+        sound, st = handoff(False)
     replay = []
-    with (routes_recorded(replay_routes) if n_moe
-          else contextlib.nullcontext()):
-        for pos in range(cap - 1):
-            logits, st = engine.serve_step(params, cfg, toks[:, pos:pos + 1],
-                                           st, pos, chunk=64)
-            if pos >= HANDOFF_PROMPT - 1:
-                replay.append(logits)
+    if frontend is not None:
+        for pos in range(HANDOFF_PROMPT - 1, cap - 1):
+            replay.append(engine.prefill(params, cfg, toks[:, :pos + 1],
+                                         frontend_embeds=frontend,
+                                         chunk=64)[0])
+    else:
+        rst = engine.init_states(cfg, HANDOFF_BATCH, cap,
+                                 L.DTYPES[cfg.dtype], device=dev)
+        with (routes_recorded(replay_routes) if n_moe
+              else contextlib.nullcontext()):
+            for pos in range(cap - 1):
+                logits, rst = engine.serve_step(
+                    params, cfg, toks[:, pos:pos + 1], rst, pos, chunk=64)
+                if pos >= HANDOFF_PROMPT - 1:
+                    replay.append(logits)
+        del rst
     flips = (route_flips(handoff_routes, replay_routes, n_moe,
                          HANDOFF_PROMPT) if n_moe else None)
     del handoff_routes, replay_routes
@@ -2415,27 +2487,61 @@ def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
     if max(rel) > rtol:
         raise AssertionError(f"handoff {name}: logits differ from the "
                              f"replay by {rel} of max |logit| (> {rtol})")
-    fault = rel_err(handoff(True))
+    fault = rel_err(handoff(True)[0])
     if max(fault) <= rtol:
-        raise AssertionError(f"handoff {name}: a cache one slot off reads "
-                             f"{fault} of max |logit|, inside the "
-                             f"tolerance {rtol}: the check cannot see it")
-    out = {"rel_err": rel, "fault_rel_err": fault, "rtol": rtol,
-           "s": time.perf_counter() - t0,
+        raise AssertionError(f"handoff {name}: the planted fault "
+                             f"({fault_name}) reads {fault} of max |logit|, "
+                             f"inside the tolerance {rtol}: the check cannot "
+                             f"see it")
+    out = {"rel_err": rel, "fault_rel_err": fault, "fault": fault_name,
+           "rtol": rtol, "s": time.perf_counter() - t0,
            "cache": [tuple(x.shape) for x in tree.leaves(st)][:2]}
+    del st
     routed = ""
     if n_moe:
         pairs = HANDOFF_BATCH * (cap - 1) * n_moe
         out["route_flips"] = [flips, pairs]
         routed = (f"; experts differ between the paths on {flips} of "
                   f"{pairs} (token, layer) pairs")
-    print(f"{tag}: handoff {name} ({cfg.dtype}, prompt {HANDOFF_PROMPT}, "
-          f"then {HANDOFF_GEN - 1} decode steps, batch {HANDOFF_BATCH}): "
-          f"|prefill->decode - replay| / max|logit| per step "
-          f"{[f'{x:.3e}' for x in rel]} (tolerance {rtol}); one slot off "
-          f"{[f'{x:.3e}' for x in fault]}; states {out['cache']}{routed}",
-          flush=True)
+    front = "" if frontend is None else \
+        f", {frontend.shape[1]} frontend embeddings, replayed by prefills"
+    print(f"{tag}: handoff {name} ({cfg.dtype}, prompt {HANDOFF_PROMPT}"
+          f"{front}, then {HANDOFF_GEN - 1} decode steps, batch "
+          f"{HANDOFF_BATCH}): |prefill->decode - replay| / max|logit| per "
+          f"step {[f'{x:.3e}' for x in rel]} (tolerance {rtol}); "
+          f"{fault_name} {[f'{x:.3e}' for x in fault]}; states "
+          f"{out['cache']}{routed}", flush=True)
     return out
+
+
+def aten_ops(fn) -> int:
+    """The aten ops ``fn()`` dispatches: each is at least one launch
+    from the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def decode_op_count(sub, prompts) -> int:
+    """The aten ops one ``serve_step`` of ``sub``'s model dispatches at
+    ``prompts``' batch and a ``SERVE_PROMPT + SERVE_GEN`` cache."""
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine
+    states = engine.init_states(sub.cfg, prompts.shape[0],
+                                SERVE_PROMPT + SERVE_GEN,
+                                L.DTYPES[sub.cfg.dtype], device=prompts.device)
+    return aten_ops(lambda: engine.serve_step(
+        sub.params, sub.cfg, prompts[:, :1], states, SERVE_PROMPT,
+        chunk=sub.chunk))
 
 
 def stream_timings(dev, acc, k_b: int, block_size: int = 4096) -> dict:
@@ -2478,31 +2584,6 @@ def stream_timings(dev, acc, k_b: int, block_size: int = 4096) -> dict:
           f"{bound_ms / ms:.3f} of the bound; {tie_rows} rows tie at their "
           f"k_b-th |acc|; bitwise equal to the plain version", flush=True)
     return out
-
-
-def decode_op_count(sub, prompts) -> int:
-    """The aten ops one ``serve_step`` of ``sub``'s model dispatches at
-    ``prompts``' batch and a ``SERVE_PROMPT + SERVE_GEN`` cache: each is
-    at least one launch from the host."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from repro_torch.models import layers as L
-    from repro_torch.serving import engine
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    states = engine.init_states(sub.cfg, prompts.shape[0],
-                                SERVE_PROMPT + SERVE_GEN,
-                                L.DTYPES[sub.cfg.dtype], device=prompts.device)
-    with Count():
-        engine.serve_step(sub.params, sub.cfg, prompts[:, :1], states,
-                          SERVE_PROMPT, chunk=sub.chunk)
-    return Count.n
 
 
 def stream_phase(dev, cfg, seq: int) -> tuple[dict, dict]:
@@ -2781,6 +2862,15 @@ LARGE_DIST = {k: {**DIST_CONFIGS[k], "health_every": 1}
               for k in ("lags_dp/kernel", "lags_dp/kernel/wave")}
 
 
+def check_falls(label: str, rows: dict) -> None:
+    """Every run of a distributed phase: its last loss below its first."""
+    for name, row in rows.items():
+        losses = [r["loss"] for r in row["steps"]]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label} {name}: losses {losses} do not "
+                                 f"fall")
+
+
 def expert_pack_timing(dev, cfg, chunk: int = 1 << 15) -> dict:
     """``ef_select_pack`` on one expert stack of ``cfg`` as the step
     launches it: the (layers, E, d, F) leaf's rows of 4096, f32 updates
@@ -2977,15 +3067,293 @@ def xlstm_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
     totals, res["train"], errs = distributed(
         dev, cfg, seq, steps, plans={}, configs=LARGE_DIST, name="xlstm ",
         step0="launches", keep=kept)
-    for label, row in res["train"].items():
-        losses = [r["loss"] for r in row["steps"]]
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"xlstm {label}: losses {losses} do not "
-                                 f"fall")
+    check_falls("xlstm", res["train"])
     params = kept.pop("params")
     torch.cuda.empty_cache()
     res["serve"] = serve_full(dev, "xlstm", "xlstm_1_3b", cfg, params, 2,
                               rtol=HANDOFF_RTOL_XLSTM)
+    del params
+    torch.cuda.empty_cache()
+    return totals, res, errs
+
+
+#: the encoder-decoder's training: one sequence of ``ENCDEC_SEQ`` tokens
+#: and its ``audio_frames`` (256) frames per worker, ``ENCDEC_STEPS``
+#: steps per configuration
+ENCDEC_SEQ, ENCDEC_STEPS = 1024, 3
+#: the frames beside each serving prompt of SeamlessM4T:
+#: ``audio_frames(1024)``, the training sequence's
+ENCDEC_FRAMES = 256
+#: LLaVA-NeXT's training depth, the deepest of 16 and 12 layers whose
+#: step peaks under ~70 GiB (``PERF.md`` §4): at 16 bytes a parameter
+#: (bf16 parameter and gradient, f32 residual, the exchange's f32 update
+#: and new residual) all 32 layers would need 116 GB; 16 peak at 65.6
+#: GiB (``off``) and 59.5 (``wave``) on an H100
+LLAVA_TRAIN_LAYERS = 16
+#: its training shape, ``train_4k``'s sequence: ``train_batch_specs``
+#: gives 2048 patch embeddings and 2048 tokens
+LLAVA_SEQ = 4096
+
+
+def frontend_batch(cfg, seq: int, rows: int, dev, seed: int) -> dict:
+    """A training batch of ``rows`` sequences at ``seq`` under
+    ``launch/specs``: the frontend's embeddings from ``concrete_batch``
+    (a standard normal in the config's dtype), tokens uniform in the
+    vocab with the labels the next token (``lm_input_batch``; a vocab of
+    SeamlessM4T's size is too large for ``MarkovLM``'s dense
+    transition matrix)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.launch import specs as SP
+    batch = SP.concrete_batch(cfg, InputShape("train", seq, rows, "train"),
+                              seed=seed, device=dev)
+    batch.update(synthetic.lm_input_batch(
+        seed, rows, batch["tokens"].shape[1], cfg.vocab, device=dev))
+    return batch
+
+
+def check_delta(label: str, rows: dict) -> float:
+    """Eq. 20's δ of every leaf in every step of a distributed run
+    (``health_every``): finite and at most 1.  Returns the largest."""
+    worst = 0.0
+    for name, row in rows.items():
+        for r in row["steps"]:
+            for leaf, x in r["delta"].items():
+                if not (math.isfinite(x) and x <= 1.0):
+                    raise AssertionError(f"{label} {name} step {r['step']}: "
+                                         f"delta {x} on {leaf}")
+                worst = max(worst, x)
+    print(f"{label}: Eq. 20 delta <= {worst:.4f} on every leaf in every "
+          f"step (Fig. 2: delta <= 1)", flush=True)
+    return worst
+
+
+def serve_frontend(dev, tag: str, name: str, cfg, params, n_requests: int, *,
+                   n_front: int, rtol: float | None = None) -> dict:
+    """Serve ``params`` at full width through ``launch/serve``'s steps
+    (``make_prefill_step``, then ``pad_states_for_decode``, then
+    ``make_serve_step``'s decode; ``ServeSession.generate`` takes tokens
+    only, as the reference's does): ``n_requests`` requests of
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens beside ``n_front``
+    frontend embeddings each, ``SERVE_GEN`` tokens generated greedily;
+    prefill s, decode tok/s, the aten ops of one decode step and the
+    requests' peak device memory; then ``handoff_check`` with the
+    frontend in the config's bf16 (within ``rtol``) and in f32 on the
+    same weights, each with its planted fault."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine
+    n_f = 0 if cfg.n_encoder_layers else n_front
+    prompt = n_f + SERVE_PROMPT
+    cap = prompt + SERVE_GEN
+    prefill, _ = SV.make_prefill_step(
+        cfg, None, InputShape("serve", prompt, SERVE_BATCH, "prefill"))
+    step, _ = SV.make_serve_step(
+        cfg, None, InputShape("serve", cap, SERVE_BATCH, "decode"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    batch = {"tokens": synthetic.lm_input_batch(
+                 7, SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
+                 device=dev)["tokens"].to(torch.int32),
+             "frontend_embeds": torch.randn(
+                 (SERVE_BATCH, n_front, cfg.d_model), generator=gen,
+                 device=dev).to(L.DTYPES[cfg.dtype])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    records = []
+    for i in range(n_requests):
+        t0 = time.perf_counter()
+        logits, states = prefill(params, batch)
+        states = engine.pad_states_for_decode(cfg, states, prompt, cap)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out = []
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for j in range(SERVE_GEN):
+            out.append(tok)
+            logits, states = step(params, tok, states, prompt + j)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        tokens = torch.cat(out, dim=1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+        if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) or \
+                int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag} {name}: generated "
+                                 f"{tuple(tokens.shape)}")
+        rec = {"index": i, "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+               "frontend": n_front, "n_tokens": SERVE_GEN,
+               "prefill_s": prefill_s, "decode_s": decode_s,
+               "decode_tok_s": SERVE_BATCH * SERVE_GEN / decode_s}
+        records.append(rec)
+        print(f"{tag}: {name} request {i}: batch {SERVE_BATCH}, prompt "
+              f"{SERVE_PROMPT} tokens + {n_front} frontend embeddings, "
+              f"{SERVE_GEN} tokens: prefill {prefill_s:.4f} s, decode "
+              f"{decode_s:.4f} s = {rec['decode_tok_s']:.1f} tok/s",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ops = aten_ops(lambda: step(params, tok, states, cap - 1))
+    print(f"{tag}: {name} one decode step (batch {SERVE_BATCH}, cache "
+          f"{cap}{', cross caches ' + str(n_front) if cfg.n_encoder_layers else ''}"
+          f") dispatches {ops} aten ops ({ops / cfg.n_layers:.0f} a layer); "
+          f"peak device memory of the requests {peak:.3f} GiB", flush=True)
+    del states, logits, batch
+    torch.cuda.empty_cache()
+    front = torch.randn((HANDOFF_BATCH, n_front, cfg.d_model), generator=gen,
+                        device=dev)
+    handoff = {cfg.dtype: handoff_check(
+        dev, name, cfg, params, tag=tag, rtol=rtol,
+        frontend=front.to(L.DTYPES[cfg.dtype]))}
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree.map(lambda p: p.float(), params)
+    handoff["float32"] = handoff_check(dev, f"{name} f32", f32, p32, tag=tag,
+                                       frontend=front)
+    del p32, front
+    torch.cuda.empty_cache()
+    return {"requests": records, "decode_ops": ops, "peak_gib": peak,
+            "handoff": handoff}
+
+
+def add_run(totals: dict, errs: dict, run: tuple) -> dict:
+    """Add a run's (launch counts, results, errors) into ``totals`` and
+    ``errs``; return its results."""
+    counts, res, run_errs = run
+    for k, v in counts.items():
+        totals[k] += v
+    for k, v in run_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    return res
+
+
+def encdec_phase(dev) -> tuple[dict, dict, dict]:
+    """Encoders and frontends at full width, over the world-size-1 NCCL
+    group (inside ``process_group``): ``seamless_phase``, then
+    ``llava_phase``.  Returns (launch counts of the training, results,
+    each kernel's largest absolute error against its plain version)."""
+    from repro_torch import kernels
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    errs: dict = {}
+    res = add_run(totals, errs, seamless_phase(dev))
+    res.update(add_run(totals, errs, llava_phase(dev)))
+    return totals, res, errs
+
+
+def seamless_phase(dev) -> tuple[dict, dict, dict]:
+    """SeamlessM4T-Large-v2 (12 encoder and 12 decoder layers, d 1024,
+    vocab 256,206, tied, layer norm, GELU, bf16, seeded random weights)
+    trains ``ENCDEC_STEPS`` simulated steps
+    (P = 2, ``lags_dp`` + kernel backend + ``topk_exact``, step 0 with
+    every launch held to its plain version) and as many distributed
+    ``lags_dp`` + kernel steps under ``off`` and ``wave``
+    (``LARGE_DIST``: step 0 of ``off`` with every ``ef_select_pack``
+    launch held to its plain version inside the step, ``wave``'s step 0
+    bitwise to it), each worker on one ``ENCDEC_SEQ``-token sequence
+    beside its frames; every run's losses fall and every leaf's δ is at
+    most 1; the trained weights (residuals and gradients freed) serve two
+    requests.  Returns (launch counts of the training, results, each
+    kernel's largest absolute error against its plain version)."""
+    import torch
+    from repro_torch import api, kernels
+    from repro_torch.configs import seamless_m4t_large_v2 as seamless_mod
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import transformer as T
+    res: dict = {}
+    kept: dict = {}
+    errs: dict = {}
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    torch.cuda.empty_cache()
+    cfg = seamless_mod.CONFIG
+    frames = SP.audio_frames(ENCDEC_SEQ)
+    print(f"encdec: {cfg.name}: {cfg.param_count()} parameters, "
+          f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d {cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}; "
+          f"{ENCDEC_SEQ} tokens and {frames} frames a sequence", flush=True)
+    p = 2
+    model = T.Transformer(cfg, seed=0, device=dev)
+    trainer = api.Session(cfg, api.RunConfig(
+        mode="lags_dp", compressor="topk_exact", selection_backend="kernel",
+        lr=0.01), device=dev).simulator(
+        lambda q, b: T.loss_fn(q, cfg, b, chunk=1024, loss_chunk=512),
+        model.params, n_workers=p)
+    whole = frontend_batch(cfg, ENCDEC_SEQ, p, dev, seed=3)
+    batches = [{k: v.reshape(p, 1, *v.shape[1:]) for k, v in whole.items()}
+               ] * ENCDEC_STEPS
+    shapes: dict = {}
+    counts, rows = sim_run(dev, "seamless sim P=2 lags_dp/topk_exact/kernel",
+                           trainer, batches,
+                           ("ef_block_candidates", "ef_select_pack"), errs,
+                           shapes, tag="encdec")
+    print(f"encdec: seamless sim step 0: every kernel launch == its plain "
+          f"version, bitwise; (rows, bs, k) "
+          f"{dict((k, sorted(v)) for k, v in shapes.items())}", flush=True)
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"encdec seamless sim: losses "
+                             f"{[r['loss'] for r in rows]} do not fall")
+    res["seamless_sim"] = {"workers": p, "steps": rows, "launches": counts}
+    for k, v in counts.items():
+        totals[k] += v
+    del trainer, model, batches, whole
+    torch.cuda.empty_cache()
+    batch = frontend_batch(cfg, ENCDEC_SEQ, 1, dev, seed=3)
+    res["seamless_train"] = add_run(totals, errs, distributed(
+        dev, cfg, ENCDEC_SEQ, ENCDEC_STEPS, plans={}, configs=LARGE_DIST,
+        name="seamless ", step0="launches", keep=kept, batch=batch))
+    check_falls("encdec seamless", res["seamless_train"])
+    res["seamless_delta"] = check_delta("encdec seamless",
+                                        res["seamless_train"])
+    params = kept.pop("params")
+    del batch
+    torch.cuda.empty_cache()
+    res["seamless_serve"] = serve_frontend(
+        dev, "encdec", "seamless_m4t_large_v2", cfg, params, 2,
+        n_front=ENCDEC_FRAMES)
+    del params
+    torch.cuda.empty_cache()
+    return totals, res, errs
+
+
+def llava_phase(dev) -> tuple[dict, dict, dict]:
+    """LLaVA-NeXT-Mistral-7B at its published width (d 4096, 32 heads,
+    8 kv, d_ff 14336, vocab 32,000, untied, bf16, seeded random weights)
+    trains ``ENCDEC_STEPS`` distributed ``lags_dp`` + kernel steps under
+    ``off`` and ``wave`` (``LARGE_DIST``, checked as SeamlessM4T's) cut
+    to ``LLAVA_TRAIN_LAYERS`` layers, on ``LLAVA_SEQ`` (2048 patches and
+    2048 tokens), then serves two requests at full depth (2880 patches
+    and 128 tokens a prompt).  Returns (launch counts of the training,
+    results, each kernel's largest absolute error against its plain
+    version)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import llava_next_mistral_7b as llava_mod
+    from repro_torch.models import transformer as T
+    res: dict = {}
+    errs: dict = {}
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    torch.cuda.empty_cache()
+    full = llava_mod.CONFIG
+    cut = dataclasses.replace(full, n_layers=LLAVA_TRAIN_LAYERS)
+    batch = frontend_batch(cut, LLAVA_SEQ, 1, dev, seed=3)
+    print(f"encdec: {full.name}: {full.param_count()} parameters; trains "
+          f"at {cut.n_layers} of its {full.n_layers} layers "
+          f"({cut.param_count()} parameters), d {full.d_model}, "
+          f"{full.param_dtype}; {batch['frontend_embeds'].shape[1]} patches "
+          f"and {batch['tokens'].shape[1]} tokens a sequence", flush=True)
+    res["llava_train"] = add_run(totals, errs, distributed(
+        dev, cut, LLAVA_SEQ, ENCDEC_STEPS, plans={}, configs=LARGE_DIST,
+        name="llava ", step0="launches", batch=batch))
+    check_falls("encdec llava", res["llava_train"])
+    res["llava_delta"] = check_delta("encdec llava", res["llava_train"])
+    del batch
+    torch.cuda.empty_cache()
+    params = T.init_params(full, seed=0, device=dev)
+    res["llava_serve"] = serve_frontend(
+        dev, "encdec", "llava_next_mistral_7b", full, params, 2,
+        n_front=full.n_frontend_tokens, rtol=HANDOFF_RTOL_LLAVA)
     del params
     torch.cuda.empty_cache()
     return totals, res, errs
@@ -3073,8 +3441,9 @@ def main(argv=None) -> int:
         moe_totals, moe, moe_errs = moe_phase(dev, seq, steps)
         xlstm_totals, xlstm, xlstm_errs = xlstm_phase(dev, XLSTM_SEQ,
                                                       XLSTM_STEPS)
+        encdec_totals, encdec, encdec_errs = encdec_phase(dev)
     for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs"),
-                 moe_errs, xlstm_errs):
+                 moe_errs, xlstm_errs, encdec_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
     errs["block_topk"] = max(errs["block_topk"],
@@ -3083,7 +3452,7 @@ def main(argv=None) -> int:
               "paper": paper_totals, "distributed": dist_totals,
               "paper_distributed": lstm_totals, "observe": observe_totals,
               "stream": stream_totals, "moe": moe_totals,
-              "xlstm": xlstm_totals}
+              "xlstm": xlstm_totals, "encdec": encdec_totals}
     totals = {name: sum(c[name] for c in phases.values())
               for name in REPLACES}
     # the stream phase's topk_hier_ef_kernel re-encode: a check, apart
@@ -3107,7 +3476,8 @@ def main(argv=None) -> int:
          "main": results, "distributed": dist_results,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
-         "stream": stream, "moe": moe, "xlstm": xlstm, **kernels_line},
+         "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
+         **kernels_line},
         indent=1,
         default=str))
     print(json.dumps(kernels_line))

@@ -6,9 +6,9 @@ Each config module ``repro_torch/configs/<id>.py`` exposes ``CONFIG``
 (the exact full-size spec, source cited) and ``smoke_config()`` (a
 reduced same-family variant for CPU tests), field for field the
 reference's.  ``models.transformer`` builds attention decoders (RMS or
-layer norm, dense or MoE FFNs) and sLSTM stacks, ``models.cnn`` the
-paper's CNN; the other families raise, naming ROADMAP.md queue 1 item
-13d.
+layer norm, dense or MoE FFNs, with an audio encoder or a vision
+frontend) and xLSTM stacks, ``models.cnn`` the paper's CNN; Mamba (the
+hybrid family) raises, naming ROADMAP.md queue 1 item 13d.
 """
 from __future__ import annotations
 

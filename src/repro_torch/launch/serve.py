@@ -43,11 +43,15 @@ def check_mesh(mesh) -> None:
 
 def state_specs(cfg, mesh, shape):
     """``meta`` stand-ins for decode: ``{"params", "states"}`` at
-    ``shape``'s batch and capacity, and the resolved serving config."""
+    ``shape``'s batch and capacity (an audio model's cross caches hold
+    ``audio_frames(seq_len)`` slots), and the resolved serving config."""
     check_mesh(mesh)
     cfg = serve_cfg(cfg, shape.name)
+    enc_len = SP.audio_frames(shape.seq_len) if cfg.frontend == "audio" \
+        else 0
     states = engine.init_states(cfg, shape.global_batch, shape.seq_len,
-                                L.DTYPES[cfg.dtype], device="meta")
+                                L.DTYPES[cfg.dtype], enc_len=enc_len,
+                                device="meta")
     return {"params": T.abstract_params(cfg), "states": states}, cfg
 
 

@@ -1,6 +1,7 @@
 """Grouped-query attention with the online softmax of
-``repro.models.attention.chunked_attention``, sliding windows and the
-KV-cache decode path, in plain PyTorch.
+``repro.models.attention.chunked_attention``, sliding windows, the
+encoder's and the decoder's cross-attention and the KV-cache decode
+path, in plain PyTorch.
 
 Layouts are the reference's: ``wq`` (d, h, hd), ``wk``/``wv``
 (d, kv, hd), ``wo`` (h, hd, d); queries grouped as (B, S, KV, G, hd).
@@ -110,17 +111,59 @@ def _rope_qk(q, k, positions, rope_theta):
 
 
 def attention_forward(p, x, *, n_kv_heads: int, rope_theta: float = 10000.0,
-                      window: int | None = None, chunk: int = 1024):
-    """Self-attention (training path) with rotary embedding: causal,
-    masked to the last ``window`` positions when given."""
+                      window: int | None = None, chunk: int = 1024,
+                      positions=None, use_rope: bool = True):
+    """Self-attention (training and encoding path): causal unless
+    ``window`` is -1, masked to the last ``window`` positions when it is
+    a width; rotary embedding at ``positions`` (default ``0 … S - 1``)
+    unless ``use_rope`` is False."""
     b, s, d = x.shape
     q, k, v = _qkv(p, x, n_kv_heads)
-    positions = torch.arange(s, device=x.device)
-    q, k = _rope_qk(q, k, positions, rope_theta)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    if use_rope:
+        q, k = _rope_qk(q, k, positions, rope_theta)
     o = chunked_attention(q, k, v, q_positions=positions,
-                          k_positions=positions, causal=True,
+                          k_positions=positions, causal=window != -1,
                           window=_window(window), chunk=chunk)
     return _out_proj(p, o, x.dtype)
+
+
+def attention_encoder(p, x, *, n_kv_heads: int, chunk: int = 1024):
+    """Bidirectional self-attention without rotary embedding."""
+    return attention_forward(p, x, n_kv_heads=n_kv_heads, window=-1,
+                             chunk=chunk, use_rope=False)
+
+
+def cross_kv(p, memory):
+    """The keys and values (B, Sm, KV, hd) of a cross-attention layer
+    over the encoder's output ``memory`` (B, Sm, D)."""
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"].to(memory.dtype))
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"].to(memory.dtype))
+    return k, v
+
+
+def cross_attend(p, x, k, v, *, n_kv_heads: int, chunk: int = 1024):
+    """Queries of ``x`` (B, S, D) over every one of the keys and values
+    ``k``, ``v`` (B, Sm, KV, hd): no rotary embedding, no mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    b, s, h, hd = q.shape
+    q = q.reshape(b, s, n_kv_heads, h // n_kv_heads, hd)
+    o = chunked_attention(
+        q, k.to(x.dtype), v.to(x.dtype),
+        q_positions=torch.zeros((s,), dtype=torch.long, device=x.device),
+        k_positions=torch.zeros((k.shape[1],), dtype=torch.long,
+                                device=x.device),
+        causal=False, chunk=chunk)
+    return _out_proj(p, o, x.dtype)
+
+
+def cross_attention_forward(p, x, memory, *, n_kv_heads: int,
+                            chunk: int = 1024):
+    """Decoder cross-attention over the encoder's output ``memory``
+    (B, Sm, D): no rotary embedding, not causal."""
+    k, v = cross_kv(p, memory)
+    return cross_attend(p, x, k, v, n_kv_heads=n_kv_heads, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

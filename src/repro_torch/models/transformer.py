@@ -1,5 +1,6 @@
-"""Decoder-only LM stacks of ``repro.models.transformer`` as an
-``nn.Module`` over a parameter tree in the reference's layout.
+"""The decoder and encoder-decoder LM stacks of
+``repro.models.transformer`` as an ``nn.Module`` over a parameter tree in
+the reference's layout.
 
 A model is a sequence of per-layer :class:`BlockSpec` entries derived from
 the config (``build_blockspecs``), grouped into the smallest repeating
@@ -8,10 +9,12 @@ leading ``n_periods`` axis, and a ``tail`` of unstacked layers that do
 not fill a period:
 
     {"decoder": {"blocks": [stack_0, ..., stack_{p-1}], "tail": [...]},
-     "embed": {"embedding"}, "final_norm": {...}, "lm_head"?: {"w"}}
+     "embed": {"embedding"}, "enc_norm"?: {...}, "encoder"?: {"blocks",
+     "tail"}, "final_norm": {...}, "lm_head"?: {"w"}}
 
 An attention block holds ``attn/{wq (d,h,hd), wk, wv (d,kv,hd),
-wo (h,hd,d)}``, ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` or, in an
+wo (h,hd,d)}`` (in an encoder-decoder's decoder also ``cross``, the same
+shapes, and ``ln_cross``), ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` or, in an
 MoE layer (``models.moe``), ``moe/{router (d,E), w_gate?, w_up (E,d,f),
 w_down (E,f,d)}``, and the norms ``ln_attn``/``ln_ffn``; an mLSTM or
 sLSTM block (``models.xlstm``) holds ``mlstm`` or ``slstm`` and
@@ -28,8 +31,15 @@ interleave).  ``forward`` returns the MoE layers' load-balance loss,
 summed over the layers in order.  ``forward(remat=True)`` and
 ``loss_fn(remat=True)``, the reference's default, keep no activation
 inside a period of the stack and recompute the period in the backward
-(``torch.utils.checkpoint``); ``remat=False`` keeps them all.  Mamba,
-encoders and frontends raise (ROADMAP.md queue 1 item 13d).
+(``torch.utils.checkpoint``); ``remat=False`` keeps them all.
+
+``forward(frontend_embeds=)`` takes a frontend's embeddings (B, N, D):
+an encoder-decoder (``n_encoder_layers``) runs its encoder stack on
+them, as the reference does (causal, rotary self-attention: its
+``attention_forward`` with no window), then ``enc_norm``, and each
+decoder layer attends over that ``memory``; a VLM puts them (image
+patches) ahead of the token embeddings, at rope positions ``0 … N - 1``.
+Mamba raises (ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
@@ -98,20 +108,31 @@ def find_period(specs: list[BlockSpec]) -> int:
     return n
 
 
+def encoder_specs(cfg) -> list[BlockSpec]:
+    """The encoder stack's layers: dense attention blocks, no window,
+    no cross-attention."""
+    return [BlockSpec("attn", "dense", None, False)] * cfg.n_encoder_layers
+
+
 def check_supported(cfg) -> None:
     """Raise for what the port has not ported."""
-    unported = {
-        "attn_period (mamba)": cfg.attn_period is not None,
-        "n_encoder_layers": bool(cfg.n_encoder_layers),
-        "frontend": cfg.frontend is not None,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if cfg.attn_period is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} not ported yet (ROADMAP.md queue 1 item "
-            f"13d: the other model families); the port runs dense "
-            f"attention decoders (full or windowed, dense or MoE FFNs) and "
-            f"xLSTM stacks")
+            f"{cfg.name}: attn_period (mamba layers) not ported yet "
+            f"(ROADMAP.md queue 1 item 13d: the other model families); the "
+            f"port runs attention decoders (full or windowed, dense or MoE "
+            f"FFNs, with an encoder or a frontend) and xLSTM stacks")
+
+
+def _attn_specs(cfg) -> tuple[dict, dict]:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(h * hd)
+    return ({"wq": ((d, h, hd), s_in), "wk": ((d, kv, hd), s_in),
+             "wv": ((d, kv, hd), s_in), "wo": ((h, hd, d), s_out)},
+            {"wq": ("embed", "heads", "head_dim"),
+             "wk": ("embed", "kv_heads", "head_dim"),
+             "wv": ("embed", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed")})
 
 
 def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
@@ -123,14 +144,10 @@ def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
     p: dict = {}
     ax: dict = {}
     if spec.kind == "attn":
-        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(h * hd)
-        p["attn"] = {"wq": ((d, h, hd), s_in), "wk": ((d, kv, hd), s_in),
-                     "wv": ((d, kv, hd), s_in), "wo": ((h, hd, d), s_out)}
-        ax["attn"] = {"wq": ("embed", "heads", "head_dim"),
-                      "wk": ("embed", "kv_heads", "head_dim"),
-                      "wv": ("embed", "kv_heads", "head_dim"),
-                      "wo": ("heads", "head_dim", "embed")}
+        p["attn"], ax["attn"] = _attn_specs(cfg)
+        if spec.cross_attn:
+            p["cross"], ax["cross"] = _attn_specs(cfg)
+            p["ln_cross"], ax["ln_cross"] = norm, norm_ax
     elif spec.kind == "mlstm":
         p["mlstm"], ax["mlstm"] = X.mlstm_specs(d, cfg.n_heads)
     elif spec.kind == "slstm":
@@ -152,11 +169,10 @@ def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
     return p, ax
 
 
-def _layout(cfg) -> tuple[dict, dict]:
-    """(leaf specs, logical axes) of the whole tree: ``_init_stack``'s
+def _stack_layout(cfg, specs) -> tuple[dict, dict]:
+    """(leaf specs, logical axes) of one stack: ``_init_stack``'s
     grouping into period stacks (a leading ``layers`` axis of
     ``n_periods``) and the unstacked tail."""
-    specs = build_blockspecs(cfg)
     per = find_period(specs)
     n_periods = len(specs) // per
     blocks, blocks_ax = [], []
@@ -167,13 +183,26 @@ def _layout(cfg) -> tuple[dict, dict]:
         blocks_ax.append(_map_axes(lambda a: ("layers",) + a, ax))
     tail = [_block(cfg, specs[i]) for i in range(n_periods * per,
                                                   len(specs))]
+    return ({"blocks": blocks, "tail": [t[0] for t in tail]},
+            {"blocks": blocks_ax, "tail": [t[1] for t in tail]})
+
+
+def _layout(cfg) -> tuple[dict, dict]:
+    """(leaf specs, logical axes) of the whole tree: the decoder stack,
+    and an encoder-decoder's encoder stack and ``enc_norm``."""
     d = cfg.d_model
-    out = {"decoder": {"blocks": blocks, "tail": [t[0] for t in tail]},
+    dec, dec_ax = _stack_layout(cfg, build_blockspecs(cfg))
+    out = {"decoder": dec,
            "embed": {"embedding": ((cfg.vocab, d), 1 / math.sqrt(d))},
            "final_norm": L.norm_specs(cfg.norm, (d,))}
-    axes = {"decoder": {"blocks": blocks_ax, "tail": [t[1] for t in tail]},
+    axes = {"decoder": dec_ax,
             "embed": {"embedding": ("vocab", "embed")},
             "final_norm": L.norm_axes(cfg.norm, ("embed",))}
+    if cfg.n_encoder_layers:
+        out["encoder"], axes["encoder"] = _stack_layout(cfg,
+                                                        encoder_specs(cfg))
+        out["enc_norm"] = L.norm_specs(cfg.norm, (d,))
+        axes["enc_norm"] = L.norm_axes(cfg.norm, ("embed",))
     if not cfg.tie_embeddings:
         out["lm_head"] = {"w": ((d, cfg.vocab), 1 / math.sqrt(d))}
         axes["lm_head"] = {"w": ("embed", "vocab")}
@@ -241,9 +270,11 @@ def _map_axes(fn, axes):
 
 
 def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int,
-                 moe_groups: int = 1):
+                 moe_groups: int = 1, memory=None):
     """One layer -> (x, its MoE load-balance loss, or None).  ``chunk``:
-    the sequence chunk of attention's queries and of the mLSTM's scan."""
+    the sequence chunk of attention's keys and of the mLSTM's scan;
+    ``memory``: the encoder's output, which a cross-attention layer
+    attends over."""
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
     if spec.kind == "attn":
         h = A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
@@ -254,6 +285,11 @@ def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int,
     else:
         h = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads)
     x = x + h
+    if spec.cross_attn and memory is not None and spec.kind == "attn":
+        h = L.apply_norm(cfg.norm, x, bp["ln_cross"])
+        x = x + A.cross_attention_forward(bp["cross"], h, memory,
+                                          n_kv_heads=cfg.n_kv_heads,
+                                          chunk=chunk)
     if spec.ffn == "dense":
         h = L.apply_norm(cfg.norm, x, bp["ln_ffn"])
         x = x + F.ffn_forward(bp["ffn"], h, cfg.activation)
@@ -274,37 +310,19 @@ def _period(blocks, specs, x, aux, cfg, **kw):
     return x, aux
 
 
-def forward(params, cfg, tokens, *, chunk: int = 1024, remat: bool = True,
-            moe_groups: int = 1):
-    """tokens (B, S) -> (final hidden states (B, S, D), the MoE layers'
-    aux loss, f32, added layer after layer from 0 as the reference's
-    scan carries it).  The stacks are indexed layer by layer, period by
-    period, as the reference's scan runs.
-
-    ``remat`` (with gradients on): each period runs under a
-    non-reentrant ``torch.utils.checkpoint`` and is recomputed in the
-    backward; the tail layers are not, as in the reference.  The
-    recompute repeats the forward bit for bit (so ``wave`` == ``off``
-    and the step-0 replays hold): nothing in a period draws random
-    numbers or adds in an order that varies, the MoE router sorts
-    stably and its dispatch and combine are collision-free gathers
-    (no atomics).
-
-    ``moe_groups``: the token groups each MoE layer dispatches apart,
-    each with its own capacity (``models.moe.moe_forward_grouped``)."""
-    x = L.embed(params["embed"], tokens, L.DTYPES[cfg.dtype])
-    specs = build_blockspecs(cfg)
+def _run_stack(stack, specs, x, aux, cfg, *, remat: bool, **kw):
+    """One stack (``{"blocks", "tail"}``) over ``x``, layer by layer,
+    period by period, as the reference's scan runs; ``aux`` carries the
+    MoE layers' loss.  ``remat``: each period under a non-reentrant
+    checkpoint, the tail not, as in the reference."""
     per = find_period(specs)
     n_periods = len(specs) // per
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stacks = []
-    for stack in params["decoder"]["blocks"]:
-        flat, treedef = tree.flatten(stack)
+    for blocks in stack["blocks"]:
+        flat, treedef = tree.flatten(blocks)
         # one unbind per leaf, outside the checkpoints: one gradient
         # buffer per stacked leaf, whose hook fires once
         stacks.append((treedef, [w.unbind(0) for w in flat]))
-    kw = dict(chunk=chunk, moe_groups=moe_groups)
-    remat = remat and torch.is_grad_enabled()
     for t in range(n_periods):
         # layer t·p + j is position j of period t
         blocks = [tree.unflatten(treedef, [w[t] for w in per_layer])
@@ -317,9 +335,51 @@ def forward(params, cfg, tokens, *, chunk: int = 1024, remat: bool = True,
                 use_reentrant=False, preserve_rng_state=False, **kw)
         else:
             x, aux = _period(blocks, specs[:per], x, aux, cfg, **kw)
-    for i, bp in enumerate(params["decoder"]["tail"]):
+    for i, bp in enumerate(stack["tail"]):
         x, a = _apply_block(bp, specs[n_periods * per + i], x, cfg, **kw)
         aux = aux if a is None else aux + a
+    return x, aux
+
+
+def forward(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024,
+            remat: bool = True, moe_groups: int = 1):
+    """tokens (B, S) -> (final hidden states (B, S_total, D), the MoE
+    layers' aux loss, f32, added layer after layer from 0 as the
+    reference's scan carries it).
+
+    ``frontend_embeds`` (B, N, D): an encoder-decoder's encoder input
+    (required there), or a VLM's patch embeddings, put ahead of the
+    tokens (S_total = N + S).
+
+    ``remat`` (with gradients on): each period of each stack runs under
+    a non-reentrant ``torch.utils.checkpoint`` and is recomputed in the
+    backward; the tail layers are not, as in the reference.  The
+    recompute repeats the forward bit for bit (so ``wave`` == ``off``
+    and the step-0 replays hold): nothing in a period draws random
+    numbers or adds in an order that varies, the MoE router sorts
+    stably and its dispatch and combine are collision-free gathers
+    (no atomics).  The encoder's output feeds every decoder period, so
+    its gradient is summed over them before it reaches the encoder.
+
+    ``moe_groups``: the token groups each MoE layer dispatches apart,
+    each with its own capacity (``models.moe.moe_forward_grouped``)."""
+    dtype = L.DTYPES[cfg.dtype]
+    x = L.embed(params["embed"], tokens, dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = dict(chunk=chunk, moe_groups=moe_groups,
+              remat=remat and torch.is_grad_enabled())
+    memory = None
+    if cfg.n_encoder_layers:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs its "
+                             f"encoder input (frontend_embeds)")
+        mem, aux = _run_stack(params["encoder"], encoder_specs(cfg),
+                              frontend_embeds.to(dtype), aux, cfg, **kw)
+        memory = L.apply_norm(cfg.norm, mem, params["enc_norm"])
+    elif frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
+    x, aux = _run_stack(params["decoder"], build_blockspecs(cfg), x, aux,
+                        cfg, memory=memory, **kw)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return x, aux
 
@@ -335,12 +395,14 @@ def loss_fn(params, cfg, batch, *, chunk: int = 1024, remat: bool = True,
             loss_chunk: int = 512, aux_weight: float = 0.01,
             moe_groups: int = 1):
     """Mean next-token cross-entropy over ``batch`` = {"tokens" (B, S),
-    "labels" (B, S) (label -1 = masked)}.  The vocab projection runs in
-    sequence chunks of ``loss_chunk``; like the reference, the
-    ``s % loss_chunk`` remainder tokens are dropped.  ``remat`` and
-    ``moe_groups``: as :func:`forward`'s."""
-    hidden, aux = forward(params, cfg, batch["tokens"], chunk=chunk,
-                          remat=remat, moe_groups=moe_groups)
+    "labels" (B, S) (label -1 = masked), "frontend_embeds"?}.  The loss
+    covers the last ``S`` positions only (a VLM's patches carry none).
+    The vocab projection runs in sequence chunks of ``loss_chunk``; like
+    the reference, the ``s % loss_chunk`` remainder tokens are dropped.
+    ``remat`` and ``moe_groups``: as :func:`forward`'s."""
+    hidden, aux = forward(params, cfg, batch["tokens"],
+                          frontend_embeds=batch.get("frontend_embeds"),
+                          chunk=chunk, remat=remat, moe_groups=moe_groups)
     labels = batch["labels"]
     hidden = hidden[:, -labels.shape[1]:]
     b, s, d = hidden.shape
@@ -364,7 +426,7 @@ def loss_fn(params, cfg, batch, *, chunk: int = 1024, remat: bool = True,
 
 class Transformer(nn.Module):
     """Owns the parameter tree (``self.params``, nested dicts and lists
-    of ``nn.Parameter`` in the reference layout) of one decoder.
+    of ``nn.Parameter`` in the reference layout) of one model.
 
     ``device`` defaults to ``cuda`` and raises without a card."""
 
@@ -381,8 +443,10 @@ class Transformer(nn.Module):
                            tree.leaves(self.params)):
             self.register_parameter(path.replace("/", "__"), p)
 
-    def forward(self, tokens, *, chunk: int = 1024, remat: bool = True):
-        return forward(self.params, self.cfg, tokens, chunk=chunk,
+    def forward(self, tokens, *, frontend_embeds=None, chunk: int = 1024,
+                remat: bool = True):
+        return forward(self.params, self.cfg, tokens,
+                       frontend_embeds=frontend_embeds, chunk=chunk,
                        remat=remat)
 
 

@@ -7,7 +7,10 @@ parameter layout: ``{"blocks": [one stack per period position, leading
 n_periods axis], "tail": [one state per tail layer]}``, an attention
 layer's state ``{"self": {"k", "v"}}`` (B, capacity, KV, hd), an mLSTM
 layer's (C (B, H, hd, hd), n (B, H, hd), m (B, H)) f32 and an sLSTM
-layer's a 4-tuple of (B, H, hd) f32.
+layer's a 4-tuple of (B, H, hd) f32.  An encoder-decoder's decoder
+layers hold ``cross`` as well: the keys and values (B, Sm, KV, hd) of
+the encoder's output, which :func:`prefill` fills and decode attends
+over whole (every slot, unmasked, as the reference's decode does).
 
 The reference scans over the stacked periods; here a loop over them
 indexes the stacks (as ``models.transformer.forward`` does).
@@ -15,8 +18,8 @@ indexes the stacks (as ``models.transformer.forward`` does).
 PLACE (the reference's decode step donates them) and returns the same
 tree.  Everything runs under ``torch.no_grad``.  An MoE feed-forward
 serves drop-free (capacity for every token in flight), in prefill and
-in decode alike.  The Mamba and cross-attention branches raise,
-naming ROADMAP.md queue 1 item 13d.
+in decode alike.  A Mamba layer raises, naming ROADMAP.md queue 1 item
+13d.
 """
 from __future__ import annotations
 
@@ -44,18 +47,18 @@ def _attn_capacity(spec: T.BlockSpec, capacity: int) -> int:
     return capacity
 
 
-def _check_ffn(spec: T.BlockSpec) -> None:
-    if spec.cross_attn:
-        raise _unported("cross-attention (encoder-decoder)")
-
-
 def init_layer_state(cfg, spec: T.BlockSpec, batch: int, capacity: int,
-                     dtype: torch.dtype, *, device="cuda"):
-    """One layer's zero decode state (attention caches in ``dtype``)."""
-    _check_ffn(spec)
+                     dtype: torch.dtype, *, enc_len: int = 0, device="cuda"):
+    """One layer's zero decode state (attention caches in ``dtype``; a
+    cross-attention layer's ``cross`` cache of ``max(enc_len, 1)``
+    slots)."""
     if spec.kind == "attn":
-        return {"self": A.init_cache(batch, _attn_capacity(spec, capacity),
-                                     cfg.n_kv_heads, cfg.hd, dtype, device)}
+        st = {"self": A.init_cache(batch, _attn_capacity(spec, capacity),
+                                   cfg.n_kv_heads, cfg.hd, dtype, device)}
+        if spec.cross_attn:
+            st["cross"] = A.init_cache(batch, max(enc_len, 1),
+                                       cfg.n_kv_heads, cfg.hd, dtype, device)
+        return st
     if spec.kind == "mlstm":
         return X.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
                                   device=device)
@@ -72,25 +75,29 @@ def _layout(cfg) -> tuple[list, int, int]:
 
 
 def init_states(cfg, batch: int, capacity: int, dtype: torch.dtype, *,
-                device="cuda"):
-    """Stacked per-period zero states mirroring the params layout."""
+                enc_len: int = 0, device="cuda"):
+    """Stacked per-period zero states mirroring the params layout
+    (``enc_len``: the encoder output's length, for the cross caches)."""
     specs, per, n_periods = _layout(cfg)
+    kw = dict(enc_len=enc_len, device=device)
 
     def stacked(j):
-        one = init_layer_state(cfg, specs[j], batch, capacity, dtype,
-                               device=device)
+        one = init_layer_state(cfg, specs[j], batch, capacity, dtype, **kw)
         return tree.map(lambda x: x.expand((n_periods,) + x.shape).clone(),
                         one)
 
     return {"blocks": [stacked(j) for j in range(per)],
             "tail": [init_layer_state(cfg, specs[i], batch, capacity, dtype,
-                                      device=device)
+                                      **kw)
                      for i in range(n_periods * per, len(specs))]}
 
 
 def layer_state_axes(cfg, spec: T.BlockSpec):
     if spec.kind == "attn":
-        return {"self": A.cache_axes()}
+        ax = {"self": A.cache_axes()}
+        if spec.cross_attn:
+            ax["cross"] = A.cache_axes()
+        return ax
     if spec.kind == "mlstm":
         return X.mlstm_state_axes()
     if spec.kind == "slstm":
@@ -105,8 +112,8 @@ def states_axes(cfg):
     def stacked(j):
         one = layer_state_axes(cfg, specs[j])
         if isinstance(one, dict):
-            return {"self": {k: ("layers",) + a
-                             for k, a in one["self"].items()}}
+            return {c: {k: ("layers",) + a for k, a in cache.items()}
+                    for c, cache in one.items()}
         return tuple(("layers",) + a for a in one)
 
     return {"blocks": [stacked(j) for j in range(per)],
@@ -143,7 +150,8 @@ def pad_states_for_decode(cfg, states, prompt_len: int, capacity: int):
     layout, so a prompt is processed once (no token-by-token replay):
     self-attention caches sized to the prompt (ring-truncated to the
     window for windowed layers) become capacity-sized caches with each
-    token at its decode slot; xLSTM states pass through unchanged."""
+    token at its decode slot; xLSTM states and cross caches pass through
+    unchanged.  A VLM's ``prompt_len`` counts its patches too."""
     specs, per, n_periods = _layout(cfg)
 
     def fix(spec: T.BlockSpec, st):
@@ -187,13 +195,18 @@ def _decode_block(bp, spec: T.BlockSpec, x, state, pos: int, cfg,
                   chunk: int):
     """One layer on one token; ``state`` (views into the stacks) is
     updated in place."""
-    _check_ffn(spec)
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
     if spec.kind == "attn":
         h, _ = A.decode_attention(
             bp["attn"], h, state["self"], pos, n_kv_heads=cfg.n_kv_heads,
             rope_theta=cfg.rope_theta, window=spec.window or None,
             chunk=chunk)
+        if spec.cross_attn:
+            x = x + h
+            h = A.cross_attend(bp["cross"],
+                               L.apply_norm(cfg.norm, x, bp["ln_cross"]),
+                               state["cross"]["k"], state["cross"]["v"],
+                               n_kv_heads=cfg.n_kv_heads, chunk=chunk)
     elif spec.kind in ("mlstm", "slstm"):
         fwd = X.mlstm_forward if spec.kind == "mlstm" else X.slstm_forward
         h, new = fwd(bp[spec.kind], h, n_heads=cfg.n_heads,
@@ -234,8 +247,7 @@ def serve_step(params, cfg, token, states, pos, *, chunk: int = 2048):
 # prefill
 # ---------------------------------------------------------------------------
 
-def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int):
-    _check_ffn(spec)
+def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int, memory):
     h = L.apply_norm(cfg.norm, x, bp["ln_attn"])
     if spec.kind == "attn":
         h, cache = A.prefill_attention(
@@ -243,6 +255,13 @@ def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int):
             rope_theta=cfg.rope_theta, window=spec.window or None,
             chunk=chunk)
         state = {"self": cache}
+        if spec.cross_attn and memory is not None:
+            x = x + h
+            k, v = A.cross_kv(bp["cross"], memory)
+            h = A.cross_attend(bp["cross"],
+                               L.apply_norm(cfg.norm, x, bp["ln_cross"]),
+                               k, v, n_kv_heads=cfg.n_kv_heads, chunk=chunk)
+            state["cross"] = {"k": k, "v": v}
     elif spec.kind == "mlstm":
         h, state = X.mlstm_forward(bp["mlstm"], h, n_heads=cfg.n_heads,
                                    return_state=True, chunk=chunk)
@@ -257,23 +276,36 @@ def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int):
 @torch.no_grad()
 def prefill(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024):
     """Run the prompt (B, L); return (last-position logits (B, V) f32,
-    states).  Encoders and frontends raise (item 13d)."""
-    if cfg.n_encoder_layers or frontend_embeds is not None:
-        raise _unported("an encoder or a frontend")
-    x = L.embed(params["embed"], tokens, L.DTYPES[cfg.dtype])
+    states).  ``frontend_embeds`` (B, N, D): an encoder-decoder's encoder
+    input (its output fills the cross caches), or a VLM's patches ahead
+    of the prompt (whose states then hold N + L positions)."""
+    dtype = L.DTYPES[cfg.dtype]
+    x = L.embed(params["embed"], tokens, dtype)
+    memory = None
+    if cfg.n_encoder_layers:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs its "
+                             f"encoder input (frontend_embeds)")
+        mem, _ = T._run_stack(params["encoder"], T.encoder_specs(cfg),
+                              frontend_embeds.to(dtype), None, cfg,
+                              remat=False, chunk=chunk)
+        memory = L.apply_norm(cfg.norm, mem, params["enc_norm"])
+    elif frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
     specs, per, n_periods = _layout(cfg)
     blocks = params["decoder"]["blocks"]
     per_t: list[list] = [[] for _ in range(per)]
     for t in range(n_periods):
         for j in range(per):
             x, st = _prefill_block(_slices(blocks[j], t), specs[j], x, cfg,
-                                   chunk)
+                                   chunk, memory)
             per_t[j].append(st)
     stacked = [tree.map(lambda *xs: torch.stack(xs), *sts) for sts in per_t
                if sts]
     tail = []
     for i, tp in enumerate(params["decoder"]["tail"]):
-        x, st = _prefill_block(tp, specs[n_periods * per + i], x, cfg, chunk)
+        x, st = _prefill_block(tp, specs[n_periods * per + i], x, cfg, chunk,
+                               memory)
         tail.append(st)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     logits = T.logits_fn(params, cfg, x[:, -1:])[:, 0]

@@ -3,8 +3,8 @@ reference's: every registered id's ``CONFIG`` and ``smoke_config()``
 field for field, the input shapes, and the parameter counts, which the
 port takes from its own model layout as ``meta`` tensors (no storage)
 and the reference from ``jax.eval_shape`` of its init (the MoE configs'
-active counts too).  The families the port does not build raise, naming
-ROADMAP.md item 13d.
+active counts too).  The family the port does not build (Mamba's)
+raises, naming ROADMAP.md item 13d.
 """
 import dataclasses
 
@@ -24,11 +24,10 @@ ALL_IDS = JB.ARCH_IDS + JB.PAPER_IDS
 BUILT = {"tinyllama_1_1b": "full", "llama3_8b": "full",
          "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke",
          "gemma3_27b": "full", "granite_moe_3b_a800m": "full",
-         "olmoe_1b_7b": "full", "xlstm_1_3b": "full"}
+         "olmoe_1b_7b": "full", "xlstm_1_3b": "full",
+         "seamless_m4t_large_v2": "full", "llava_next_mistral_7b": "full"}
 #: id -> what the port refuses in it
-UNPORTED = {"llava_next_mistral_7b": "frontend",
-            "seamless_m4t_large_v2": "n_encoder_layers",
-            "jamba_v0_1_52b": "mamba"}
+UNPORTED = {"jamba_v0_1_52b": "mamba"}
 
 
 def test_registry_lists_the_reference_ids():
@@ -84,6 +83,19 @@ def test_param_counts_of_the_paper_lstm_and_tinyllama():
     assert TB.get_config("paper_lstm_ptb").param_count() == 55_524_000
     assert TB.get_config("tinyllama_1_1b").param_count() == 1_100_048_384
     assert TB.get_config("xlstm_1_3b").param_count() == 2_925_086_912
+
+
+def test_param_counts_of_the_encoder_decoder_and_the_vlm():
+    """The reference's counts: SeamlessM4T-Large-v2's 12 + 12 layers with
+    cross-attention (31 leaves) and LLaVA-NeXT-Mistral-7B's language
+    model (12 leaves; its vision tower is a stub)."""
+    seamless = TB.get_config("seamless_m4t_large_v2")
+    llava = TB.get_config("llava_next_mistral_7b")
+    assert seamless.param_count() == 816_130_048
+    assert llava.param_count() == 7_241_732_096
+    assert seamless.active_param_count() == seamless.param_count()
+    assert len(tree.leaves(TT.abstract_params(seamless))) == 31
+    assert len(tree.leaves(TT.abstract_params(llava))) == 12
 
 
 def test_moe_param_counts_total_and_active():

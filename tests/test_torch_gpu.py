@@ -501,6 +501,70 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda):
         assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
 
 
+def test_encoder_decoder_step_on_the_card_tracks_the_cpu(cuda):
+    """One kernel-backed ``lags_dp`` SimTrainer step of SeamlessM4T's
+    smoke config (f32: an encoder on 8 frames, cross-attention in every
+    decoder layer) on the card and on the CPU (plain versions): the loss
+    and every parameter agree to 1e-4, the encoder's included."""
+    from repro_torch.configs import seamless_m4t_large_v2
+    torch.use_deterministic_algorithms(False)
+    cfg = seamless_m4t_large_v2.smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 1, 33), generator=gen)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "frontend_embeds": torch.randn((2, 1, 8, cfg.d_model),
+                                            generator=gen)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = TT.Transformer(cfg, seed=0, device="cpu")
+        model.to(dev)
+        run = api.RunConfig(mode="lags_dp", ratio=16.0, lr=0.1,
+                            selection_backend="kernel", block_size=1024)
+        tr = api.Session(cfg, run, device=dev).simulator(
+            lambda p, b: TT.loss_fn(p, cfg, b, chunk=16, loss_chunk=16),
+            model.params, n_workers=2)
+        loss = float(tr.step({k: v.to(dev) for k, v in batch.items()})
+                     ["loss"])
+        out[dev] = (loss, tree.leaf_paths(model.params),
+                    [p.detach().cpu() for p in tree.leaves(model.params)])
+    assert out["cpu"][0] == pytest.approx(out["cuda"][0], rel=1e-4)
+    assert any(p.startswith("encoder/") for p in out["cuda"][1])
+    for path, a, b in zip(out["cpu"][1], out["cpu"][2], out["cuda"][2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=path)
+
+
+def test_vlm_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    """LLaVA-NeXT's smoke config (f32): prefill of 8 patches and 10
+    tokens, the handoff at prompt length 18, two decode steps at
+    positions 18 and 19, on the card against the CPU, within 1e-4 of max
+    |logit|."""
+    from repro_torch.configs import llava_next_mistral_7b
+    from repro_torch.serving import engine
+    cfg = llava_next_mistral_7b.smoke_config()
+    params = TT.init_params(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen,
+                         dtype=torch.int32)
+    patches = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                          generator=gen)
+    n_f = cfg.n_frontend_tokens
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree.map(lambda x: x.to(dev), params)
+        logits, st = engine.prefill(p, cfg, toks[:, :10].to(dev),
+                                    frontend_embeds=patches.to(dev), chunk=8)
+        st = engine.pad_states_for_decode(cfg, st, n_f + 10, n_f + 12)
+        seq = [logits]
+        for i in range(2):
+            logits, st = engine.serve_step(p, cfg, toks[:, 10 + i:11 + i]
+                                           .to(dev), st, n_f + 10 + i,
+                                           chunk=8)
+            seq.append(logits)
+        outs[str(dev)] = [x.cpu() for x in seq]
+    for g, c in zip(outs[str(cuda)], outs["cpu"]):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
 @pytest.mark.parametrize("arch,seq", [("tinyllama_1_1b", 1024),
                                       ("xlstm_1_3b", 128)])
 def test_remat_lowers_peak_memory_and_keeps_the_bits(cuda, arch, seq):

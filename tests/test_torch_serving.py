@@ -286,9 +286,14 @@ def test_specs_match_reference(kind):
             JSP.supports_shape(JB.get_config(arch), shape_j)
     assert [TSP.audio_frames(n) for n in (1, 7, 4096)] == \
         [JSP.audio_frames(n) for n in (1, 7, 4096)]
-    with pytest.raises(NotImplementedError, match="13d"):
-        TSP.train_batch_specs(TB.get_smoke_config("llava_next_mistral_7b"),
-                              shape_t)
+    # a VLM's sequence: its patches (at most half of it), then the text
+    got = TSP.train_batch_specs(TB.get_smoke_config("llava_next_mistral_7b"),
+                                shape_t)
+    want = JSP.train_batch_specs(
+        JB.get_smoke_config("llava_next_mistral_7b"), shape_j)
+    assert list(got) == list(want)
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
 
 
 # --- windowed attention in training -----------------------------------------
