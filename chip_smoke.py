@@ -202,6 +202,27 @@
    prefills of the prompt and the tokens fed so far, with the planted
    faults (SeamlessM4T: the cross caches zeroed; LLaVA: decode at
    positions without the patches).
+6g. The Mamba/attention hybrid (``jamba_phase``), in the same NCCL
+   group: first the selective scan's memory at Jamba-v0.1's width (d
+   4096: d_inner 8192, d_state 16; bf16, seeded random weights): what
+   autograd keeps after the forward of one and of two Mamba layers on
+   ``JAMBA_SEQ`` tokens must grow by less than one (1, S, d_inner,
+   d_state) f32 tensor a layer, and the scan's share of a layer's
+   forward and backward is timed.  Then Jamba-v0.1 cut to
+   ``JAMBA_TRAIN_LAYERS`` layers (one ``attn_period``: attention at
+   layer 4, 7 Mamba layers) with the dense gated FFN in place of its
+   experts trains ``JAMBA_STEPS`` distributed ``lags_dp`` + kernel
+   steps ``off`` and as many under ``wave`` (``LARGE_DIST``) on one
+   ``JAMBA_SEQ``-token sequence of uniform tokens: losses finite and
+   falling, δ <= 1 on every leaf, step 0 of ``off`` with every
+   ``ef_select_pack`` launch held to its plain version inside the step,
+   ``wave``'s step 0 bitwise to it; the handoff is checked in f32 on the
+   trained weights.  Jamba at ``JAMBA_SERVE_LAYERS`` layers with all 16
+   experts (top 2) serves two requests of 4 prompts of 128 tokens + 32
+   generated, the handoff checked in bf16 (``HANDOFF_RTOL_JAMBA``), then
+   one ``serve_step`` at ``long_500k``'s shape (batch 1, capacity
+   524,288).  Each handoff has two planted faults that must read above
+   its tolerance: the SSM states zeroed, and the conv tails zeroed.
 7. Print the kernels' JSON line (each kernel's launches in every phase
    under ``phase_launches``, the re-encode check's beside them and not in
    ``launches``), the card line and the result line.
@@ -2392,7 +2413,8 @@ def cross_zeroed(states):
 
 
 def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
-                  rtol: float | None = None, frontend=None) -> dict:
+                  rtol: float | None = None, frontend=None,
+                  faults: dict | None = None) -> dict:
     """Prefill -> ``pad_states_for_decode`` -> decode against a replay of
     the same tokens, on the card: the prompt's last logits and
     ``HANDOFF_GEN - 1`` decode steps' (the same known tokens fed to both
@@ -2408,6 +2430,8 @@ def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
     leave out its N patches, an encoder-decoder's cross caches zeroed
     (``cross_zeroed``).  For an MoE model, the (token, layer) pairs whose
     experts differ between the two paths are counted (``route_flips``).
+    ``faults`` (name -> a function of the handed-off states) replaces
+    that fault by these, each of which must land outside the tolerance.
     ``tag`` prefixes the printed line."""
     import torch
     from repro_torch import tree
@@ -2428,13 +2452,15 @@ def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
                   f"decode positions without the {n_f} patches")
     t0 = time.perf_counter()
 
-    def handoff(fault: bool) -> tuple[list, dict]:
+    def handoff(fault: bool, plant=None) -> tuple[list, dict]:
         logits, st = engine.prefill(params, cfg, toks[:, :HANDOFF_PROMPT],
                                     frontend_embeds=frontend, chunk=64)
         st = engine.pad_states_for_decode(cfg, st, n_f + HANDOFF_PROMPT,
                                           n_f + cap)
         offset = n_f
-        if fault and frontend is None:
+        if fault and plant is not None:
+            st = plant(st)
+        elif fault and frontend is None:
             st = slot_fault(st)
         elif fault and cfg.n_encoder_layers:
             st = cross_zeroed(st)
@@ -2487,14 +2513,17 @@ def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
     if max(rel) > rtol:
         raise AssertionError(f"handoff {name}: logits differ from the "
                              f"replay by {rel} of max |logit| (> {rtol})")
-    fault = rel_err(handoff(True)[0])
-    if max(fault) <= rtol:
-        raise AssertionError(f"handoff {name}: the planted fault "
-                             f"({fault_name}) reads {fault} of max |logit|, "
-                             f"inside the tolerance {rtol}: the check cannot "
-                             f"see it")
-    out = {"rel_err": rel, "fault_rel_err": fault, "fault": fault_name,
-           "rtol": rtol, "s": time.perf_counter() - t0,
+    planted = {}
+    for fname, plant in (faults or {fault_name: None}).items():
+        fault = rel_err(handoff(True, plant)[0])
+        if max(fault) <= rtol:
+            raise AssertionError(f"handoff {name}: the planted fault "
+                                 f"({fname}) reads {fault} of max |logit|, "
+                                 f"inside the tolerance {rtol}: the check "
+                                 f"cannot see it")
+        planted[fname] = fault
+    out = {"rel_err": rel, "faults": planted, "rtol": rtol,
+           "s": time.perf_counter() - t0,
            "cache": [tuple(x.shape) for x in tree.leaves(st)][:2]}
     del st
     routed = ""
@@ -2509,8 +2538,9 @@ def handoff_check(dev, name: str, cfg, params, *, tag: str = "stream",
           f"{front}, then {HANDOFF_GEN - 1} decode steps, batch "
           f"{HANDOFF_BATCH}): |prefill->decode - replay| / max|logit| per "
           f"step {[f'{x:.3e}' for x in rel]} (tolerance {rtol}); "
-          f"{fault_name} {[f'{x:.3e}' for x in fault]}; states "
-          f"{out['cache']}{routed}", flush=True)
+          + "; ".join(f"{k} {[f'{x:.3e}' for x in v]}"
+                      for k, v in planted.items())
+          + f"; states {out['cache']}{routed}", flush=True)
     return out
 
 
@@ -2932,14 +2962,18 @@ def expert_pack_timing(dev, cfg, chunk: int = 1 << 15) -> dict:
 
 
 def serve_full(dev, tag: str, name: str, cfg, params, n_requests: int, *,
-               rtol: float) -> dict:
+               rtol: float, faults: dict | None = None, f32: bool = True,
+               prompts=None) -> dict:
     """Serve ``params`` at full width: ``n_requests`` requests of
     ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens, ``SERVE_GEN``
     generated (their ``RequestRecord``s), the aten ops of one decode
     step, then the handoff check (``handoff_check``) in the config's
-    bf16 (within ``rtol``) and in f32 on the same weights, each with its
-    planted fault; the peak device memory of the requests.  ``tag``
-    prefixes the printed lines."""
+    bf16 (within ``rtol``) and, with ``f32``, in f32 on the same
+    weights, each with its planted fault (or ``faults``); the peak
+    device memory of the requests.  ``prompts``: the requests' tokens
+    (default ``MarkovLM``'s, whose dense transition matrix a vocab of
+    Jamba's size cannot hold: 16 GiB).  ``tag`` prefixes the printed
+    lines."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.base import InputShape
@@ -2948,8 +2982,9 @@ def serve_full(dev, tag: str, name: str, cfg, params, n_requests: int, *,
     shape = InputShape("serve", SERVE_PROMPT + SERVE_GEN, SERVE_BATCH,
                        "decode")
     sub = ServeSession(cfg, shape, params)
-    prompts = synthetic.MarkovLM(vocab=cfg.vocab, seed=7).batch(
-        20_000, SERVE_BATCH, SERVE_PROMPT, device=dev)["tokens"]
+    if prompts is None:
+        prompts = synthetic.MarkovLM(vocab=cfg.vocab, seed=7).batch(
+            20_000, SERVE_BATCH, SERVE_PROMPT, device=dev)["tokens"]
     torch.cuda.reset_peak_memory_stats(dev)
     records = []
     for _ in range(n_requests):
@@ -2973,12 +3008,14 @@ def serve_full(dev, tag: str, name: str, cfg, params, n_requests: int, *,
           f"requests {peak:.3f} GiB", flush=True)
     del sub
     handoff = {cfg.dtype: handoff_check(dev, name, cfg, params, tag=tag,
-                                        rtol=rtol)}
-    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    p32 = tree.map(lambda p: p.float(), params)
-    handoff["float32"] = handoff_check(dev, f"{name} f32", f32, p32,
-                                       tag=tag)
-    del p32
+                                        rtol=rtol, faults=faults)}
+    if f32:
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        p32 = tree.map(lambda p: p.float(), params)
+        handoff["float32"] = handoff_check(dev, f"{name} f32", cfg32, p32,
+                                           tag=tag, faults=faults)
+        del p32
     torch.cuda.empty_cache()
     return {"requests": records, "decode_ops": ops, "peak_gib": peak,
             "handoff": handoff}
@@ -3359,6 +3396,265 @@ def llava_phase(dev) -> tuple[dict, dict, dict]:
     return totals, res, errs
 
 
+#: Jamba-v0.1's training depth: one ``attn_period`` (attention at layer
+#: 4, 7 Mamba layers), the dense gated FFN in place of its 16 experts
+#: (2,725,326,848 parameters; with its experts 8 layers hold
+#: 13,295,235,072, which the exchange's ~16 bytes a parameter cannot
+#: fit)
+JAMBA_TRAIN_LAYERS = 8
+#: its training sequence, the longest of 1024, 512 and 256 whose step
+#: peaks under ~70 GiB: 1024 peaks at 46.8 GiB on an H100 (``PERF.md``
+#: §4), most of it the exchange's f32 copies
+JAMBA_SEQ = 1024
+JAMBA_STEPS = 3
+#: Jamba's serving depth: two periods (2 attention and 14 Mamba layers,
+#: 8 MoE layers of 16 experts; 26,053,595,136 parameters, 48.5 GiB in
+#: bf16); at 24 layers ~73 GiB would leave no room
+JAMBA_SERVE_LAYERS = 16
+#: Jamba's bf16 handoff tolerance at 16 layers: decode's one-token
+#: projections round apart from prefill's batched ones, and 20 of 560
+#: (token, layer) pairs route to other experts along the two paths.  On
+#: an H100 at 700 W the sound handoff reads at most 3.624e-2, the SSM
+#: states zeroed at most 1.804e-1 (their weaker fault: the states rebuild
+#: within a few tokens), the conv tails zeroed at least 1.172; 8e-2 sits
+#: 2.2x above the first and 2.25x below the second
+HANDOFF_RTOL_JAMBA = 8e-2
+
+
+def mamba_zeroed(part: str):
+    """A broken hybrid handoff, for the check to catch: ``part``
+    (``"ssm"`` or ``"conv"``) of every Mamba state zeroed, the attention
+    caches sound."""
+    import torch
+
+    def plant(states):
+        def fix(st):
+            if isinstance(st, dict) and part in st:
+                return {**st, part: torch.zeros_like(st[part])}
+            return st
+        return {k: [fix(st) for st in sts] for k, sts in states.items()}
+
+    return plant
+
+
+JAMBA_FAULTS = {"SSM states zeroed": mamba_zeroed("ssm"),
+                "conv tails zeroed": mamba_zeroed("conv")}
+
+
+def mamba_memory_check(dev, cfg, seq: int) -> dict:
+    """What autograd keeps for Mamba layers at ``cfg``'s width (bf16,
+    seeded random weights, one ``seq``-token sequence, each layer
+    residual as in the model): the memory held after the forward of one
+    and of two layers; the second layer must add less than one (1, seq,
+    d_inner, d_state) f32 tensor, of which the reference's associative
+    scan keeps ~2·log2(seq).  Also the backward's peak above the start,
+    and the time of one layer's forward and backward beside the
+    selective scan's alone (its f32 inputs at the same shape)."""
+    import torch
+    import torch.nn.functional as F_
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    d = cfg.d_model
+    d_inner = ssm.EXPAND * d
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+
+    def leaf(spec):
+        shape, init = spec
+        if isinstance(init, L.Values):
+            w = init.fn().to(dev)
+        elif isinstance(init, L.Full):
+            w = torch.full(shape, init.value, device=dev)
+        else:
+            w = torch.randn(shape, generator=gen, device=dev) * init
+        return w.to(torch.bfloat16).requires_grad_()
+
+    specs, _ = ssm.mamba_specs(d)
+    layers = [{k: leaf(v) for k, v in specs.items()} for _ in range(2)]
+    x = torch.randn((1, seq, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    held = {}
+    for n in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        h = x
+        for p in layers[:n]:
+            h = h + ssm.mamba_forward(p, h)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated(dev) - start
+        fwd_peak = torch.cuda.max_memory_allocated(dev) - start
+        leaves = [x] + [w for p in layers[:n] for w in p.values()]
+        grads = torch.autograd.grad(h.float().square().mean(), leaves)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - start
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"jamba: {n} Mamba layers: gradients not "
+                                 f"finite")
+        held[n] = {"kept": kept, "forward_peak": fwd_peak, "peak": peak}
+        del h, grads, leaves
+    state_bytes = seq * d_inner * ssm.D_STATE * 4
+    per_layer = held[2]["kept"] - held[1]["kept"]
+    if not per_layer < state_bytes:
+        raise AssertionError(f"jamba: a Mamba layer keeps {per_layer} bytes "
+                             f"for its backward, not less than one (1, "
+                             f"{seq}, {d_inner}, {ssm.D_STATE}) f32 state "
+                             f"({state_bytes})")
+    p = layers[0]
+    xs = x.detach().clone().requires_grad_()
+
+    def layer_fb() -> None:
+        torch.autograd.grad(ssm.mamba_forward(p, xs).float().sum(),
+                            [xs, *p.values()])
+
+    args = [F_.softplus(torch.randn((1, seq, d_inner), generator=gen,
+                                    device=dev) - 4.0),
+            -torch.exp(ssm._a_log(d_inner).to(dev)),
+            torch.randn((1, seq, ssm.D_STATE), generator=gen, device=dev),
+            torch.randn((1, seq, ssm.D_STATE), generator=gen, device=dev),
+            torch.randn((1, seq, d_inner), generator=gen, device=dev)]
+    args = [a.requires_grad_() for a in args]
+
+    def scan_fb() -> None:
+        y, _ = ssm.selective_scan(*args)
+        torch.autograd.grad(y.sum(), args)
+
+    layer_ms = cuda_ms(layer_fb, 3)
+    scan_ms = cuda_ms(scan_fb, 3)
+    out = {"seq": seq, "d_inner": d_inner, "held": held,
+           "per_layer_bytes": per_layer, "state_bytes": state_bytes,
+           "layer_fwd_bwd_ms": layer_ms, "scan_fwd_bwd_ms": scan_ms}
+    print(f"jamba: Mamba layers at d {d} (d_inner {d_inner}, d_state "
+          f"{ssm.D_STATE}), {seq} bf16 tokens: kept after the forward "
+          f"{held[1]['kept'] / 2**20:.1f} MiB (1 layer), "
+          f"{held[2]['kept'] / 2**20:.1f} MiB (2 layers): "
+          f"{per_layer / 2**20:.1f} MiB a layer, under one (1, S, d_inner, "
+          f"d_state) f32 state of {state_bytes / 2**20:.1f} MiB; peak above "
+          f"the start {held[1]['peak'] / 2**20:.1f} / "
+          f"{held[2]['peak'] / 2**20:.1f} MiB (forward "
+          f"{held[1]['forward_peak'] / 2**20:.1f} / "
+          f"{held[2]['forward_peak'] / 2**20:.1f}); one layer's forward + "
+          f"backward {layer_ms:.3f} ms, the selective scan's "
+          f"{scan_ms:.3f} ms ({scan_ms / layer_ms:.3f} of it)", flush=True)
+    del layers, x, xs, args, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_context_step(dev, cfg, params) -> dict:
+    """One ``serve_step`` of ``launch/serve`` at ``long_500k``'s shape
+    (batch 1, a full cache of 524,288 slots, the token at the last
+    slot), twice (the second timed warm): logits finite, the states'
+    bytes and the step's peak device memory above the weights."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine
+    shape = INPUT_SHAPES["long_500k"]
+    step, _ = SV.make_serve_step(cfg, None, shape)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    states = engine.init_states(cfg, shape.global_batch, shape.seq_len,
+                                L.DTYPES[cfg.dtype], device=dev)
+    attn = sum(x.numel() * x.element_size()
+               for st in states["blocks"] + states["tail"]
+               if isinstance(st, dict) and "self" in st
+               for x in tree.leaves(st))
+    total = sum(x.numel() * x.element_size() for x in tree.leaves(states))
+    tok = torch.zeros((shape.global_batch, 1), dtype=torch.int32, device=dev)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, states = step(params, tok, states, shape.seq_len - 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if tuple(logits.shape) != (1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"jamba long_500k: logits "
+                             f"{tuple(logits.shape)} not finite")
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    out = {"capacity": shape.seq_len, "step_s": times,
+           "attn_cache_bytes": attn, "mamba_state_bytes": total - attn,
+           "peak_above_weights": peak}
+    print(f"jamba: long_500k serve_step (batch 1, capacity "
+          f"{shape.seq_len}, position {shape.seq_len - 1}): "
+          f"{times[0]:.4f} s cold, {times[1]:.4f} s warm; attention caches "
+          f"{attn / 1e9:.3f} GB, Mamba states {(total - attn) / 2**20:.3f} "
+          f"MiB; peak above the weights {peak / 2**30:.3f} GiB", flush=True)
+    del states, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_phase(dev) -> tuple[dict, dict, dict]:
+    """The Mamba/attention hybrid at Jamba-v0.1's published width (d
+    4096, 32 heads, 8 kv, d_ff 14336, vocab 65,536, untied, bf16; d_inner
+    8192, d_state 16, dt_rank 256; seeded random weights), over the
+    world-size-1 NCCL group (inside ``process_group``):
+    ``mamba_memory_check``; ``JAMBA_STEPS`` + ``JAMBA_STEPS`` distributed
+    ``lags_dp`` + kernel steps (``LARGE_DIST``) of ``JAMBA_TRAIN_LAYERS``
+    layers with dense FFNs on one ``JAMBA_SEQ``-token sequence of
+    uniform tokens, checked as the encoder phase's runs are, and the f32
+    handoff on the trained weights; then ``JAMBA_SERVE_LAYERS`` layers
+    with all their experts serve two requests (bf16 handoff) and one
+    ``long_500k`` step.  Returns (launch counts of the training,
+    results, each kernel's largest absolute error against its plain
+    version)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import jamba_v0_1_52b
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as T
+    res: dict = {}
+    kept: dict = {}
+    torch.cuda.empty_cache()
+    full = jamba_v0_1_52b.CONFIG
+    cut = dataclasses.replace(full, n_layers=JAMBA_TRAIN_LAYERS, n_experts=0,
+                              moe_top_k=0)
+    serve = dataclasses.replace(full, n_layers=JAMBA_SERVE_LAYERS)
+    print(f"jamba: {full.name}: {full.param_count()} parameters "
+          f"({full.active_param_count()} active per token), d "
+          f"{full.d_model}, {full.param_dtype}; trains at "
+          f"{cut.n_layers} layers with dense FFNs ({cut.param_count()} "
+          f"parameters, {len(tree.leaves(T.abstract_params(cut)))} leaves) "
+          f"on {JAMBA_SEQ} tokens, serves at {serve.n_layers} layers "
+          f"({serve.param_count()} parameters)", flush=True)
+    res["memory"] = mamba_memory_check(dev, full, JAMBA_SEQ)
+    batch = synthetic.lm_input_batch(3, 1, JAMBA_SEQ, full.vocab, device=dev)
+    totals, res["train"], errs = distributed(
+        dev, cut, JAMBA_SEQ, JAMBA_STEPS, plans={}, configs=LARGE_DIST,
+        name="jamba ", step0="launches", keep=kept, batch=batch)
+    check_falls("jamba", res["train"])
+    res["delta"] = check_delta("jamba", res["train"])
+    params = kept.pop("params")
+    del batch
+    torch.cuda.empty_cache()
+    cut32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32")
+    p32 = tree.map(lambda p: p.float(), params)
+    del params
+    res["handoff_trained_f32"] = handoff_check(
+        dev, "jamba 8 layers trained f32", cut32, p32, tag="jamba",
+        faults=JAMBA_FAULTS)
+    del p32
+    torch.cuda.empty_cache()
+    params = T.init_params(serve, seed=0, device=dev)
+    prompts = synthetic.lm_input_batch(7, SERVE_BATCH, SERVE_PROMPT,
+                                       serve.vocab, device=dev)["tokens"]
+    res["serve"] = serve_full(dev, "jamba", "jamba_v0_1_52b 16 layers",
+                              serve, params, 2, rtol=HANDOFF_RTOL_JAMBA,
+                              faults=JAMBA_FAULTS, f32=False,
+                              prompts=prompts)
+    res["long_500k"] = long_context_step(dev, serve, params)
+    del params
+    torch.cuda.empty_cache()
+    return totals, res, errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3442,8 +3738,9 @@ def main(argv=None) -> int:
         xlstm_totals, xlstm, xlstm_errs = xlstm_phase(dev, XLSTM_SEQ,
                                                       XLSTM_STEPS)
         encdec_totals, encdec, encdec_errs = encdec_phase(dev)
+        jamba_totals, jamba, jamba_errs = jamba_phase(dev)
     for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs"),
-                 moe_errs, xlstm_errs, encdec_errs):
+                 moe_errs, xlstm_errs, encdec_errs, jamba_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
     errs["block_topk"] = max(errs["block_topk"],
@@ -3452,7 +3749,8 @@ def main(argv=None) -> int:
               "paper": paper_totals, "distributed": dist_totals,
               "paper_distributed": lstm_totals, "observe": observe_totals,
               "stream": stream_totals, "moe": moe_totals,
-              "xlstm": xlstm_totals, "encdec": encdec_totals}
+              "xlstm": xlstm_totals, "encdec": encdec_totals,
+              "jamba": jamba_totals}
     totals = {name: sum(c[name] for c in phases.values())
               for name in REPLACES}
     # the stream phase's topk_hier_ef_kernel re-encode: a check, apart
@@ -3477,6 +3775,7 @@ def main(argv=None) -> int:
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
          "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
+         "jamba": jamba,
          **kernels_line},
         indent=1,
         default=str))

@@ -7,8 +7,8 @@ Each config module ``repro_torch/configs/<id>.py`` exposes ``CONFIG``
 reduced same-family variant for CPU tests), field for field the
 reference's.  ``models.transformer`` builds attention decoders (RMS or
 layer norm, dense or MoE FFNs, with an audio encoder or a vision
-frontend) and xLSTM stacks, ``models.cnn`` the paper's CNN; Mamba (the
-hybrid family) raises, naming ROADMAP.md queue 1 item 13d.
+frontend), xLSTM stacks and the Mamba/attention hybrid, ``models.cnn``
+the paper's CNN.
 """
 from __future__ import annotations
 
@@ -67,8 +67,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count, from the model's own layout as ``meta``
-        tensors (no storage); raises for a family the port cannot
-        build."""
+        tensors (no storage)."""
         from repro_torch import tree
         from repro_torch.models import transformer as T
         return sum(math.prod(x.shape)

@@ -5,6 +5,7 @@ activations."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +22,14 @@ class Full:
 
 
 ZEROS, ONES = Full(0.0), Full(1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Values:
+    """The init of a (shape, init) leaf spec whose entries are computed,
+    not drawn: ``fn()`` gives one layer's f32 values on the host, which
+    a stacked leaf repeats along its leading ``layers`` axis."""
+    fn: Callable[[], torch.Tensor]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

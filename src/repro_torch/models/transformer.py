@@ -18,8 +18,10 @@ shapes, and ``ln_cross``), ``ffn/{w_gate?, w_up (d,f), w_down (f,d)}`` or, in an
 MoE layer (``models.moe``), ``moe/{router (d,E), w_gate?, w_up (E,d,f),
 w_down (E,f,d)}``, and the norms ``ln_attn``/``ln_ffn``; an mLSTM or
 sLSTM block (``models.xlstm``) holds ``mlstm`` or ``slstm`` and
-``ln_attn`` and no FFN.  A norm is ``{"scale"}`` (RMS
-norm) or ``{"bias", "scale"}`` (layer norm).  The flatten order of the
+``ln_attn`` and no FFN; a Mamba block (``models.ssm``: the hybrid's
+layers other than attention) holds ``mamba``, ``ln_attn`` and an FFN.
+A norm is ``{"scale"}`` (RMS norm) or ``{"bias", "scale"}`` (layer
+norm).  The flatten order of the
 tree — and so every per-leaf budget and leaf id — is the reference's.
 
 ``loss_fn(params, cfg, batch)`` is functional, like the reference's;
@@ -39,7 +41,6 @@ them, as the reference does (causal, rotary self-attention: its
 ``attention_forward`` with no window), then ``enc_norm``, and each
 decoder layer attends over that ``memory``; a VLM puts them (image
 patches) ahead of the token embeddings, at rope positions ``0 … N - 1``.
-Mamba raises (ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 
 
@@ -114,16 +116,6 @@ def encoder_specs(cfg) -> list[BlockSpec]:
     return [BlockSpec("attn", "dense", None, False)] * cfg.n_encoder_layers
 
 
-def check_supported(cfg) -> None:
-    """Raise for what the port has not ported."""
-    if cfg.attn_period is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_period (mamba layers) not ported yet "
-            f"(ROADMAP.md queue 1 item 13d: the other model families); the "
-            f"port runs attention decoders (full or windowed, dense or MoE "
-            f"FFNs, with an encoder or a frontend) and xLSTM stacks")
-
-
 def _attn_specs(cfg) -> tuple[dict, dict]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(h * hd)
@@ -137,7 +129,8 @@ def _attn_specs(cfg) -> tuple[dict, dict]:
 
 def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
     """(leaf specs as (shape, init), logical axes) of one layer: normal
-    times a scale, or a constant (``layers.Full``)."""
+    times a scale, a constant (``layers.Full``) or computed values
+    (``layers.Values``)."""
     d = cfg.d_model
     norm = L.norm_specs(cfg.norm, (d,))
     norm_ax = L.norm_axes(cfg.norm, ("embed",))
@@ -148,6 +141,8 @@ def _block(cfg, spec: BlockSpec) -> tuple[dict, dict]:
         if spec.cross_attn:
             p["cross"], ax["cross"] = _attn_specs(cfg)
             p["ln_cross"], ax["ln_cross"] = norm, norm_ax
+    elif spec.kind == "mamba":
+        p["mamba"], ax["mamba"] = S.mamba_specs(d)
     elif spec.kind == "mlstm":
         p["mlstm"], ax["mlstm"] = X.mlstm_specs(d, cfg.n_heads)
     elif spec.kind == "slstm":
@@ -211,8 +206,8 @@ def _layout(cfg) -> tuple[dict, dict]:
 
 def _shapes(cfg) -> dict:
     """Leaf shapes and inits, ``(shape, init)`` with ``init`` a normal's
-    scale or a constant (``layers.Full``)."""
-    check_supported(cfg)
+    scale, a constant (``layers.Full``) or computed values
+    (``layers.Values``)."""
     return _layout(cfg)[0]
 
 
@@ -220,7 +215,6 @@ def logical_axes(cfg) -> dict:
     """Each leaf's logical axis names, in the params' structure (the
     reference's ``init_model`` axes tree, ``None`` entries included):
     what ``sharding.rules`` maps onto mesh axes."""
-    check_supported(cfg)
     return _layout(cfg)[1]
 
 
@@ -237,6 +231,10 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
         shape, init = spec
         if isinstance(init, L.Full):
             return torch.full(shape, init.value, dtype=dtype, device=dev)
+        if isinstance(init, L.Values):
+            # the same values in every layer of a stacked leaf
+            return init.fn().to(device=dev, dtype=dtype).expand(
+                shape).contiguous()
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=dev)
         return w.mul_(init).to(dtype)
@@ -262,11 +260,20 @@ def _map_specs(fn, specs):
     return fn(specs)
 
 
+def _is_axes(a) -> bool:
+    """An axis-name tuple: a leaf of an axes tree."""
+    return isinstance(a, tuple) and all(isinstance(x, (str, type(None)))
+                                        for x in a)
+
+
 def _map_axes(fn, axes):
-    """``fn`` over the axis-name tuples of an axes tree."""
+    """``fn`` over the axis-name tuples of an axes tree of dicts and
+    tuples (the reference's ``jax.tree.map(..., is_leaf=)``)."""
+    if _is_axes(axes):
+        return fn(axes)
     if isinstance(axes, dict):
         return {k: _map_axes(fn, v) for k, v in axes.items()}
-    return fn(tuple(axes))
+    return type(axes)(_map_axes(fn, v) for v in axes)
 
 
 def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int,
@@ -280,6 +287,8 @@ def _apply_block(bp, spec: BlockSpec, x, cfg, *, chunk: int,
         h = A.attention_forward(bp["attn"], h, n_kv_heads=cfg.n_kv_heads,
                                 rope_theta=cfg.rope_theta,
                                 window=spec.window or None, chunk=chunk)
+    elif spec.kind == "mamba":
+        h = S.mamba_forward(bp["mamba"], h)
     elif spec.kind == "mlstm":
         h = X.mlstm_forward(bp["mlstm"], h, n_heads=cfg.n_heads, chunk=chunk)
     else:
@@ -432,7 +441,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, *, seed: int = 0, device="cuda", params=None):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         if params is None:

@@ -2,12 +2,14 @@
 caches) and one-token decode.
 
 Sliding-window attention layers keep ring caches of the window's size;
-xLSTM layers carry their O(1) state.  The states mirror the
+xLSTM and Mamba layers carry their O(1) state.  The states mirror the
 parameter layout: ``{"blocks": [one stack per period position, leading
 n_periods axis], "tail": [one state per tail layer]}``, an attention
 layer's state ``{"self": {"k", "v"}}`` (B, capacity, KV, hd), an mLSTM
-layer's (C (B, H, hd, hd), n (B, H, hd), m (B, H)) f32 and an sLSTM
-layer's a 4-tuple of (B, H, hd) f32.  An encoder-decoder's decoder
+layer's (C (B, H, hd, hd), n (B, H, hd), m (B, H)) f32, an sLSTM
+layer's a 4-tuple of (B, H, hd) f32 and a Mamba layer's ``{"conv",
+"ssm"}``: its conv's input tail (B, 3, d_inner) in the cache dtype and
+its SSM state (B, d_inner, 16) f32.  An encoder-decoder's decoder
 layers hold ``cross`` as well: the keys and values (B, Sm, KV, hd) of
 the encoder's output, which :func:`prefill` fills and decode attends
 over whole (every slot, unmasked, as the reference's decode does).
@@ -18,8 +20,7 @@ indexes the stacks (as ``models.transformer.forward`` does).
 PLACE (the reference's decode step donates them) and returns the same
 tree.  Everything runs under ``torch.no_grad``.  An MoE feed-forward
 serves drop-free (capacity for every token in flight), in prefill and
-in decode alike.  A Mamba layer raises, naming ROADMAP.md queue 1 item
-13d.
+in decode alike.
 """
 from __future__ import annotations
 
@@ -31,14 +32,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as X
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"serving {what} is not ported yet (ROADMAP.md queue 1 item 13d: "
-        f"the other model families)")
 
 
 def _attn_capacity(spec: T.BlockSpec, capacity: int) -> int:
@@ -59,13 +55,15 @@ def init_layer_state(cfg, spec: T.BlockSpec, batch: int, capacity: int,
             st["cross"] = A.init_cache(batch, max(enc_len, 1),
                                        cfg.n_kv_heads, cfg.hd, dtype, device)
         return st
+    if spec.kind == "mamba":
+        return S.init_mamba_state(batch, cfg.d_model, dtype, device=device)
     if spec.kind == "mlstm":
         return X.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
                                   device=device)
     if spec.kind == "slstm":
         return X.init_slstm_state(batch, cfg.d_model, cfg.n_heads,
                                   device=device)
-    raise _unported(f"a {spec.kind} layer")
+    raise ValueError(spec.kind)
 
 
 def _layout(cfg) -> tuple[list, int, int]:
@@ -98,11 +96,13 @@ def layer_state_axes(cfg, spec: T.BlockSpec):
         if spec.cross_attn:
             ax["cross"] = A.cache_axes()
         return ax
+    if spec.kind == "mamba":
+        return S.mamba_state_axes()
     if spec.kind == "mlstm":
         return X.mlstm_state_axes()
     if spec.kind == "slstm":
         return X.slstm_state_axes()
-    raise _unported(f"a {spec.kind} layer")
+    raise ValueError(spec.kind)
 
 
 def states_axes(cfg):
@@ -110,11 +110,8 @@ def states_axes(cfg):
     specs, per, n_periods = _layout(cfg)
 
     def stacked(j):
-        one = layer_state_axes(cfg, specs[j])
-        if isinstance(one, dict):
-            return {c: {k: ("layers",) + a for k, a in cache.items()}
-                    for c, cache in one.items()}
-        return tuple(("layers",) + a for a in one)
+        return T._map_axes(lambda a: ("layers",) + a,
+                           layer_state_axes(cfg, specs[j]))
 
     return {"blocks": [stacked(j) for j in range(per)],
             "tail": [layer_state_axes(cfg, specs[i])
@@ -150,8 +147,9 @@ def pad_states_for_decode(cfg, states, prompt_len: int, capacity: int):
     layout, so a prompt is processed once (no token-by-token replay):
     self-attention caches sized to the prompt (ring-truncated to the
     window for windowed layers) become capacity-sized caches with each
-    token at its decode slot; xLSTM states and cross caches pass through
-    unchanged.  A VLM's ``prompt_len`` counts its patches too."""
+    token at its decode slot; xLSTM and Mamba states and cross caches
+    pass through unchanged.  A VLM's ``prompt_len`` counts its patches
+    too."""
     specs, per, n_periods = _layout(cfg)
 
     def fix(spec: T.BlockSpec, st):
@@ -213,8 +211,12 @@ def _decode_block(bp, spec: T.BlockSpec, x, state, pos: int, cfg,
                      state=tuple(state), return_state=True)
         for dst, src in zip(state, new):
             dst.copy_(src)
+    elif spec.kind == "mamba":
+        h, new = S.mamba_decode(bp["mamba"], h, state)
+        for k, src in new.items():
+            state[k].copy_(src)
     else:
-        raise _unported(f"a {spec.kind} layer")
+        raise ValueError(spec.kind)
     return _ffn(bp, spec, x + h, cfg)
 
 
@@ -268,8 +270,10 @@ def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int, memory):
     elif spec.kind == "slstm":
         h, state = X.slstm_forward(bp["slstm"], h, n_heads=cfg.n_heads,
                                    return_state=True)
+    elif spec.kind == "mamba":
+        h, state = S.mamba_forward(bp["mamba"], h, return_state=True)
     else:
-        raise _unported(f"a {spec.kind} layer")
+        raise ValueError(spec.kind)
     return _ffn(bp, spec, x + h, cfg), state
 
 

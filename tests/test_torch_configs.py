@@ -3,8 +3,9 @@ reference's: every registered id's ``CONFIG`` and ``smoke_config()``
 field for field, the input shapes, and the parameter counts, which the
 port takes from its own model layout as ``meta`` tensors (no storage)
 and the reference from ``jax.eval_shape`` of its init (the MoE configs'
-active counts too).  The family the port does not build (Mamba's)
-raises, naming ROADMAP.md item 13d.
+active counts too).  Every registered family builds (Mamba's, the
+last to raise naming ROADMAP.md item 13d, since the Jamba slice); what
+still raises names item 7's tensor-parallel tail.
 """
 import dataclasses
 
@@ -25,9 +26,10 @@ BUILT = {"tinyllama_1_1b": "full", "llama3_8b": "full",
          "paper_lstm_ptb": "full", "nemotron_4_340b": "smoke",
          "gemma3_27b": "full", "granite_moe_3b_a800m": "full",
          "olmoe_1b_7b": "full", "xlstm_1_3b": "full",
-         "seamless_m4t_large_v2": "full", "llava_next_mistral_7b": "full"}
-#: id -> what the port refuses in it
-UNPORTED = {"jamba_v0_1_52b": "mamba"}
+         "seamless_m4t_large_v2": "full", "llava_next_mistral_7b": "full",
+         "jamba_v0_1_52b": "full"}
+#: id -> what the port refuses in it (nothing since Mamba's slice)
+UNPORTED: dict = {}
 
 
 def test_registry_lists_the_reference_ids():
@@ -111,15 +113,41 @@ def test_moe_param_counts_total_and_active():
     assert dense.active_param_count() == dense.param_count()
 
 
-@pytest.mark.parametrize("arch", list(UNPORTED))
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b"])
 def test_unported_families_raise_naming_item_13d(arch):
-    """Counting or building a family the port has no layers for raises
-    NotImplementedError naming its ROADMAP item, at both sizes."""
-    for cfg in (TB.get_config(arch), TB.get_smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match="13d"):
-            cfg.param_count()
-        with pytest.raises(NotImplementedError, match="13d"):
-            cfg.active_param_count()
-    with pytest.raises(NotImplementedError,
-                       match=f"{UNPORTED[arch]}.*13d"):
-        TT.Transformer(TB.get_smoke_config(arch), device="cpu")
+    """The family that raised naming item 13d (Mamba's) counts and builds
+    now, at both sizes: Jamba-v0.1's 51,570,315,264 parameters
+    (12,110,303,232 active: top 2 of 16 experts), the reference's
+    counts, and its smoke model runs."""
+    full = TB.get_config(arch)
+    assert full.param_count() == 51_570_315_264
+    assert full.active_param_count() == 12_110_303_232
+    assert not UNPORTED
+    cfg = TB.get_smoke_config(arch)
+    assert cfg.param_count() == JB.get_smoke_config(arch).param_count()
+    module = TT.Transformer(cfg, device="cpu")
+    assert "mamba" in module.params["decoder"]["blocks"][0]
+    hidden, _ = module(torch.zeros((1, 3), dtype=torch.int32))
+    assert tuple(hidden.shape) == (1, 3, cfg.d_model)
+    assert bool(torch.isfinite(hidden).all())
+
+
+@pytest.mark.parametrize("what", ["make_mesh", "check_mesh",
+                                  "moe_forward_ep"])
+def test_tensor_parallel_tail_raises_naming_item_7(what):
+    """What the port still refuses: a ``model`` axis above 1, in the
+    mesh, the serving launch and expert-parallel MoE (ROADMAP.md queue 1
+    item 7, its tensor-parallel tail)."""
+    import types
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import moe
+    calls = {
+        "make_mesh": lambda: M.make_mesh(model=2, device="cpu"),
+        "check_mesh": lambda: SV.check_mesh(types.SimpleNamespace(
+            mesh_dim_names=("data", "model"), size=lambda i: (1, 2)[i])),
+        "moe_forward_ep": lambda: moe.moe_forward_ep(
+            {}, torch.zeros((1, 2, 4)), top_k=1),
+    }
+    with pytest.raises(NotImplementedError, match="item 7.*tensor-parallel"):
+        calls[what]()

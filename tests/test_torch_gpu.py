@@ -638,3 +638,37 @@ def test_moe_layer_repeats_bitwise_and_expert_stacks_pack_as_plain(cuda):
     resid = torch.randn((1920, 4096), generator=gen, device=cuda) * 1e-2
     _bitwise(ef_sparsify.ef_select_pack(u, resid, 0.01, None, 5),
              ref.ef_select_pack_ref(u, resid, 0.01, None, 5))
+
+
+def test_mamba_layer_on_the_card_tracks_the_cpu(cuda, monkeypatch):
+    """One Mamba block of Jamba's smoke config (f32, d 128: d_inner 256)
+    on 2 × 24 tokens: the output, the prefill state and every gradient
+    (the written-out scan backward, in two channel blocks), then four
+    decode steps from that state, on the card against the CPU, each
+    within 1e-4 of its largest entry (the same ops, summed in another
+    order)."""
+    from repro_torch.configs import jamba_v0_1_52b
+    from repro_torch.models import ssm
+    cfg = jamba_v0_1_52b.smoke_config()
+    layer = TT.init_params(cfg, seed=3, device="cpu")["decoder"]["blocks"][0]
+    p0 = {k: v[0] for k, v in layer["mamba"].items()}
+    gen = torch.Generator().manual_seed(5)
+    x0 = torch.randn((2, 28, cfg.d_model), generator=gen)
+    monkeypatch.setattr(ssm, "SCAN_BLOCK", 2 * 24 * ssm.D_STATE * 128)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev).requires_grad_() for k, v in p0.items()}
+        x = x0[:, :24].to(dev).requires_grad_()
+        out, st = ssm.mamba_forward(p, x, return_state=True)
+        loss = (out ** 2).sum() + (st["ssm"] ** 2).sum()
+        grads = torch.autograd.grad(loss, [x, *p.values()])
+        seq = [out.detach(), st["ssm"].detach()] + list(grads)
+        state = {k: v.detach() for k, v in st.items()}
+        with torch.no_grad():
+            for t in range(24, 28):
+                o, state = ssm.mamba_decode(p, x0[:, t:t + 1].to(dev), state)
+                seq += [o, state["ssm"]]
+        outs[str(dev)] = [v.cpu() for v in seq]
+    assert len(ssm._blocks(48, 2 * cfg.d_model, ssm.SCAN_BLOCK)) == 2
+    for i, (g, c) in enumerate(zip(outs[str(cuda)], outs["cpu"])):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max()), i

@@ -134,14 +134,22 @@ def test_random_init_matches_reference_distributions():
 
 
 def test_other_families_raise_naming_roadmap():
-    """Mamba is not ported (item 13d); the mLSTM is, since item 13d's
-    xLSTM part."""
+    """The families that raised naming item 13d build now: the mLSTM
+    (item 13d's xLSTM part) and Mamba (its last part).  TinyLlama's smoke
+    config with ``attn_period=2`` alternates Mamba (layer 0) and
+    attention (layer 1) and runs."""
     cfg = dataclasses.replace(tcfg.smoke_config(), family="ssm",
                               xlstm_pattern=("mlstm", "slstm"), d_ff=0)
     assert len(tree.leaves(TT.Transformer(cfg, device="cpu").params)) == 21
     cfg = dataclasses.replace(tcfg.smoke_config(), attn_period=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13d"):
-        TT.Transformer(cfg, device="cpu")
+    module = TT.Transformer(cfg, device="cpu")
+    blocks = module.params["decoder"]["blocks"]
+    assert "mamba" in blocks[0] and "attn" in blocks[1]
+    # 9 Mamba leaves, 4 attention leaves, 3 FFN leaves and 2 norms each
+    assert len(tree.leaves(module.params)) == 9 + 4 + 2 * (3 + 2) + 3
+    hidden, _ = module(torch.zeros((2, 5), dtype=torch.int32))
+    assert tuple(hidden.shape) == (2, 5, cfg.d_model)
+    assert bool(torch.isfinite(hidden).all())
 
 
 def test_layer_norm_decoder_builds():

@@ -194,8 +194,9 @@ def test_slstm_forward_matches_reference():
 def test_mlstm_pattern_raises_naming_item_13d():
     """The mLSTM pattern that raised builds now (item 13d's xLSTM part;
     its parity is ``test_torch_xlstm.py``'s): an mLSTM/sLSTM stack at the
-    paper LSTM's smoke widths runs.  A Mamba stack still raises naming
-    13d."""
+    paper LSTM's smoke widths runs.  So does a Mamba/attention stack
+    there, which raised naming 13d until its last part (its parity is
+    ``test_torch_mamba.py``'s)."""
     cfg = dataclasses.replace(TB.get_smoke_config("paper_lstm_ptb"),
                               xlstm_pattern=("mlstm", "slstm"))
     module = TT.Transformer(cfg, device="cpu")
@@ -203,9 +204,14 @@ def test_mlstm_pattern_raises_naming_item_13d():
     hidden, _ = module(torch.zeros((1, 3), dtype=torch.int32))
     assert tuple(hidden.shape) == (1, 3, cfg.d_model)
     assert bool(torch.isfinite(hidden).all())
-    with pytest.raises(NotImplementedError, match="mamba.*13d"):
-        TT.Transformer(dataclasses.replace(cfg, xlstm_pattern=None,
-                                           attn_period=2), device="cpu")
+    # the LSTM carries no FFN (d_ff 0); the hybrid's layers each have one
+    hybrid = TT.Transformer(dataclasses.replace(
+        cfg, xlstm_pattern=None, attn_period=2, d_ff=2 * cfg.d_model),
+        device="cpu")
+    assert "mamba" in hybrid.params["decoder"]["blocks"][0]
+    hidden, _ = hybrid(torch.zeros((1, 3), dtype=torch.int32))
+    assert tuple(hidden.shape) == (1, 3, cfg.d_model)
+    assert bool(torch.isfinite(hidden).all())
 
 
 # --- the CNN ----------------------------------------------------------------

@@ -1,10 +1,10 @@
 """The serving path of the port against the reference: ``serving.engine``
 (prefill, the prefill→decode handoff, one-token decode) on full KV
-caches, sliding-window rings, local/global interleaves, mLSTM and sLSTM
-states and MoE feed-forwards (Granite-3.0-MoE and OLMoE smoke configs, served
-drop-free); ``launch/serve`` (the long-context rewrite, the one-device
-steps); ``launch/specs``; windowed attention in training (gemma3's smoke
-config, loss and gradients).
+caches, sliding-window rings, local/global interleaves, mLSTM, sLSTM
+and Mamba states and MoE feed-forwards (Granite-3.0-MoE, OLMoE and
+Jamba smoke configs, served drop-free); ``launch/serve`` (the
+long-context rewrite, the one-device steps); ``launch/specs``; windowed
+attention in training (gemma3's smoke config, loss and gradients).
 
 Parity tests feed the reference's parameters (carried over as numpy
 through ``from_jax_params``) and the same numpy tokens to both packages.
@@ -41,9 +41,11 @@ from repro_torch.serving import engine as TE  # noqa: E402
 RTOL, ATOL = 1e-4, 2e-5
 #: the smoke configs the parity tests run: a full cache, ring and
 #: local/global caches (window 16, period 2), the sLSTM state, the MoE
-#: feed-forwards (drop-free in serving) and the mLSTM/sLSTM states
+#: feed-forwards (drop-free in serving), the mLSTM/sLSTM states and the
+#: Jamba hybrid's Mamba states beside an attention cache
 PARITY_IDS = ("tinyllama_1_1b", "gemma3_27b", "paper_lstm_ptb",
-              "granite_moe_3b_a800m", "olmoe_1b_7b", "xlstm_1_3b")
+              "granite_moe_3b_a800m", "olmoe_1b_7b", "xlstm_1_3b",
+              "jamba_v0_1_52b")
 
 
 def _close(got, want, what):
@@ -208,9 +210,29 @@ def test_handoff_matches_token_by_token_replay():
 
 @pytest.mark.parametrize("arch,what", [("jamba_v0_1_52b", "mamba")])
 def test_unported_families_raise_naming_item_13d(arch, what):
+    """The layers that raised naming item 13d serve now: Jamba's Mamba
+    layers get their O(1) states (the conv tail in the cache dtype, the
+    SSM state in f32), which ``pad_states_for_decode`` passes through
+    untouched while it grows the attention layer's cache."""
     cfg = TB.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"{what}.*13d"):
-        TE.init_states(cfg, 1, 8, torch.float32, device="cpu")
+    st = TE.init_states(cfg, 1, 8, torch.bfloat16, device="cpu")
+    specs = TT.build_blockspecs(cfg)
+    mamba = [st["blocks"][j] for j in range(TT.find_period(specs))
+             if specs[j].kind == what]
+    assert len(mamba) == 4
+    for m in mamba:
+        assert m["conv"].dtype == torch.bfloat16
+        assert m["ssm"].dtype == torch.float32
+        assert tuple(m["ssm"].shape) == (1, 1, 2 * cfg.d_model, 16)
+    params = TT.init_params(cfg, device="cpu")
+    _, pre = TE.prefill(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
+                        chunk=8)
+    out = TE.pad_states_for_decode(cfg, pre, 4, 8)
+    for j, spec in enumerate(specs[:TT.find_period(specs)]):
+        if spec.kind == what:
+            assert out["blocks"][j] is pre["blocks"][j]
+        else:
+            assert out["blocks"][j]["self"]["k"].shape[2] == 8
 
 
 # --- launch/serve and launch/specs ------------------------------------------
