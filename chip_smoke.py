@@ -103,6 +103,15 @@
    ``DIST_EXPECTED`` must launch.  Then, in the same process group, the
    paper LSTM (20 sequences of 35 tokens): ``dense``, ``lags_dp`` (kernel
    backend) ``off`` with step 0 held as above, and its ``wave`` twin.
+6a. Tensor parallelism (``tp_phase``), in the same NCCL group:
+   TinyLlama-1.1B at full width on the ("data", "model") = 1 × 1 mesh
+   (the parameters DTensors over 'model', the exchange on each rank's
+   chunk rows), 3 ``lags_dp`` + kernel steps under deterministic
+   algorithms, step 0 with every ``ef_select_pack`` launch held to its
+   plain version inside the step; every loss, and the parameters and
+   residuals after the last step, must equal the same steps on the
+   data-only mesh from the same weights and batch (a twin run, its
+   launches not counted in the phase's), bit for bit.
 6b. The observe plane and online re-planning, in the same NCCL group:
    ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
    steps each with the health quantities off and on (their step times),
@@ -227,7 +236,7 @@
    under ``phase_launches``, the re-encode check's beside them and not in
    ``launches``), the card line and the result line.
 
-    python3 chip_smoke.py --ranks 4  # the distributed phase alone, 4 cards
+    python3 chip_smoke.py --ranks 4  # the distributed phases alone, 4 cards
 
 runs phase 6 on 4 NCCL ranks, one process and one card each, 4
 sequences per global batch: the flat configurations on the ("data",)
@@ -239,8 +248,17 @@ the exchange itself must give every rank the same bits).  Its schedules
 come from the autotune pipeline over the 4 ranks: every rank profiles
 (the real step and ``time_collectives``); rank 0 prints the wire
 samples and the fitted α and β (the source of ``H100_NVLINK``), plans,
-and sends the plans to every rank.  Then the observe phase (6b) on the
-four ranks: the replicas must stay bitwise equal after the swap, every
+and sends the plans to every rank.  Then the tp phase (6a) at data 2 ×
+model 2, each run beside its data-only twin (data 4 × model 1, each
+data rank's rows on both ranks of its pair): 3 ``lags_dp`` + kernel
+steps ``off`` (step 0 held to the plain versions) and 3 under ``wave``,
+the two data replicas of each model chunk bitwise equal after every
+step, ``wave`` bitwise ``off``, step 0's loss within ``TP_LOSS_RTOL``
+of the twin's; 3 ``dense`` steps, every loss within ``TP_LOSS_RTOL`` of
+its twin's and the gathered parameters within ``TP_PARAM_RTOL``, and a
+planted fault of the gradients' reduction (``tp_fault``) above it; each
+step's time and peak memory over the four ranks beside the twins'.  Then the
+observe phase (6b) on the four ranks: the replicas must stay bitwise equal after the swap, every
 rank ingests rank 0's trace, and the wire α and β attributed from it
 print beside ``H100_NVLINK``'s (the re-plan's fit must be
 ``attr_wire_fit``); rank 0 alone writes the checkpoint and snapshot.
@@ -1724,24 +1742,27 @@ def held(label: str, state, twins: dict, shown: str) -> None:
           f"{twin}'s, bitwise ({len(parts)} leaves)")
 
 
-def check_replicas(params, what: str) -> None:
-    """Every rank's parameters == rank 0's, bit for bit (a broadcast of
-    each leaf from rank 0, compared on every rank; a rank that differs
-    fails the collective check on all of them)."""
+def check_replicas(params, what: str, group=None) -> None:
+    """Every rank's parameters == those of the first rank of ``group``
+    (default: every rank, rank 0 first), bit for bit (a broadcast of each
+    leaf, or of this rank's chunk of a DTensor, compared on every rank; a
+    rank that differs fails the collective check on all of them)."""
     import torch
     import torch.distributed as dist
     from repro_torch import tree
+    from repro_torch.sharding import dtensor as D
+    src = 0 if group is None else dist.get_process_group_ranks(group)[0]
     bad = 0
     for path, x in zip(tree.leaf_paths(params), tree.leaves(params)):
-        x = x.detach()
+        x = D.local(x.detach())
         ref0 = x.clone()
-        dist.broadcast(ref0, 0)
+        dist.broadcast(ref0, src, group=group)
         if not torch.equal(bits(x), bits(ref0)):
             print(f"rank {dist.get_rank()}: {what} {path} differs from "
-                  f"rank 0")
+                  f"rank {src}")
             bad += 1
         del ref0
-    flag = torch.tensor([bad], device=tree.leaves(params)[0].device)
+    flag = torch.tensor([bad], device=D.local(tree.leaves(params)[0]).device)
     dist.all_reduce(flag)
     if int(flag):
         raise AssertionError(f"{what}: parameters differ across ranks "
@@ -1915,6 +1936,327 @@ def check_step0(sess, state, p0, batch) -> dict:
 #: after which the fake trace's wire degrades, the cadence, and the
 #: wire it degrades to (the reference tests' "degraded" numbers)
 OBSERVE_STEPS, OBSERVE_SHIFT, OBSERVE_CADENCE = 12, 6, 4
+#: the tensor-parallel phase's run: the distributed phase's lags_dp +
+#: kernel row, at its learning rate
+TP_RUN = dict(lr=0.01, **DIST_CONFIGS["lags_dp/kernel"])
+#: data 2 x model 2 against its data-only twin (data 4 x model 1, each
+#: data rank's rows on both ranks of its pair, so that the twin's four
+#: workers average what data 2's two do), under ``dense`` (no selection:
+#: the mean gradient is the update, so the gradients' reduction and the
+#: in-place update of each chunk are what differ): every step's loss,
+#: relative (step 0's under ``lags_dp`` too, the same forward).  The two
+#: differ only where bf16 roundings fall: a row-parallel product (``wo``,
+#: ``w_down``) is two partial sums, each rounded to bf16 before their
+#: all-reduce, where the one-card product rounds once.  Read on four
+#: H100s (deterministic, so the same bits every run): sound 5.29e-05 at
+#: step 0, 4.8e-06 / 8.4e-06 at steps 1-2; ``tp_fault`` 3.6e-03 /
+#: 7.1e-03 at steps 1-2.
+TP_LOSS_RTOL = 1e-4
+#: ... and, after the last step, the gathered parameters' distance from
+#: the twin's over the twin's own update, ``|p - p_twin| / |p_twin -
+#: p_0|`` (2-norms over the whole tree; per leaf it is no larger than
+#: the largest leaf's).  Read per leaf: sound at most 0.123, on
+#: layer 0's ``wk``, whose update is a few f32 ulps, so that the
+#: roundings of ``p + u`` are all of it; ``tp_fault`` 0.866 (``lm_head``),
+#: about 0.5 wherever an update is halved.  On the whole tree: sound
+#: 0.112, ``tp_fault`` 0.846.
+TP_PARAM_RTOL = 0.25
+
+
+@contextlib.contextmanager
+def tp_fault():
+    """A planted fault of the gradients' reduction for the block's
+    steps: every DTensor gradient reduced as a mean over the 'model'
+    ranks where a sum belongs (``sharding.dtensor.grad_to_local`` then
+    divided by the 'model' size), wrong the same way on every data
+    replica, so the replicas stay equal."""
+    from repro_torch.sharding import dtensor as D
+    real = D.grad_to_local
+
+    def averaged(g, p):
+        out = real(g, p)
+        return out / g.device_mesh.size() if D.is_dtensor(g) else out
+    D.grad_to_local = averaged
+    try:
+        yield
+    finally:
+        D.grad_to_local = real
+
+
+def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
+             rank: int = 0) -> tuple[dict, dict, dict]:
+    """Tensor parallelism (``sharding.dtensor``: the parameters DTensors
+    over the mesh's 'model' axis; ``BlockLAGSExchange(row_axes=)``: the
+    exchange on each rank's chunk rows) at ``cfg``'s full width, ``steps``
+    ``TP_RUN`` steps each, under deterministic algorithms, inside
+    ``process_group``.
+
+    One card: the ("data", "model") = 1 × 1 mesh, step 0 with every
+    ``ef_select_pack`` launch held to its plain version inside it
+    (``held_to_plain``), against the same steps on the data-only mesh
+    from the same weights and batch (its launches counted in its own
+    row, not the phase's; its state kept on the host, so that the 1 × 1
+    run's peak is its own): every loss, and the parameters and residuals
+    after the last step, bit for bit.
+
+    ``world`` = 4 ranks: data 2 × model 2, 4 sequences a global batch;
+    each run beside its data-only twin, data 4 × model 1 on the same rows
+    (each data rank's two on both ranks of its pair; launches in its own
+    row).  ``off`` (step 0 held as above) and ``wave``: after every step
+    the two data replicas of each model chunk equal bit for bit
+    (``check_replicas`` over the data group), ``wave``'s losses,
+    parameters and residuals equal ``off``'s after every step, step 0's
+    loss within ``TP_LOSS_RTOL`` of the twin's.  The twin selects on the
+    data-only block layout, where 2 × 2 lays a leaf's blocks out over its
+    'model' dim first, as the reference does, so later steps pick other
+    entries; ``dense`` has no selection: its every loss within
+    ``TP_LOSS_RTOL`` of its twin's and its gathered parameters after the
+    last step within ``TP_PARAM_RTOL``, and with ``tp_fault`` planted
+    (launches not counted) above it.  Each step's time and peak memory
+    print as the range over the four ranks, beside the twins'.
+
+    Returns (launch counts of the DTensor runs, per-run rows, each
+    kernel's largest error against its plain version)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, kernels, tree
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.sharding import dtensor as D
+
+    batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=3).batch(
+        0, world, seq, device=dev)
+    model = 1 if world == 1 else 2
+    tp_mesh = M.make_mesh(model=model, device=dev.type)
+    data_group = M.worker_axes(tp_mesh, ("data",)).group
+    errs, results = {}, {}
+    shape = dict(zip(tp_mesh.mesh_dim_names, tp_mesh.mesh.shape))
+
+    def snapshot(state):
+        return [D.local(x.detach()).to("cpu", copy=True) for x in
+                tree.leaves(state["params"]) + tree.leaves(state["ef"])]
+
+    def train(label, mesh, pipeline, hold=None, rows_of=batch, ends=None,
+              keep=False, mode="lags_dp"):
+        """``steps`` steps on the global batch ``rows_of``; returns
+        (losses, state, launch counts, per-step (loss, snapshot) when
+        ``keep``); ``hold`` (the label and per-step snapshots of an
+        earlier run, or None) is held bitwise after each step; ``ends``
+        (a dict, or None) takes host copies of the parameters before the
+        first step and after the last."""
+        sess = api.Session(cfg, api.RunConfig(**{**TP_RUN, "mode": mode,
+                                                 "pipeline": pipeline}),
+                           mesh=mesh)
+        state, _ = sess.init_state(seed=0)
+        if ends is not None:
+            ends["init"] = [x.detach().to("cpu", copy=True)
+                            for x in tree.leaves(state["params"])]
+        tp = "model" in mesh.mesh_dim_names
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rows, losses, snaps = [], [], []
+        counts = dict.fromkeys(kernels.WRAPPERS, 0)
+        torch.use_deterministic_algorithms(True)
+        try:
+            for t in range(steps):
+                shapes0: dict = {}
+                inside = (tp and t == 0 and pipeline == "off"
+                          and label == f"{shape['data']}x{shape['model']}")
+                kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with (held_to_plain(errs, shapes0) if inside
+                      else contextlib.nullcontext()):
+                    state, metrics = sess.step_fn(state, rows_of)
+                    loss = float(metrics["loss"])            # device sync
+                step_s = time.perf_counter() - t0
+                mem = torch.cuda.max_memory_allocated()
+                step_counts = kernels.launch_counts()
+                for k, v in step_counts.items():
+                    counts[k] += v
+                if inside and not shapes0.get("ef_select_pack"):
+                    raise AssertionError(f"tp {label} step 0: no "
+                                         f"ef_select_pack launched")
+                if not math.isfinite(loss):
+                    raise AssertionError(f"tp {label} step {t}: loss {loss}")
+                losses.append(loss)
+                if world > 1 and tp:
+                    check_replicas(state["params"], f"tp {label} step {t}",
+                                   group=data_group)
+                if hold is not None:
+                    want_loss, want = hold[1][t]
+                    if loss != want_loss:
+                        raise AssertionError(f"tp {label} step {t}: loss "
+                                             f"{loss!r} != {want_loss!r}")
+                    got = snapshot(state)
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        assert_bitwise(f"tp {label} step {t} leaf {i}",
+                                       (g,), (w,))
+                    del got
+                elif keep:
+                    snaps.append((loss, snapshot(state)))
+                rows.append({"step": t, "loss": loss, "step_s": step_s,
+                             "max_memory_allocated": mem,
+                             "launches": step_counts})
+                who = f" rank {rank}/{world}" if world > 1 else ""
+                print(f"tp {label}{who} step {t}: loss {loss:.6f} step_s "
+                      f"{step_s:.4f} max_memory_allocated "
+                      f"{mem / 2**30:.3f} GiB launches {step_counts}"
+                      + (f"; every ef_select_pack launch == its plain "
+                         f"version, bitwise, (rows, bs, k) "
+                         f"{sorted(shapes0['ef_select_pack'])}"
+                         if inside else "")
+                      + (f"; == {hold[0]}'s, bitwise"
+                         if hold is not None else "")
+                      + ("; data replicas equal" if world > 1 and tp
+                         else ""))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if ends is not None:
+            ends["final"] = [x.detach().to("cpu", copy=True)
+                             for x in tree.leaves(state["params"])]
+        results[label] = {"mesh": dict(zip(mesh.mesh_dim_names,
+                                           mesh.mesh.shape)),
+                          "steps": rows, "launches": counts}
+        if world > 1:
+            # each step's time and peak on every rank
+            every = [None] * world
+            dist.all_gather_object(every, [(r["step_s"],
+                                            r["max_memory_allocated"])
+                                           for r in rows])
+            results[label]["ranks"] = every
+        return losses, state, counts, snaps
+
+    def against_twin(label, losses, state, twin_losses, ends):
+        """(every step's loss relative to the twin's, ``|p - p_twin| /
+        |p_twin - p_0|`` over the whole tree), the leaf where it is
+        largest printed beside: each DTensor gathered (``full_tensor``)
+        on every rank, in one order."""
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]
+        nums, dens, worst, where = 0.0, 0.0, -1.0, None
+        for path, x, ref, p0 in zip(tree.leaf_paths(state["params"]),
+                                    tree.leaves(state["params"]),
+                                    ends["final"], ends["init"]):
+            with torch.no_grad():
+                full = x.full_tensor() if D.is_dtensor(x) else x.detach()
+                ref, p0 = ref.to(dev), p0.to(dev)
+                num = float(torch.linalg.vector_norm(full - ref))
+                den = float(torch.linalg.vector_norm(ref - p0))
+            nums, dens = nums + num * num, dens + den * den
+            rel = num / den if den else (0.0 if num == 0 else math.inf)
+            if rel > worst:
+                worst, where = rel, path
+            del full, ref, p0
+        param_rel = math.sqrt(nums / dens)
+        results[label]["vs_twin"] = {"loss_rel": loss_rel,
+                                     "param_rel": param_rel,
+                                     "worst_leaf": [where, worst]}
+        if rank == 0:
+            print(f"tp {label} vs the data 4 x model 1 twin: losses "
+                  f"relative {[f'{r:.3e}' for r in loss_rel]} (limit "
+                  f"{TP_LOSS_RTOL:.1e}); parameters after step "
+                  f"{steps - 1}: |p - p_twin| / |p_twin - p_0| "
+                  f"{param_rel:.4e} (limit {TP_PARAM_RTOL}), largest on "
+                  f"one leaf {worst:.4e} at {where}")
+        return loss_rel, param_rel
+
+    if world == 1:
+        # its launches stay in its own row, out of the phase's counts
+        want_losses, twin, _, _ = train(
+            "data-only", M.make_mesh(device=dev.type), "off")
+        # on the host, so that the 1 x 1 run's peak is its own
+        want = snapshot(twin)
+        del twin
+        torch.cuda.empty_cache()
+        losses, state, counts, _ = train("1x1", tp_mesh, "off")
+        if losses != want_losses:
+            raise AssertionError(f"tp 1x1: losses {losses} != data-only's "
+                                 f"{want_losses}")
+        got = snapshot(state)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_bitwise(f"tp 1x1 leaf {i} vs data-only", (g,), (w,))
+        print(f"tp 1x1: {steps} steps == the data-only mesh's, bitwise "
+              f"(losses; {len(got)} parameter and residual leaves after "
+              f"the last step)")
+        del got, want, state
+        totals = counts
+    else:
+        label = f"{shape['data']}x{shape['model']}"
+        flat = M.make_mesh(device=dev.type)
+        # the twins: rank r takes the rows of data rank r // model
+        twin_rows = {k: v.reshape(shape["data"], -1, *v.shape[1:])
+                     .repeat_interleave(model, dim=0)
+                     .reshape(-1, *v.shape[1:]) for k, v in batch.items()}
+        twin_losses, state, _, _ = train("data4x1-twin", flat, "off",
+                                         rows_of=twin_rows)
+        del state
+        torch.cuda.empty_cache()
+        losses, state, counts, snaps = train(label, tp_mesh, "off",
+                                             keep=True)
+        del state
+        torch.cuda.empty_cache()
+        wave_losses, state, wave_counts, _ = train(
+            f"{label}/wave", tp_mesh, "wave", ("off", snaps))
+        del state, snaps
+        torch.cuda.empty_cache()
+        totals = {k: counts[k] + wave_counts[k] for k in counts}
+        step0 = abs(losses[0] - twin_losses[0]) / abs(twin_losses[0])
+        results[label]["vs_twin"] = {"loss_rel": [
+            abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]}
+        if rank == 0:
+            rels = results[label]["vs_twin"]["loss_rel"]
+            print(f"tp {label} vs the data 4 x model 1 twin: losses "
+                  f"relative {[f'{r:.3e}' for r in rels]} (step 0 held, "
+                  f"limit {TP_LOSS_RTOL:.1e}; later steps select on "
+                  f"another block layout)")
+        ends: dict = {}
+        dense_twin, state, _, _ = train("data4x1-twin/dense", flat, "off",
+                                        rows_of=twin_rows, ends=ends,
+                                        mode="dense")
+        del state
+        torch.cuda.empty_cache()
+        d_losses, state, _, _ = train(f"{label}/dense", tp_mesh, "off",
+                                      mode="dense")
+        sound = against_twin(f"{label}/dense", d_losses, state, dense_twin,
+                             ends)
+        del state
+        torch.cuda.empty_cache()
+        with tp_fault():
+            f_losses, state, _, _ = train(f"{label}/dense/fault", tp_mesh,
+                                          "off", mode="dense")
+        fault = against_twin(f"{label}/dense/fault", f_losses, state,
+                             dense_twin, ends)
+        del state, ends
+        torch.cuda.empty_cache()
+        if rank == 0:
+            for name, res in results.items():
+                for t in range(steps):
+                    ts = [r[t][0] for r in res["ranks"]]
+                    ms = [r[t][1] / 2**30 for r in res["ranks"]]
+                    print(f"tp {name} step {t} over the {world} ranks: "
+                          f"step_s {min(ts):.4f}-{max(ts):.4f} peak "
+                          f"{min(ms):.3f}-{max(ms):.3f} GiB")
+        if wave_losses != losses:
+            raise AssertionError(f"tp wave losses {wave_losses} != off's "
+                                 f"{losses}")
+        loss_rel, param_rel = sound
+        if not (max(loss_rel + [step0]) <= TP_LOSS_RTOL
+                and param_rel <= TP_PARAM_RTOL):
+            raise AssertionError(
+                f"tp {label} vs the twins: lags_dp step 0's loss {step0}, "
+                f"dense losses {loss_rel} (limit {TP_LOSS_RTOL}), dense "
+                f"parameters {param_rel} (limit {TP_PARAM_RTOL})")
+        if not (fault[1] > TP_PARAM_RTOL
+                and fault[0][-1] > TP_LOSS_RTOL):
+            raise AssertionError(
+                f"tp planted fault: parameters {fault[1]} and the last "
+                f"loss {fault[0][-1]} from the twin's, not above "
+                f"{TP_PARAM_RTOL} and {TP_LOSS_RTOL}")
+    if totals["ef_select_pack"] == 0:
+        raise AssertionError("tp: ef_select_pack never launched")
+    return totals, results, errs
+
+
 DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
 #: where the phase's large artifacts (the chrome trace, the full-width
 #: checkpoint) go before they are deleted: in the checkout, not copied
@@ -3729,6 +4071,7 @@ def main(argv=None) -> int:
     with process_group(dev):
         dist_totals, dist_results, dist_errs = distributed(
             dev, cfg, seq, steps, plans=plans)
+        tp_totals, tp, tp_errs = tp_phase(dev, cfg, seq, steps)
         lstm_totals, lstm_results, lstm_errs = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
             configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
@@ -3739,7 +4082,7 @@ def main(argv=None) -> int:
                                                       XLSTM_STEPS)
         encdec_totals, encdec, encdec_errs = encdec_phase(dev)
         jamba_totals, jamba, jamba_errs = jamba_phase(dev)
-    for part in (paper_errs, dist_errs, lstm_errs, stream.pop("errs"),
+    for part in (paper_errs, dist_errs, tp_errs, lstm_errs, stream.pop("errs"),
                  moe_errs, xlstm_errs, encdec_errs, jamba_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
@@ -3747,7 +4090,7 @@ def main(argv=None) -> int:
                              stream["block_topk"]["max_abs_err"])
     phases = {"main": main_totals, "ef_accum": path_counts,
               "paper": paper_totals, "distributed": dist_totals,
-              "paper_distributed": lstm_totals, "observe": observe_totals,
+              "tp": tp_totals, "paper_distributed": lstm_totals, "observe": observe_totals,
               "stream": stream_totals, "moe": moe_totals,
               "xlstm": xlstm_totals, "encdec": encdec_totals,
               "jamba": jamba_totals}
@@ -3771,7 +4114,7 @@ def main(argv=None) -> int:
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
          "timings": times, "autotune": autotune, "planned_pack": planned,
-         "main": results, "distributed": dist_results,
+         "main": results, "distributed": dist_results, "tp": tp,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
          "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
@@ -3811,11 +4154,12 @@ def ranks_main(world: int) -> int:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()),
                      "--ranks", str(world), "--rank", str(r), "--init",
-                     init], stdin=subprocess.DEVNULL, stdout=f,
+                     init],
+                    stdin=subprocess.DEVNULL, stdout=f,
                     stderr=subprocess.STDOUT, text=True))
         # a rank that fails leaves the others waiting in a collective:
         # stop them all then, or at the deadline
-        deadline = time.monotonic() + 900
+        deadline = time.monotonic() + 1200
         while time.monotonic() < deadline:
             codes = [p.poll() for p in procs]
             if all(c is not None for c in codes) or any(codes):
@@ -3851,6 +4195,8 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
         totals, results, _ = distributed(dev, cfg, seq, steps,
                                          world=args.ranks, rank=args.rank,
                                          out_dir=out_dir)
+        tp_totals, tp, _ = tp_phase(dev, cfg, seq, steps, world=args.ranks,
+                                    rank=args.rank)
         lstm_totals, lstm_results, _ = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, world=args.ranks,
             rank=args.rank, plans={},
@@ -3862,6 +4208,7 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
         {"card": card_line(), "torch": torch.__version__,
          "world": args.ranks, "rank": args.rank, "seq": seq,
          "launches": totals, "distributed": results,
+         "tp_launches": tp_totals, "tp": tp,
          "paper_launches": lstm_totals, "paper_distributed": lstm_results,
          "observe_launches": observe_totals, "observe": observe},
         indent=1))

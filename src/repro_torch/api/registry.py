@@ -60,6 +60,10 @@ class ExchangeSpec:
     n_inner: int = 1
     # distributed-only layout hint (see lags.BlockLAGSExchange)
     shard_dims: Any = None
+    # distributed-only: the 'model' axis (a lags.Axes) whose ranks each
+    # hold a chunk of the leaves ``shard_dims`` shards (tensor
+    # parallelism; None = whole leaves)
+    row_axes: Any = None
     # DGC momentum correction factor (the velocity accumulates BEFORE
     # sparsification); > 0 turns on the per-worker "mom" extra state
     momentum_correction: float = 0.0
@@ -243,6 +247,7 @@ def _lags_factory(spec: ExchangeSpec):
             f"for the closest semantics match", stacklevel=3)
     return lags.BlockLAGSExchange(
         ks=ks, block_size=spec.block_size, shard_dims=spec.shard_dims,
+        row_axes=spec.row_axes,
         use_kernel=(spec.selection_backend == "kernel"))
 
 

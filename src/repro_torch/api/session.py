@@ -153,7 +153,10 @@ class Session:
         ``ckpt_every``/``out_dir`` are set — checkpoints the train state
         (``{"params", "step"}`` in ``checkpoint.io``'s format) and the
         controller state periodically, plus a final
-        ``ckpt_final``/``runtime_final`` pair.
+        ``ckpt_final``/``runtime_final`` pair.  On a mesh with a 'model'
+        axis the checkpoint holds the full tensors (every rank gathers
+        them, so every rank must be given ``out_dir``); a controller or a
+        publisher there raises (``launch.train.refuse_model_axis``).
 
         Each JSONL row is a thin view over the metrics plane
         (``repro_torch.observe.metrics``): ``step``, ``loss``,
@@ -208,6 +211,10 @@ class Session:
         from repro_torch.observe import metrics as OM
 
         self._need_mesh("run")
+        if publisher is not None:
+            from repro_torch.launch import train as TR
+            TR.refuse_model_axis(self.mesh, "Session.run(publisher=...)")
+        from repro_torch.sharding import dtensor as SD
         step_fn = controller.step if controller is not None else self.step_fn
         if state is None:
             state, _ = self.init_state()
@@ -269,8 +276,10 @@ class Session:
         def save_ckpt(tag: str):
             if not out_dir:
                 return
+            # on a 'model' axis the full tensors (an all-gather that
+            # every rank runs), in the reference's format
             ckpt.save(os.path.join(out_dir, f"ckpt_{tag}"),
-                      {"params": state["params"],
+                      {"params": SD.gather(state["params"]),
                        "step": np.asarray(state["step"], np.int32)})
             if controller is not None:
                 controller.save_state(os.path.join(out_dir,

@@ -290,6 +290,8 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
     pass a trace that decides alike, since the sweep spans them all)."""
     from repro_torch.data import synthetic
     from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as TR
+    TR.refuse_model_axis(mesh, "profile_model")
     manual = M.data_axis_names(mesh)
     n_w = M.n_workers(mesh, manual)
     global_batch = global_batch if global_batch is not None else 2 * n_w

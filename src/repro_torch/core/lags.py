@@ -44,8 +44,9 @@ folds them into its JAX key, so both surfaces draw the same picks.
 ``SparseHierLAGSExchange`` serve both surfaces; ``LAGSExchange`` serves
 the simulation surface (as in the reference, where the distributed
 ``lags_dp`` step builds ``BlockLAGSExchange``); ``HierLAGSExchange``
-runs on one worker's leaves over its own axes.  Not ported yet: tensor
-parallelism (ROADMAP.md queue 1 item 7's tail).
+runs on one worker's leaves over its own axes.  Under tensor
+parallelism ``BlockLAGSExchange(row_axes=...)`` and ``DenseExchange``
+run on each rank's chunks of the leaves.
 """
 from __future__ import annotations
 
@@ -253,6 +254,17 @@ def _all_gather_start(x: torch.Tensor, axes: Axes):
     work = dist.all_gather_into_tensor(out, x, group=axes.group,
                                        async_op=True)
     return out.reshape((axes.size,) + tuple(x.shape)), work
+
+
+def _all_gather_flat(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Every rank's flat ``x`` of ``axes``, concatenated in rank order
+    (waits for it), under a ``lags/comm/flat/allgather/rows`` range."""
+    x = x.contiguous()
+    with _comm_scope("flat", "allgather", "rows",
+                     x.element_size() * x.numel(), axes.size):
+        out, work = _all_gather_start(x, axes)
+        work.wait()
+    return out.reshape(-1)
 
 
 def _gather_picks_start(vals, idx, axes: Axes, *, tier: str = "flat",
@@ -532,16 +544,28 @@ class BlockLAGSExchange:
     ``ks`` (the reference's layout hint; () or None = unsharded).  The
     block view lays a leaf's sharded dims first before it flattens, as
     the reference's does so that each device's rows stay local; this
-    decides which entries share a block.  The port's parameters stay
-    replicated: only ``lags_hier`` passes any (its FSDP dim over
-    'data').  The reference's ``row_axes`` pin a GSPMD layout and have
-    no counterpart here."""
+    decides which entries share a block.  ``lags_hier`` passes its FSDP
+    dim over 'data', whose parameters stay replicated here.
+
+    ``row_axes``: the 'model' axis (an :class:`Axes`) whose ranks each
+    hold one chunk of every leaf with a sharded dim (tensor
+    parallelism: ``u`` and ``e`` are this rank's chunks, the sharded dim
+    the one in ``shard_dims``).  Laid first, that dim makes the chunk of
+    rank m the segment [m·L, (m+1)·L) of the full leaf's flat block view
+    (L its size), and the budget and blocks are the full leaf's.  When L
+    and m·L fall on block boundaries, rank m selects, gathers and
+    scatters its own L/bs block rows, the rows the reference pins to it;
+    otherwise the blocks that cover its segment straddle a neighbour's,
+    and the chunks are first all-gathered over ``row_axes`` so that those
+    blocks select what the reference's select.  A leaf without a sharded
+    dim is whole on every rank, which runs all of its rows."""
     ks: Any
     block_size: int = 4096
     residual_dtype: torch.dtype = torch.float32
     name: str = "lags_block"
     use_kernel: bool = False
     shard_dims: Any = None
+    row_axes: Axes | None = None
     wave_granularity = "leaf"
 
     def init(self, updates_like):
@@ -578,21 +602,36 @@ class BlockLAGSExchange:
         (works, kept inputs, finish -> mean, residual)."""
         sim = axis_names is None
         param_shape = tuple(u.shape[1:] if sim else u.shape)
-        size = int(math.prod(param_shape))
-        n_blocks, bs, k_b = self._geom(size, int(k))
+        n_local = int(math.prod(param_shape))
         w = u.shape[0] if sim else 1
         lead = len(u.shape) - len(param_shape)
         sd = tuple(d for d in (sdims or ()) if 0 <= d < len(param_shape))
         perm = (sd + tuple(i for i in range(len(param_shape))
                            if i not in sd)) if sd else None
+        tp = m = 0
+        if self.row_axes is not None and sd and not sim:
+            tp, m = self.row_axes.size, dist.get_rank(self.row_axes.group)
+        # the full leaf's geometry; this rank's segment [lo, lo + n_local)
+        # of its flat view and the block rows [r_lo, r_hi) that cover it
+        size = n_local * max(tp, 1)
+        n_blocks, bs, k_b = self._geom(size, int(k))
+        lo = m * n_local
+        r_lo, r_hi = lo // bs, min(n_blocks, -(-(lo + n_local) // bs))
+        off, end = lo - r_lo * bs, min(r_hi * bs, size) - r_lo * bs
 
         def to_flat(x):
             if perm is not None:      # the sharded dims first
                 x = x.permute(tuple(range(lead))
                               + tuple(lead + i for i in perm))
-            return x.reshape(w, size)
+            x = x.reshape(w, n_local)
+            if off == 0 and end == n_local:
+                return x
+            # blocks straddle a neighbour's chunk: the covering rows
+            full = _all_gather_flat(x[0], self.row_axes)
+            return full[r_lo * bs:r_lo * bs + end][None]
 
         def from_flat(flat, shape_lead):
+            flat = flat[..., off:off + n_local]
             if perm is None:
                 return flat.reshape(shape_lead + param_shape)
             n = len(shape_lead)
@@ -601,15 +640,14 @@ class BlockLAGSExchange:
             return x.permute(tuple(range(n))
                              + tuple(n + i for i in inv)).contiguous()
 
+        n_rows = r_hi - r_lo
         vals, local, resid_rows = self._local_rows(
-            to_flat(u), to_flat(e), n_blocks, bs, k_b)
-        resid = from_flat(resid_rows[:, :size],
-                          tuple(e.shape[:lead])).reshape(e.shape)
+            to_flat(u), to_flat(e), n_rows, bs, k_b)
+        resid = from_flat(resid_rows, tuple(e.shape[:lead])).reshape(e.shape)
         dtype = u.dtype
 
         def mean_of(vals_all, local_all, p):
-            mean = _row_scatter_mean(vals_all, local_all, n_blocks, bs,
-                                     p)[:size]
+            mean = _row_scatter_mean(vals_all, local_all, n_rows, bs, p)
             return from_flat(mean, ()).to(dtype)
 
         if sim:

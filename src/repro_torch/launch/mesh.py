@@ -4,10 +4,14 @@
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over every
 rank of the default process group: 1-D ``("data",)``, or ``("pod",
 "data")`` when it has more than one pod (the reference's
-``make_host_mesh(pod=...)``), its ranks laid out pod-major.  The backend
-follows the device: NCCL for ``cuda``, gloo for ``cpu``; a mismatch
-raises, with no fallback.  A ``model`` axis larger than 1 (tensor
-parallelism) is not ported yet.
+``make_host_mesh(pod=...)``), its ranks laid out pod-major.  Given a
+``model`` size, the mesh gains a last ``"model"`` axis (``("data",
+"model")`` or ``("pod", "data", "model")``), the fastest-varying rank
+index, as the reference's ``make_host_mesh`` lays out its devices; the
+parameters are then ``DTensor``s over it (``sharding.dtensor``).  A mesh
+without a ``"model"`` axis creates no DTensor.  The backend follows the
+device: NCCL for ``cuda``, gloo for ``cpu``; a mismatch raises, with no
+fallback.
 
 Nothing on a machine tells a program of its cluster, so the caller
 starts the group itself (:func:`init_process_group`) with an address, a
@@ -49,18 +53,15 @@ def init_process_group(init_method: str, world_size: int, rank: int,
                             world_size=world_size, rank=rank)
 
 
-def make_mesh(data: int | None = None, model: int = 1, pod: int = 1, *,
-              device="cuda"):
+def make_mesh(data: int | None = None, model: int | None = None,
+              pod: int = 1, *, device="cuda"):
     """The ("data",) mesh over the default process group, or the
-    ("pod", "data") mesh when ``pod > 1``.
+    ("pod", "data") mesh when ``pod > 1``; with ``model`` given (1
+    included), the same with a last "model" axis of that size.
 
-    ``data`` defaults to the world size over ``pod``; ``pod·data`` must
-    equal the world size and ``model`` must be 1.  The group must
+    ``data`` defaults to the world size over ``pod·model``;
+    ``pod·data·model`` must equal the world size.  The group must
     already be initialised with the device's backend."""
-    if model != 1:
-        raise NotImplementedError(
-            f"model={model}: tensor parallelism is not ported yet "
-            f"(ROADMAP.md queue 1 item 7, its tensor-parallel tail)")
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
@@ -70,15 +71,20 @@ def make_mesh(data: int | None = None, model: int = 1, pod: int = 1, *,
         raise ValueError(f"a {dev.type} mesh needs the {want} backend; the "
                          f"process group runs {got}")
     world = dist.get_world_size()
-    if pod < 1 or world % pod:
-        raise ValueError(f"pod={pod} does not divide the world size {world}")
-    data = world // pod if data is None else data
-    if pod * data != world:
-        raise ValueError(f"pod={pod} x data={data} != world size {world}")
+    tp = 1 if model is None else int(model)
+    if pod < 1 or tp < 1 or world % (pod * tp):
+        raise ValueError(f"pod={pod} x model={model} does not divide the "
+                         f"world size {world}")
+    data = world // (pod * tp) if data is None else data
+    if pod * data * tp != world:
+        raise ValueError(f"pod={pod} x data={data} x model={model} != world "
+                         f"size {world}")
+    shape, names = (data,), ("data",)
     if pod > 1:
-        return init_device_mesh(dev.type, (pod, data),
-                                mesh_dim_names=("pod", "data"))
-    return init_device_mesh(dev.type, (data,), mesh_dim_names=("data",))
+        shape, names = (pod, data), ("pod", "data")
+    if model is not None:
+        shape, names = shape + (tp,), names + ("model",)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 
 def device_of(mesh) -> torch.device:
@@ -113,6 +119,12 @@ def n_workers(mesh, axes: tuple[str, ...]) -> int:
     return math.prod(mesh.size(names.index(a)) for a in axes)
 
 
+def model_size(mesh) -> int:
+    """The size of the mesh's "model" axis (1 when it has none)."""
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
 def worker_axes(mesh, names: tuple[str, ...]) -> lags.Axes | None:
     """The exchange's :class:`~repro_torch.core.lags.Axes` for ``names``
     (None when empty): one mesh dim and its process group, or every dim
@@ -125,9 +137,12 @@ def worker_axes(mesh, names: tuple[str, ...]) -> lags.Axes | None:
     if len(names) == 1:
         return lags.Axes(names, mesh.get_group(names[0]))
     if names != tuple(mesh.mesh_dim_names):
+        item = (" (the 'pod' axes beside 'model': ROADMAP.md queue 1 item "
+                "7, its tensor-parallel second part)"
+                if "model" in mesh.mesh_dim_names else "")
         raise NotImplementedError(
             f"axes {names} of the mesh {mesh.mesh_dim_names}: the "
-            f"exchange runs over one mesh axis or over all of them")
+            f"exchange runs over one mesh axis or over all of them{item}")
     if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
         raise ValueError("the mesh does not lay out every rank in order")
     return lags.Axes(names, dist.group.WORLD,

@@ -38,7 +38,7 @@ pod's mean first); ``"async1"`` exchanges the PREVIOUS step's updates
 finished after the backward, while this step's updates (the velocity
 under mc) become the new pending — one step of bounded staleness.
 
-The loss is all-reduce-averaged over every rank.  State: ``{"params",
+The loss is all-reduce-averaged over every data rank.  State: ``{"params",
 "ef", "step"}``, plus ``"extra": {"mom"}`` when mc > 0 and ``"pending"``
 under ``async1``.  ``ef`` (one tree per tier, ``{"inner", "outer"}``, for
 ``lags_hier2``), ``mom`` and ``pending`` hold this rank's worker slice,
@@ -50,6 +50,22 @@ mc the pending leaves are the velocity's own.  The reference's
 ``lags_hier`` shards the parameters over 'data' (FSDP); here they stay
 replicated (that memory layout is ROADMAP.md queue 1 item 7's tail), but
 its block exchange takes the FSDP layout's blocks (``_block_layout``).
+
+Tensor parallelism (a mesh with a 'model' axis, ``make_mesh(model=)``;
+the reference's GSPMD auto axis): the parameters are ``DTensor``s over
+'model', laid out by ``param_pspecs`` (``sharding.dtensor``), and stay
+plain replicas over the data axes, so each data rank takes its own
+gradient as above.  A rank takes its data coordinate's rows (every
+'model' rank of one data rank the same); the forward and backward run
+under ``implicit_replication``; each gradient is reduced to its
+parameter's placements (``dtensor.grad_to_local``, inside the hooks
+under ``wave``) before ``u`` is formed; the exchange runs over the data
+ranks of this rank's model index on its chunk rows
+(``BlockLAGSExchange(row_axes=)``, ``shard_dims`` over 'model'); ``ef``,
+``mom`` and ``pending`` hold this rank's chunk, ``(1, *chunk)`` f32; the
+update is applied in place to the chunk; the loss is averaged over the
+data ranks.  It covers dense decoders under ``dense`` and ``lags_dp``
+(``TP_MODES``); the rest raises (``check_tensor_parallel``).
 
 ``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
 the scalar ratio's per-leaf budgets, through
@@ -75,6 +91,7 @@ and no work.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -90,8 +107,14 @@ from repro_torch.observe import health as H
 from repro_torch.pipeline import buckets as WB
 from repro_torch.pipeline import step as WS
 from repro_torch.pipeline import waves as WW
+from repro_torch.sharding import dtensor as D
 from repro_torch.sharding import rules
 from repro_torch.training.train_loop import Spec
+
+#: what a mesh with a 'model' axis does not run yet
+TP_NEXT = "ROADMAP.md queue 1 item 7, its tensor-parallel second part"
+#: the modes a mesh with a 'model' axis runs
+TP_MODES = ("dense", "lags_dp")
 
 
 def _mode(cfg, mesh, method: str | None):
@@ -109,6 +132,57 @@ def _mode(cfg, mesh, method: str | None):
         manual = M.data_axis_names(mesh)
         return mode, manual, manual
     return mode, (), ()
+
+
+def _tp_priority(cfg):
+    """The tensor-parallel priority of ``cfg`` (its ``moe_shard``)."""
+    if getattr(cfg, "moe_shard", "ffn") == "experts":
+        return rules.TP_PRIORITY_EXPERTS
+    return rules.TP_PRIORITY
+
+
+def param_pspecs(cfg, mesh, mode: str, params_like=None):
+    """Each parameter's spec on ``mesh`` (the reference's
+    ``param_pspecs``): 'model' by the config's tensor-parallel priority,
+    and under ``lags_hier`` FSDP over 'data'."""
+    if params_like is None:
+        params_like = T.abstract_params(cfg)
+    return rules.tree_specs(params_like, T.logical_axes(cfg),
+                            rules.mesh_axis_sizes(mesh), tp_axis="model",
+                            fsdp_axis="data" if mode == "lags_hier" else None,
+                            tp_priority=_tp_priority(cfg))
+
+
+def refuse_model_axis(mesh, what: str) -> None:
+    """Raise for ``what``, which a mesh with a 'model' axis does not run
+    yet."""
+    if "model" in (mesh.mesh_dim_names or ()):
+        raise NotImplementedError(
+            f"{what} on a mesh with a 'model' axis ({TP_NEXT})")
+
+
+def check_tensor_parallel(cfg, mesh, mode: str, *, health: bool = False):
+    """Raise for what a mesh with a 'model' axis does not run yet: modes
+    other than ``TP_MODES``, a 'pod' axis, a model family other than the
+    dense decoder, and the health quantities.  A mesh without a 'model'
+    axis passes."""
+    names = tuple(mesh.mesh_dim_names)
+    if "model" not in names:
+        return
+    what = None
+    if mode not in TP_MODES:
+        what = f"mode {mode!r}"
+    elif "pod" in names:
+        what = "a 'pod' axis"
+    elif cfg.family != "dense" or cfg.n_experts or cfg.n_encoder_layers:
+        what = f"the {cfg.family} family ({cfg.name})"
+    elif health:
+        what = "the health quantities (health_every > 0)"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} on the mesh {names}: tensor parallelism runs dense "
+            f"decoders under {' and '.join(TP_MODES)} on ('data', 'model') "
+            f"only ({TP_NEXT})")
 
 
 def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
@@ -166,11 +240,9 @@ def _block_layout(cfg, mesh, params_like, strat):
     None elsewhere (the data-parallel layouts shard nothing)."""
     if strat.axes != "pod_auto":
         return None
-    sizes = {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
-    specs = rules.tree_specs(params_like, T.logical_axes(cfg), sizes,
-                             fsdp_axis="data")
-    return rules.shard_dims_tree(params_like, specs,
-                                 M.inner_axis_names(mesh))
+    return rules.shard_dims_tree(
+        params_like, param_pspecs(cfg, mesh, "lags_hier", params_like),
+        M.inner_axis_names(mesh))
 
 
 def make_state_specs(cfg, mesh, *, method: str | None = None,
@@ -184,15 +256,27 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
         raise ValueError(f"pipeline={pipeline!r} not in "
                          f"{WW.PIPELINE_MODES}")
     mode, manual, worker = _mode(cfg, mesh, method)
+    check_tensor_parallel(cfg, mesh, mode)
     dev = M.device_of(mesh)
     params = tree.map(lambda m: Spec(m.shape, m.dtype, dev),
                       T.abstract_params(cfg))
+    # on a 'model' axis each rank holds one chunk of a parameter (its
+    # Spec keeps the full shape, a DTensor's), and of its worker states
+    tp = M.model_size(mesh)
+    pspecs = (param_pspecs(cfg, mesh, mode, params)
+              if "model" in mesh.mesh_dim_names else None)
+    chunks = params
+    if pspecs is not None:
+        leaves, treedef = tree.flatten(params)
+        chunks = tree.unflatten(treedef, [
+            Spec(D.local_shape(s.shape, spec, tp), s.dtype, dev)
+            for s, spec in zip(leaves, tree.flatten_up_to(treedef, pspecs))])
 
     def local(s):
         # this rank's worker slice of a per-worker f32 state
         return Spec((1,) + s.shape, torch.float32, dev)
 
-    ef = () if mode == "dense" else tree.map(local, params)
+    ef = () if mode == "dense" else tree.map(local, chunks)
     tiers = R.get_exchange(mode).ef_tiers
     if ef and tiers:
         # two-tier exchanges: one residual tree per tier, same layout
@@ -200,11 +284,12 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
     state = {"params": params, "ef": ef,
              "step": Spec((), torch.int64, torch.device("cpu"))}
     if pipeline == "async1":
-        state["pending"] = tree.map(local, params)
+        state["pending"] = tree.map(local, chunks)
     if momentum_correction > 0.0:
-        state["extra"] = {"mom": tree.map(local, params)}
+        state["extra"] = {"mom": tree.map(local, chunks)}
     meta = {"mode": mode, "manual": manual, "worker_axes": worker,
-            "n_workers": M.n_workers(mesh, worker), "pipeline": pipeline}
+            "n_workers": M.n_workers(mesh, worker), "pipeline": pipeline,
+            "pspecs": pspecs}
     return state, meta
 
 
@@ -228,10 +313,15 @@ def build_train_step(cfg, mesh, run: RunConfig):
         cfg, mesh, method=run.mode, pipeline=run.pipeline,
         momentum_correction=run.momentum_correction)
     mode, worker = meta["mode"], meta["worker_axes"]
+    check_tensor_parallel(cfg, mesh, mode, health=run.health_every > 0)
     strat = R.get_exchange(mode)
     ks_override = R.resolve_schedule_ks(run.schedule, mode,
                                         state_specs["params"],
                                         n_workers=meta["n_workers"])
+    # tensor parallelism: the parameters are DTensors over 'model', and
+    # the exchange runs on each rank's chunk of the block rows
+    tp = meta["pspecs"] is not None
+    rows = M.worker_axes(mesh, ("model",)) if tp else None
     exch = R.build_exchange(R.ExchangeSpec(
         mode=mode, params_like=state_specs["params"],
         ratio=run.resolved_ratio(cfg), ks=ks_override,
@@ -240,9 +330,13 @@ def build_train_step(cfg, mesh, run: RunConfig):
         inner_compressor=run.inner_compressor, sim=False,
         n_workers=meta["n_workers"], ratio_inner=run.resolved_ratio_inner(),
         n_inner=max(1, M.n_workers(mesh, M.inner_axis_names(mesh))),
-        shard_dims=_block_layout(cfg, mesh, state_specs["params"], strat),
-        momentum_correction=run.momentum_correction))
-    # every rank of the data axes: the batch split and the loss mean
+        shard_dims=(rules.shard_dims_tree(state_specs["params"],
+                                          meta["pspecs"], ("model",))
+                    if tp else _block_layout(cfg, mesh,
+                                             state_specs["params"], strat)),
+        row_axes=rows, momentum_correction=run.momentum_correction))
+    # every rank of the data axes (of this rank's model index): the batch
+    # split and the loss mean
     ranks = M.worker_axes(mesh, M.data_axis_names(mesh))
     rank, n_ranks = dist.get_rank(ranks.group), ranks.size
     axes = M.worker_axes(mesh, worker)
@@ -342,6 +436,16 @@ def build_train_step(cfg, mesh, run: RunConfig):
             return 1
         return pod_auto_moe_groups(batch_rows, meta["n_workers"], inner.size)
 
+    def replicated():
+        """Plain tensors meet the DTensor parameters as replicas
+        (the rope tables, masks and accumulators of the model), through
+        the forward and the backward."""
+        if not tp:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        return implicit_replication()
+
     def shard(x):
         b = x.shape[0]
         if b % n_ranks:
@@ -401,11 +505,13 @@ def build_train_step(cfg, mesh, run: RunConfig):
         acc_sq = stale = None
         if pipeline == "wave" and inner is None:
             # each wave's exchange launches inside backprop (hooks)
-            (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
-                lambda p: loss_fn(p, local_batch, groups), step_exch,
-                waves.waves, params, WS.unflatten_state(ef_local, treedef),
-                axes, lr=lr,
-                key=key, has_aux=True, tiers=ef_tiers, marks=marks)
+            with replicated():
+                (loss, _aux), mean_upd, new_ef_local = WS.wave_backward(
+                    lambda p: loss_fn(p, local_batch, groups), step_exch,
+                    waves.waves, params,
+                    WS.unflatten_state(ef_local, treedef), axes, lr=lr,
+                    key=key, has_aux=True, tiers=ef_tiers, marks=marks,
+                    grad_of=D.grad_to_local if tp else None)
             flat_mean = tree.leaves(mean_upd)
             new_ef = WS.flatten_state(new_ef_local, ef_tiers)
             del mean_upd, new_ef_local
@@ -425,8 +531,12 @@ def build_train_step(cfg, mesh, run: RunConfig):
                         stale = ([], [])
                 if stale is None or mc > 0.0:
                     del pend
-            loss, _aux = loss_fn(params, local_batch, groups)
-            grads = list(torch.autograd.grad(loss, leaves))
+            with replicated():
+                loss, _aux = loss_fn(params, local_batch, groups)
+                grads = list(torch.autograd.grad(loss, leaves))
+                for i, p in enumerate(leaves):
+                    # in place: each gradient goes as its chunk lands
+                    grads[i] = D.grad_to_local(grads[i], p)
             moms = (tree.leaves(state["extra"]["mom"]) if mc > 0.0
                     else [None] * len(grads))
             with torch.no_grad():
@@ -470,9 +580,11 @@ def build_train_step(cfg, mesh, run: RunConfig):
             if health:
                 metrics = health_metrics(flat_mean, new_ef, acc_sq, stale)
             for p, d in zip(leaves, flat_mean):
+                p = D.local(p)      # a DTensor's chunk, in place
                 p.copy_(p.float() - d)
             del flat_mean
-            loss = loss.detach().clone()
+            loss = (loss.detach().full_tensor() if D.is_dtensor(loss)
+                    else loss.detach().clone())
             dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=ranks.group)
             loss = loss / n_ranks
         out["ef"] = stacked(new_ef, treedef)
@@ -492,7 +604,10 @@ def init_state(cfg, mesh, *, method: str | None = None, seed: int = 0,
     and the reference start from the same numbers; the reference draws
     its own from ``PRNGKey(seed)``, which torch cannot reproduce).  By
     default a ``Transformer`` is drawn from ``seed``, the same on every
-    rank."""
+    rank.  On a mesh with a 'model' axis the full tree (the same on
+    every rank) is laid out as ``DTensor``s by the step's specs
+    (``sharding.dtensor.distribute``: each rank keeps its chunk, and the
+    caller may drop the full tree); a tree of DTensors passes as it is."""
     state_specs, meta = make_state_specs(
         cfg, mesh, method=method, pipeline=pipeline,
         momentum_correction=momentum_correction)
@@ -507,6 +622,10 @@ def init_state(cfg, mesh, *, method: str | None = None, seed: int = 0,
                              f"on {p.device}, the step takes "
                              f"{s.dtype}{s.shape} on {dev}")
 
+    if meta["pspecs"] is not None and not all(
+            D.is_dtensor(p) for p in tree.leaves(params)):
+        params = D.distribute(params, meta["pspecs"], mesh)
+
     def zeros(s):
         return torch.zeros(s.shape, dtype=s.dtype, device=s.device)
 
@@ -520,7 +639,7 @@ def init_state(cfg, mesh, *, method: str | None = None, seed: int = 0,
     extra = R.ExchangeSpec(mode=meta["mode"], params_like=params,
                            n_workers=1,
                            momentum_correction=momentum_correction
-                           ).init_extra_state()
+                           ).init_extra_state(tree.map(D.local, params))
     if extra:
         state["extra"] = extra
     return state, meta

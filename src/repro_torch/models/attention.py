@@ -48,7 +48,15 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
     ``window``: keys more than ``window - 1`` positions before a query
     are masked; ``k_valid_len`` (an int or a 0-d integer tensor): keys
     at index >= it are masked.  Padding the keys to whole chunks masks
-    the pad the same way.  Returns (B, Sq, KV, G, hd) in q's dtype."""
+    the pad the same way.  Returns (B, Sq, KV, G, hd) in q's dtype.
+
+    Tensor-parallel ``DTensor`` inputs run on this rank's KV heads
+    (:func:`_local_heads`)."""
+    if type(q) is not torch.Tensor:
+        return _local_heads(chunked_attention, q, k, v,
+                            q_positions=q_positions, k_positions=k_positions,
+                            causal=causal, window=window, chunk=chunk,
+                            k_valid_len=k_valid_len)
     b, sq, kvh, g, hd = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
@@ -96,6 +104,27 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)        # B,Sq,KV,G,hd
+
+
+def _local_heads(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on this rank's KV heads when q, k and v are
+    ``DTensor``s over a tensor-parallel 'model' axis.  Attention is
+    independent per KV head, so each rank runs ``fn`` on its own (all
+    three sharded on the KV dim, 2) and the output keeps that sharding;
+    other layouts are replicated first.  (DTensor's own propagation of
+    the score products would flatten (batch, head) with the head dim
+    sharded, a layout older torch versions refuse.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    mesh = q.device_mesh
+    heads = (Shard(2),) * mesh.ndim
+    if not (tuple(q.placements) == tuple(k.placements)
+            == tuple(v.placements) == heads):
+        heads = (Replicate(),) * mesh.ndim
+        q, k, v = (t.redistribute(mesh, heads) for t in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, heads, run_check=False)
 
 
 def _window(window):

@@ -395,9 +395,23 @@ def forward(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024,
 
 def logits_fn(params, cfg, hidden):
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], hidden)
-    return torch.einsum("...d,dv->...v", hidden.float(),
-                        params["lm_head"]["w"].float())
+        return _whole_rows(L.unembed(params["embed"], hidden))
+    return _whole_rows(torch.einsum("...d,dv->...v", hidden.float(),
+                                    params["lm_head"]["w"].float()))
+
+
+def _whole_rows(logits):
+    """Logits sharded over the vocab (a tensor-parallel ``DTensor``)
+    gathered to whole rows, which the loss's gather of the gold logit
+    reads; plain logits as they are."""
+    if type(logits) is torch.Tensor:
+        return logits
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(logits, DTensor) and not all(
+            p.is_replicate() for p in logits.placements):
+        logits = logits.redistribute(
+            logits.device_mesh, [Replicate()] * logits.device_mesh.ndim)
+    return logits
 
 
 def loss_fn(params, cfg, batch, *, chunk: int = 1024, remat: bool = True,

@@ -159,7 +159,8 @@ def launch_leads(marks: Sequence) -> list[dict]:
 
 def wave_backward(loss_fn: Callable, exch, waves: Sequence, params, state,
                   axis_names, *, lr, key=None, has_aux: bool = False,
-                  tiers: Sequence[str] = (), marks: list | None = None):
+                  tiers: Sequence[str] = (), marks: list | None = None,
+                  grad_of: Callable | None = None):
     """Loss + in-backprop waved exchange.
 
     ``loss_fn(params) -> loss`` (or ``(loss, aux)`` with ``has_aux``);
@@ -169,7 +170,11 @@ def wave_backward(loss_fn: Callable, exch, waves: Sequence, params, state,
     mean update (apply as ``p - mean``) and the post-exchange EF state.
     ``marks``, when given, receives ``(wave index, host time, event)``
     as each wave launches and ``("end", ...)`` after backward (read with
-    :func:`launch_leads`)."""
+    :func:`launch_leads`).  ``grad_of(grad, p)``, when given, maps a
+    leaf's ``.grad`` to the tensor its update is formed from (under
+    tensor parallelism: the gradient in the parameter's layout, this
+    rank's chunk; a collective over 'model' that every rank runs in the
+    same leaf order, autograd's)."""
     flat_p, treedef = tree.flatten(params)
     flat_state = flatten_state(state, tiers)
     held = [i for i, p in enumerate(flat_p) if p.grad is not None]
@@ -186,7 +191,8 @@ def wave_backward(loss_fn: Callable, exch, waves: Sequence, params, state,
         def hook(p: torch.Tensor) -> None:
             with torch.no_grad():
                 # EXACTLY the off step's update law: lr * f32(grad)
-                updates[i] = p.grad.float().mul_(lr)
+                g = p.grad if grad_of is None else grad_of(p.grad, p)
+                updates[i] = g.float().mul_(lr)
             p.grad = None
             wi = wave_of[i]
             left[wi] -= 1

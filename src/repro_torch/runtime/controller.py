@@ -133,6 +133,8 @@ class ReplanController:
         from repro_torch.observe import metrics as OM
         if cfg.train_mode == "dense":
             raise ValueError("nothing to re-plan for train_mode='dense'")
+        from repro_torch.launch import train as TR
+        TR.refuse_model_axis(mesh, "the re-planning controller")
         self._metrics = metrics if metrics is not None \
             else OM.default_registry()
         self._events = events if events is not None else OE.default_events()

@@ -132,18 +132,22 @@ def test_unported_families_raise_naming_item_13d(arch):
     assert bool(torch.isfinite(hidden).all())
 
 
-@pytest.mark.parametrize("what", ["make_mesh", "check_mesh",
+@pytest.mark.parametrize("what", ["train_step", "check_mesh",
                                   "moe_forward_ep"])
 def test_tensor_parallel_tail_raises_naming_item_7(what):
-    """What the port still refuses: a ``model`` axis above 1, in the
-    mesh, the serving launch and expert-parallel MoE (ROADMAP.md queue 1
-    item 7, its tensor-parallel tail)."""
+    """What the port still refuses: on a ``model`` axis the train step of
+    a family other than the dense decoder, the serving launch and
+    expert-parallel MoE (ROADMAP.md queue 1 item 7, its tensor-parallel
+    tail)."""
     import types
-    from repro_torch.launch import mesh as M
     from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as LT
     from repro_torch.models import moe
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 size=lambda i: 2)
     calls = {
-        "make_mesh": lambda: M.make_mesh(model=2, device="cpu"),
+        "train_step": lambda: LT.check_tensor_parallel(
+            TB.get_smoke_config("olmoe_1b_7b"), mesh, "lags_dp"),
         "check_mesh": lambda: SV.check_mesh(types.SimpleNamespace(
             mesh_dim_names=("data", "model"), size=lambda i: (1, 2)[i])),
         "moe_forward_ep": lambda: moe.moe_forward_ep(

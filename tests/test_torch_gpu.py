@@ -672,3 +672,49 @@ def test_mamba_layer_on_the_card_tracks_the_cpu(cuda, monkeypatch):
     assert len(ssm._blocks(48, 2 * cfg.d_model, ssm.SCAN_BLOCK)) == 2
     for i, (g, c) in enumerate(zip(outs[str(cuda)], outs["cpu"])):
         assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max()), i
+
+
+def test_data_by_model_one_by_one_equals_the_data_only_step_bitwise(cuda):
+    """Tensor parallelism's path on one card: 3 ``lags_dp`` + kernel
+    steps on a ("data", "model") = 1 × 1 mesh (the parameters DTensors
+    over 'model', the exchange on each rank's chunk rows) leave the
+    losses, parameters and residuals of the same steps on the data-only
+    mesh (plain tensors), bit for bit, from the same weights and batch;
+    ``ef_select_pack`` launched on both."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.sharding import dtensor as D
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(tinyllama_1_1b.smoke_config(), n_layers=2)
+    toks = torch.randint(0, cfg.vocab, (2, 33),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    flat_mesh = _nccl_world_of_one()
+    out = {}
+    try:
+        for name, mesh in (("data", flat_mesh),
+                           ("data_model", M.make_mesh(model=1,
+                                                      device="cuda"))):
+            run = api.RunConfig(mode="lags_dp", ratio=16.0, lr=0.1,
+                                selection_backend="kernel", block_size=1024,
+                                chunk=16, loss_chunk=16)
+            sess = api.Session(cfg, run, mesh=mesh)
+            state, _ = sess.init_state(
+                params=TT.Transformer(cfg, seed=0, device=cuda).params)
+            assert all(D.is_dtensor(p) for p in tree.leaves(
+                state["params"])) == (name == "data_model")
+            kernels.reset_launch_counts()
+            losses = []
+            for _ in range(3):
+                state, metrics = sess.step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+            assert kernels.launch_counts()["ef_select_pack"] > 0
+            out[name] = (losses, [D.local(p).detach() for p in
+                                  tree.leaves(state["params"])],
+                         tree.leaves(state["ef"]))
+    finally:
+        dist.destroy_process_group()
+    assert out["data"][0] == out["data_model"][0]
+    for part in (1, 2):
+        _bitwise(out["data_model"][part], out["data"][part])
