@@ -105,13 +105,17 @@
    backend) ``off`` with step 0 held as above, and its ``wave`` twin.
 6a. Tensor parallelism (``tp_phase``), in the same NCCL group:
    TinyLlama-1.1B at full width on the ("data", "model") = 1 × 1 mesh
-   (the parameters DTensors over 'model', the exchange on each rank's
-   chunk rows), 3 ``lags_dp`` + kernel steps under deterministic
-   algorithms, step 0 with every ``ef_select_pack`` launch held to its
-   plain version inside the step; every loss, and the parameters and
-   residuals after the last step, must equal the same steps on the
-   data-only mesh from the same weights and batch (a twin run, its
-   launches not counted in the phase's), bit for bit.
+   (the parameters DTensors over 'model', or under ``lags_hier`` over
+   ('data', 'model'); ``lags_dp``'s exchange on each rank's chunk rows,
+   the other modes' on whole leaves), 3 steps each of ``lags_dp``,
+   ``slgs``, ``lags_hier2`` and ``lags_hier`` with the kernel backend
+   under deterministic algorithms, step 0 with every ``ef_select_pack``
+   and ``ef_block_candidates`` launch held to its plain version inside
+   the step; every loss, and the parameters and residuals after the
+   last step, must equal the same steps on the data-only mesh from the
+   same weights and batch (a twin run per mode, its launches not counted
+   in the phase's), bit for bit; the gradients' placements before their
+   reduction print.
 6b. The observe plane and online re-planning, in the same NCCL group:
    ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
    steps each with the health quantities off and on (their step times),
@@ -256,8 +260,16 @@ the two data replicas of each model chunk bitwise equal after every
 step, ``wave`` bitwise ``off``, step 0's loss within ``TP_LOSS_RTOL``
 of the twin's; 3 ``dense`` steps, every loss within ``TP_LOSS_RTOL`` of
 its twin's and the gathered parameters within ``TP_PARAM_RTOL``, and a
-planted fault of the gradients' reduction (``tp_fault``) above it; each
-step's time and peak memory over the four ranks beside the twins'.  Then the
+planted fault of the gradients' reduction (``tp_fault``) above it; the
+same ``off``/``wave`` pairs for ``slgs``, ``lags_hier2`` and
+``lags_hier`` (the data replicas not under ``lags_hier``, whose FSDP
+blocks differ over 'data'; ``slgs`` and ``lags_hier2``'s parameters
+after one f32 step within ``TP_PARAM_RTOL`` of a twin's), and the
+bytes a card holds at rest under ``lags_hier`` beside ``lags_dp``'s;
+then pod 2 × data 1 × model 2: 3 steps each of ``lags_dp``,
+``lags_hier2`` and ``lags_hier``, the pods' chunks bitwise equal after
+every step; each step's time and peak memory over the four ranks beside
+the twins'.  Then the
 observe phase (6b) on the four ranks: the replicas must stay bitwise equal after the swap, every
 rank ingests rank 0's trace, and the wire α and β attributed from it
 print beside ``H100_NVLINK``'s (the re-plan's fit must be
@@ -1936,15 +1948,22 @@ def check_step0(sess, state, p0, batch) -> dict:
 #: after which the fake trace's wire degrades, the cadence, and the
 #: wire it degrades to (the reference tests' "degraded" numbers)
 OBSERVE_STEPS, OBSERVE_SHIFT, OBSERVE_CADENCE = 12, 6, 4
-#: the tensor-parallel phase's run: the distributed phase's lags_dp +
-#: kernel row, at its learning rate
+#: the tensor-parallel phase's runs: the distributed phase's rows, at its
+#: learning rate
 TP_RUN = dict(lr=0.01, **DIST_CONFIGS["lags_dp/kernel"])
+TP_RUNS = {"lags_dp": TP_RUN, "dense": {**TP_RUN, "mode": "dense"},
+           **{m: dict(lr=0.01, **DIST_CONFIGS[f"{m}/kernel"])
+              for m in ("slgs", "lags_hier2", "lags_hier")}}
+#: the modes that select on whole leaves (and lags_hier's FSDP blocks)
+TP_WHOLE = ("slgs", "lags_hier2", "lags_hier")
+#: the modes on pod 2 x data 1 x model 2
+TP_POD = ("lags_dp", "lags_hier2", "lags_hier")
 #: data 2 x model 2 against its data-only twin (data 4 x model 1, each
 #: data rank's rows on both ranks of its pair, so that the twin's four
 #: workers average what data 2's two do), under ``dense`` (no selection:
 #: the mean gradient is the update, so the gradients' reduction and the
 #: in-place update of each chunk are what differ): every step's loss,
-#: relative (step 0's under ``lags_dp`` too, the same forward).  The two
+#: relative (step 0's under every mode too, the same forward).  The two
 #: differ only where bf16 roundings fall: a row-parallel product (``wo``,
 #: ``w_down``) is two partial sums, each rounded to bf16 before their
 #: all-reduce, where the one-card product rounds once.  Read on four
@@ -1959,7 +1978,12 @@ TP_LOSS_RTOL = 1e-4
 #: layer 0's ``wk``, whose update is a few f32 ulps, so that the
 #: roundings of ``p + u`` are all of it; ``tp_fault`` 0.866 (``lm_head``),
 #: about 0.5 wherever an update is halved.  On the whole tree: sound
-#: 0.112, ``tp_fault`` 0.846.
+#: 0.112, ``tp_fault`` 0.846.  ``slgs`` and ``lags_hier2`` select on
+#: whole leaves, the twin's entries, so their parameters after step 0
+#: are held to a one-step twin's too, in f32: in bf16 the row-parallel
+#: partial sums move the gradients by ~2^-8 relative, enough to swap the
+#: picks nearest the top-k threshold (read on four H100s: 0.2853 and
+#: 0.2981 after step 0), so the bf16 reading is printed, not held.
 TP_PARAM_RTOL = 0.25
 
 
@@ -1983,37 +2007,81 @@ def tp_fault():
         D.grad_to_local = real
 
 
+@contextlib.contextmanager
+def grad_placements(seen: list):
+    """Inside the block, each gradient's placements as the step meets
+    them (before ``sharding.dtensor.grad_to_local`` reduces them to its
+    parameter's) go to ``seen``, beside the parameter's, as
+    ``"<param> <- <grad>"``."""
+    from repro_torch.sharding import dtensor as D
+    real = D.grad_to_local
+
+    def spy(g, p):
+        if D.is_dtensor(g):
+            seen.append(f"{tuple(p.placements)} <- {tuple(g.placements)}")
+        return real(g, p)
+    D.grad_to_local = spy
+    try:
+        yield
+    finally:
+        D.grad_to_local = real
+
+
+def at_rest_bytes(state) -> int:
+    """The bytes of this rank's parameters and residuals (every tier),
+    and velocity when there is one, between steps."""
+    from repro_torch import tree
+    from repro_torch.sharding import dtensor as D
+    return sum(D.local(x).numel() * D.local(x).element_size()
+               for x in tree.leaves(state["params"]) + tree.leaves(state["ef"])
+               + tree.leaves(state.get("extra", {})))
+
+
 def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
              rank: int = 0) -> tuple[dict, dict, dict]:
     """Tensor parallelism (``sharding.dtensor``: the parameters DTensors
-    over the mesh's 'model' axis; ``BlockLAGSExchange(row_axes=)``: the
-    exchange on each rank's chunk rows) at ``cfg``'s full width, ``steps``
-    ``TP_RUN`` steps each, under deterministic algorithms, inside
-    ``process_group``.
+    over the mesh's 'model' axis, under ``lags_hier`` over the pod's
+    ('data', 'model') sub-mesh; ``BlockLAGSExchange(row_axes=)``: the
+    ``lags_dp`` exchange on each rank's chunk rows; ``slgs``,
+    ``lags_hier2`` and ``lags_hier`` on whole leaves gathered from the
+    chunks) at ``cfg``'s full width, ``steps`` ``TP_RUNS`` steps each,
+    under deterministic algorithms, inside ``process_group``.
 
-    One card: the ("data", "model") = 1 × 1 mesh, step 0 with every
-    ``ef_select_pack`` launch held to its plain version inside it
-    (``held_to_plain``), against the same steps on the data-only mesh
-    from the same weights and batch (its launches counted in its own
-    row, not the phase's; its state kept on the host, so that the 1 × 1
-    run's peak is its own): every loss, and the parameters and residuals
-    after the last step, bit for bit.
+    One card: the ("data", "model") = 1 × 1 mesh, for ``lags_dp``,
+    ``slgs``, ``lags_hier2`` and ``lags_hier``: step 0 with every
+    ``ef_select_pack`` and ``ef_block_candidates`` launch held to its
+    plain version inside it (``held_to_plain``), against the same steps
+    on the data-only mesh from the same weights and batch (its launches
+    counted in its own row, not the phase's; its state kept on the host,
+    so that the 1 × 1 run's peak is its own): every loss, and the
+    parameters and residuals after the last step, bit for bit.  The
+    gradients' placements before their reduction print (``lags_dp``'s
+    step 0).
 
-    ``world`` = 4 ranks: data 2 × model 2, 4 sequences a global batch;
-    each run beside its data-only twin, data 4 × model 1 on the same rows
-    (each data rank's two on both ranks of its pair; launches in its own
-    row).  ``off`` (step 0 held as above) and ``wave``: after every step
-    the two data replicas of each model chunk equal bit for bit
-    (``check_replicas`` over the data group), ``wave``'s losses,
-    parameters and residuals equal ``off``'s after every step, step 0's
-    loss within ``TP_LOSS_RTOL`` of the twin's.  The twin selects on the
-    data-only block layout, where 2 × 2 lays a leaf's blocks out over its
-    'model' dim first, as the reference does, so later steps pick other
-    entries; ``dense`` has no selection: its every loss within
-    ``TP_LOSS_RTOL`` of its twin's and its gathered parameters after the
-    last step within ``TP_PARAM_RTOL``, and with ``tp_fault`` planted
-    (launches not counted) above it.  Each step's time and peak memory
-    print as the range over the four ranks, beside the twins'.
+    ``world`` = 4 ranks, two meshes.  Data 2 × model 2, 4 sequences a
+    global batch; each ``lags_dp`` run beside its data-only twin, data 4
+    × model 1 on the same rows (each data rank's two on both ranks of its
+    pair; launches in its own row).  ``lags_dp``, ``slgs``, ``lags_hier2``
+    and ``lags_hier`` ``off`` (step 0 held as above) and ``wave``: after
+    every step the two data replicas of each model chunk equal bit for
+    bit (``check_replicas`` over the data group; not under ``lags_hier``,
+    whose blocks differ over 'data'), ``wave``'s losses, parameters and
+    residuals equal ``off``'s after every step, step 0's loss within
+    ``TP_LOSS_RTOL`` of the twin's; ``slgs`` and ``lags_hier2`` select on
+    whole leaves, so their gathered parameters after one f32 step are
+    within ``TP_PARAM_RTOL`` of their own f32 twins' (the bf16 reading
+    and the entries one run moved and the other did not print beside).  The twin of
+    ``lags_dp`` selects on the data-only block layout, where 2 × 2 lays a
+    leaf's blocks out over its 'model' dim first, as the reference does,
+    so later steps pick other entries; ``dense`` has no selection: its
+    every loss within ``TP_LOSS_RTOL`` of its twin's and its gathered
+    parameters after the last step within ``TP_PARAM_RTOL``, and with
+    ``tp_fault`` planted (launches not counted) above it.  The bytes of
+    parameters and residuals a card holds at rest under ``lags_hier``
+    (its FSDP blocks) print beside ``lags_dp``'s.  Then pod 2 × data 1 ×
+    model 2: ``lags_dp``, ``lags_hier2`` and ``lags_hier``, the two pods'
+    chunks equal bit for bit after every step.  Each step's time and peak
+    memory print as the range over the four ranks, beside the twins'.
 
     Returns (launch counts of the DTensor runs, per-run rows, each
     kernel's largest error against its plain version)."""
@@ -2030,43 +2098,56 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     tp_mesh = M.make_mesh(model=model, device=dev.type)
     data_group = M.worker_axes(tp_mesh, ("data",)).group
     errs, results = {}, {}
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
     shape = dict(zip(tp_mesh.mesh_dim_names, tp_mesh.mesh.shape))
+    label = f"{shape['data']}x{shape['model']}"
 
     def snapshot(state):
         return [D.local(x.detach()).to("cpu", copy=True) for x in
                 tree.leaves(state["params"]) + tree.leaves(state["ef"])]
 
+    def count(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
     def train(label, mesh, pipeline, hold=None, rows_of=batch, ends=None,
-              keep=False, mode="lags_dp"):
-        """``steps`` steps on the global batch ``rows_of``; returns
+              keep=False, mode="lags_dp", plain0=False, n_steps=steps,
+              replicas=None, first=None, placements=None, config=cfg):
+        """``n_steps`` steps on the global batch ``rows_of``; returns
         (losses, state, launch counts, per-step (loss, snapshot) when
-        ``keep``); ``hold`` (the label and per-step snapshots of an
-        earlier run, or None) is held bitwise after each step; ``ends``
-        (a dict, or None) takes host copies of the parameters before the
-        first step and after the last."""
-        sess = api.Session(cfg, api.RunConfig(**{**TP_RUN, "mode": mode,
+        ``keep``); ``plain0``: step 0's kernel launches held to their
+        plain versions; ``hold`` (the label and per-step snapshots of an
+        earlier run, or None) is held bitwise after each step;
+        ``replicas``: a group whose ranks must hold equal chunks after
+        each step; ``ends`` (a dict, or None) takes host copies of the
+        parameters before the first step and after the last, ``first``
+        the gathered parameters after step 0; ``placements`` (a list, or
+        None) step 0's gradient placements; ``config``: the model."""
+        sess = api.Session(config, api.RunConfig(**{**TP_RUNS[mode],
                                                  "pipeline": pipeline}),
                            mesh=mesh)
         state, _ = sess.init_state(seed=0)
         if ends is not None:
+            ends["paths"] = tree.leaf_paths(state["params"])
             ends["init"] = [x.detach().to("cpu", copy=True)
                             for x in tree.leaves(state["params"])]
-        tp = "model" in mesh.mesh_dim_names
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         rows, losses, snaps = [], [], []
         counts = dict.fromkeys(kernels.WRAPPERS, 0)
         torch.use_deterministic_algorithms(True)
         try:
-            for t in range(steps):
+            for t in range(n_steps):
                 shapes0: dict = {}
-                inside = (tp and t == 0 and pipeline == "off"
-                          and label == f"{shape['data']}x{shape['model']}")
+                inside = plain0 and t == 0
                 kernels.reset_launch_counts()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 with (held_to_plain(errs, shapes0) if inside
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), \
+                        (grad_placements(placements)
+                         if placements is not None and t == 0
+                         else contextlib.nullcontext()):
                     state, metrics = sess.step_fn(state, rows_of)
                     loss = float(metrics["loss"])            # device sync
                 step_s = time.perf_counter() - t0
@@ -2074,15 +2155,23 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
                 step_counts = kernels.launch_counts()
                 for k, v in step_counts.items():
                     counts[k] += v
-                if inside and not shapes0.get("ef_select_pack"):
-                    raise AssertionError(f"tp {label} step 0: no "
-                                         f"ef_select_pack launched")
+                missing = [k for k in DIST_EXPECTED[mode]
+                           if inside and not shapes0.get(k)]
+                if missing:
+                    raise AssertionError(f"tp {label} step 0: {missing} "
+                                         f"not launched")
                 if not math.isfinite(loss):
                     raise AssertionError(f"tp {label} step {t}: loss {loss}")
                 losses.append(loss)
-                if world > 1 and tp:
+                if replicas is not None:
                     check_replicas(state["params"], f"tp {label} step {t}",
-                                   group=data_group)
+                                   group=replicas)
+                if first is not None and t == 0:
+                    with torch.no_grad():
+                        first["params"] = [
+                            (x.full_tensor() if D.is_dtensor(x)
+                             else x.detach()).to("cpu", copy=True)
+                            for x in tree.leaves(state["params"])]
                 if hold is not None:
                     want_loss, want = hold[1][t]
                     if loss != want_loss:
@@ -2102,13 +2191,13 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
                 print(f"tp {label}{who} step {t}: loss {loss:.6f} step_s "
                       f"{step_s:.4f} max_memory_allocated "
                       f"{mem / 2**30:.3f} GiB launches {step_counts}"
-                      + (f"; every ef_select_pack launch == its plain "
-                         f"version, bitwise, (rows, bs, k) "
-                         f"{sorted(shapes0['ef_select_pack'])}"
+                      + ("".join(f"; every {k} launch == its plain "
+                                 f"version, bitwise, (rows, bs, k) "
+                                 f"{sorted(v)}" for k, v in shapes0.items())
                          if inside else "")
                       + (f"; == {hold[0]}'s, bitwise"
                          if hold is not None else "")
-                      + ("; data replicas equal" if world > 1 and tp
+                      + ("; replicas equal" if replicas is not None
                          else ""))
         finally:
             torch.use_deterministic_algorithms(False)
@@ -2117,7 +2206,8 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
                              for x in tree.leaves(state["params"])]
         results[label] = {"mesh": dict(zip(mesh.mesh_dim_names,
                                            mesh.mesh.shape)),
-                          "steps": rows, "launches": counts}
+                          "steps": rows, "launches": counts,
+                          "at_rest_bytes": at_rest_bytes(state)}
         if world > 1:
             # each step's time and peak on every rank
             every = [None] * world
@@ -2127,61 +2217,87 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
             results[label]["ranks"] = every
         return losses, state, counts, snaps
 
-    def against_twin(label, losses, state, twin_losses, ends):
-        """(every step's loss relative to the twin's, ``|p - p_twin| /
-        |p_twin - p_0|`` over the whole tree), the leaf where it is
-        largest printed beside: each DTensor gathered (``full_tensor``)
-        on every rank, in one order."""
-        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]
+    def param_rel(label, full, ends, after):
+        """``|p - p_twin| / |p_twin - p_0|`` over the whole tree (2-norms;
+        ``full`` the gathered parameters, on the host or gathered here
+        from DTensors, in one order on every rank), the leaf where it is
+        largest beside; printed and kept in ``label``'s row."""
         nums, dens, worst, where = 0.0, 0.0, -1.0, None
-        for path, x, ref, p0 in zip(tree.leaf_paths(state["params"]),
-                                    tree.leaves(state["params"]),
-                                    ends["final"], ends["init"]):
+        moved = apart = 0
+        for path, x, ref, p0 in zip(ends["paths"], full, ends["final"],
+                                    ends["init"]):
             with torch.no_grad():
-                full = x.full_tensor() if D.is_dtensor(x) else x.detach()
-                ref, p0 = ref.to(dev), p0.to(dev)
-                num = float(torch.linalg.vector_norm(full - ref))
+                x = x.full_tensor() if D.is_dtensor(x) else x.detach()
+                x, ref, p0 = x.to(dev), ref.to(dev), p0.to(dev)
+                num = float(torch.linalg.vector_norm(x - ref))
                 den = float(torch.linalg.vector_norm(ref - p0))
+                # entries the twin's steps moved, and those only one of
+                # the two runs moved (a sparse update: the picks)
+                moved += int((ref != p0).sum())
+                apart += int(((x != p0) != (ref != p0)).sum())
             nums, dens = nums + num * num, dens + den * den
             rel = num / den if den else (0.0 if num == 0 else math.inf)
             if rel > worst:
                 worst, where = rel, path
-            del full, ref, p0
-        param_rel = math.sqrt(nums / dens)
-        results[label]["vs_twin"] = {"loss_rel": loss_rel,
-                                     "param_rel": param_rel,
-                                     "worst_leaf": [where, worst]}
+            del x, ref, p0
+        rel = math.sqrt(nums / dens)
+        results[label].setdefault("vs_twin", {}).update(
+            param_rel=rel, worst_leaf=[where, worst], moved=moved,
+            moved_by_one=apart)
+        if rank == 0:
+            print(f"tp {label} vs the data 4 x model 1 twin: parameters "
+                  f"after step {after}: |p - p_twin| / |p_twin - p_0| "
+                  f"{rel:.4e} (limit {TP_PARAM_RTOL}), largest on one "
+                  f"leaf {worst:.4e} at {where}; {apart} entries moved by "
+                  f"one run and not the other, of {moved} the twin moved "
+                  f"({apart / max(moved, 1):.4f})")
+        return rel
+
+    def loss_rel(label, losses, twin_losses, note=""):
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]
+        results[label].setdefault("vs_twin", {})["loss_rel"] = rels
         if rank == 0:
             print(f"tp {label} vs the data 4 x model 1 twin: losses "
-                  f"relative {[f'{r:.3e}' for r in loss_rel]} (limit "
-                  f"{TP_LOSS_RTOL:.1e}); parameters after step "
-                  f"{steps - 1}: |p - p_twin| / |p_twin - p_0| "
-                  f"{param_rel:.4e} (limit {TP_PARAM_RTOL}), largest on "
-                  f"one leaf {worst:.4e} at {where}")
-        return loss_rel, param_rel
+                  f"relative {[f'{r:.3e}' for r in rels]} (limit "
+                  f"{TP_LOSS_RTOL:.1e}{note})")
+        return rels
 
     if world == 1:
-        # its launches stay in its own row, out of the phase's counts
-        want_losses, twin, _, _ = train(
-            "data-only", M.make_mesh(device=dev.type), "off")
-        # on the host, so that the 1 x 1 run's peak is its own
-        want = snapshot(twin)
-        del twin
-        torch.cuda.empty_cache()
-        losses, state, counts, _ = train("1x1", tp_mesh, "off")
-        if losses != want_losses:
-            raise AssertionError(f"tp 1x1: losses {losses} != data-only's "
-                                 f"{want_losses}")
-        got = snapshot(state)
-        for i, (g, w) in enumerate(zip(got, want)):
-            assert_bitwise(f"tp 1x1 leaf {i} vs data-only", (g,), (w,))
-        print(f"tp 1x1: {steps} steps == the data-only mesh's, bitwise "
-              f"(losses; {len(got)} parameter and residual leaves after "
-              f"the last step)")
-        del got, want, state
-        totals = counts
+        flat = M.make_mesh(device=dev.type)
+        for mode in ("lags_dp",) + TP_WHOLE:
+            # its launches stay in its own row, out of the phase's counts
+            want_losses, twin, _, _ = train(f"data-only/{mode}", flat, "off",
+                                            mode=mode)
+            # on the host, so that the 1 x 1 run's peak is its own
+            want = snapshot(twin)
+            del twin
+            torch.cuda.empty_cache()
+            seen = [] if mode == "lags_dp" else None
+            losses, state, counts, _ = train(f"1x1/{mode}", tp_mesh, "off",
+                                             mode=mode, plain0=True,
+                                             placements=seen)
+            if losses != want_losses:
+                raise AssertionError(f"tp 1x1 {mode}: losses {losses} != "
+                                     f"data-only's {want_losses}")
+            got = snapshot(state)
+            if len(got) != len(want):
+                raise AssertionError(f"tp 1x1 {mode}: {len(got)} leaves, "
+                                     f"data-only {len(want)}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert_bitwise(f"tp 1x1 {mode} leaf {i} vs data-only",
+                               (g,), (w,))
+            print(f"tp 1x1 {mode}: {steps} steps == the data-only mesh's, "
+                  f"bitwise (losses; {len(got)} parameter and residual "
+                  f"leaves after the last step)")
+            if seen is not None:
+                results["gradient_placements"] = seen
+                print(f"tp 1x1 gradient placements before their reduction "
+                      f"(torch {torch.__version__}): "
+                      f"{ {s: seen.count(s) for s in sorted(set(seen))} }")
+            del got, want, state
+            torch.cuda.empty_cache()
+            count(counts)
     else:
-        label = f"{shape['data']}x{shape['model']}"
         flat = M.make_mesh(device=dev.type)
         # the twins: rank r takes the rows of data rank r // model
         twin_rows = {k: v.reshape(shape["data"], -1, *v.shape[1:])
@@ -2191,24 +2307,28 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
                                          rows_of=twin_rows)
         del state
         torch.cuda.empty_cache()
-        losses, state, counts, snaps = train(label, tp_mesh, "off",
-                                             keep=True)
+        seen: list = []
+        losses, state, counts, snaps = train(
+            label, tp_mesh, "off", keep=True, plain0=True,
+            replicas=data_group, placements=seen)
+        at_rest = {"lags_dp": at_rest_bytes(state)}
+        results["gradient_placements"] = seen
+        if rank == 0:
+            print(f"tp {label} gradient placements before their reduction "
+                  f"(torch {torch.__version__}): "
+                  f"{ {s: seen.count(s) for s in sorted(set(seen))} }")
         del state
         torch.cuda.empty_cache()
         wave_losses, state, wave_counts, _ = train(
-            f"{label}/wave", tp_mesh, "wave", ("off", snaps))
+            f"{label}/wave", tp_mesh, "wave", ("off", snaps),
+            replicas=data_group)
         del state, snaps
         torch.cuda.empty_cache()
-        totals = {k: counts[k] + wave_counts[k] for k in counts}
-        step0 = abs(losses[0] - twin_losses[0]) / abs(twin_losses[0])
-        results[label]["vs_twin"] = {"loss_rel": [
-            abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]}
-        if rank == 0:
-            rels = results[label]["vs_twin"]["loss_rel"]
-            print(f"tp {label} vs the data 4 x model 1 twin: losses "
-                  f"relative {[f'{r:.3e}' for r in rels]} (step 0 held, "
-                  f"limit {TP_LOSS_RTOL:.1e}; later steps select on "
-                  f"another block layout)")
+        count(counts)
+        count(wave_counts)
+        step0 = loss_rel(label, losses, twin_losses,
+                         "; step 0 held, later steps select on another "
+                         "block layout")[0]
         ends: dict = {}
         dense_twin, state, _, _ = train("data4x1-twin/dense", flat, "off",
                                         rows_of=twin_rows, ends=ends,
@@ -2217,20 +2337,83 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
         torch.cuda.empty_cache()
         d_losses, state, _, _ = train(f"{label}/dense", tp_mesh, "off",
                                       mode="dense")
-        sound = against_twin(f"{label}/dense", d_losses, state, dense_twin,
-                             ends)
+        sound = (loss_rel(f"{label}/dense", d_losses, dense_twin),
+                 param_rel(f"{label}/dense", tree.leaves(state["params"]),
+                           ends, steps - 1))
         del state
         torch.cuda.empty_cache()
         with tp_fault():
             f_losses, state, _, _ = train(f"{label}/dense/fault", tp_mesh,
                                           "off", mode="dense")
-        fault = against_twin(f"{label}/dense/fault", f_losses, state,
-                             dense_twin, ends)
+        fault = (loss_rel(f"{label}/dense/fault", f_losses, dense_twin),
+                 param_rel(f"{label}/dense/fault",
+                           tree.leaves(state["params"]), ends, steps - 1))
         del state, ends
         torch.cuda.empty_cache()
+        # the whole-leaf modes and lags_hier's FSDP blocks
+        whole = {}
+        for mode in TP_WHOLE:
+            lab = f"{label}/{mode}"
+            reps = None if mode == "lags_hier" else data_group
+            m_losses, state, m_counts, snaps = train(
+                lab, tp_mesh, "off", keep=True, mode=mode, plain0=True,
+                replicas=reps)
+            at_rest[mode] = at_rest_bytes(state)
+            del state
+            torch.cuda.empty_cache()
+            w_losses, state, w_counts, _ = train(
+                f"{lab}/wave", tp_mesh, "wave", ("off", snaps), mode=mode,
+                replicas=reps)
+            del state, snaps
+            torch.cuda.empty_cache()
+            count(m_counts)
+            count(w_counts)
+            rel0 = loss_rel(lab, m_losses[:1], twin_losses[:1],
+                            "; step 0")[0]
+            p_rel = None
+            if mode != "lags_hier":
+                # whole-leaf selection: step 0 picks the twin's entries,
+                # held in f32 (``TP_PARAM_RTOL``), read in bf16 too
+                for dtype in ("bfloat16", "float32"):
+                    c = dataclasses.replace(cfg, dtype=dtype,
+                                            param_dtype=dtype)
+                    ends, first = {}, {}
+                    train(f"data4x1-twin/{mode}/{dtype}", flat, "off",
+                          rows_of=twin_rows, ends=ends, mode=mode,
+                          n_steps=1, config=c)
+                    torch.cuda.empty_cache()
+                    one = f"{lab}/{dtype}"
+                    train(one, tp_mesh, "off", mode=mode, n_steps=1,
+                          replicas=data_group, first=first, config=c)
+                    count(results[one]["launches"])
+                    rel = param_rel(one, first["params"], ends, 0)
+                    if dtype == "float32":
+                        p_rel = rel
+                    del ends, first
+                    torch.cuda.empty_cache()
+            whole[mode] = (rel0, p_rel, w_losses == m_losses)
+        if rank == 0:
+            gib = {m: b / 2**30 for m, b in at_rest.items()}
+            print(f"tp {label} at rest a card (parameters + residuals): "
+                  + ", ".join(f"{m} {at_rest[m]} B = {g:.3f} GiB"
+                              for m, g in gib.items())
+                  + f"; lags_hier / lags_dp "
+                  f"{at_rest['lags_hier'] / at_rest['lags_dp']:.4f}")
+        results["at_rest_bytes"] = at_rest
+        # pod 2 x data 1 x model 2: the pods' chunks equal after every step
+        pod_mesh = M.make_mesh(model=model, pod=2, device=dev.type)
+        pod_group = M.worker_axes(pod_mesh, ("pod",)).group
+        for mode in TP_POD:
+            _, state, p_counts, _ = train(f"pod2x1x2/{mode}", pod_mesh, "off",
+                                          mode=mode, replicas=pod_group)
+            del state
+            torch.cuda.empty_cache()
+            count(p_counts)
         if rank == 0:
             for name, res in results.items():
-                for t in range(steps):
+                if not isinstance(res, dict) or "ranks" not in res:
+                    continue
+                for t in range(len(res["steps"])):
                     ts = [r[t][0] for r in res["ranks"]]
                     ms = [r[t][1] / 2**30 for r in res["ranks"]]
                     print(f"tp {name} step {t} over the {world} ranks: "
@@ -2239,19 +2422,26 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
         if wave_losses != losses:
             raise AssertionError(f"tp wave losses {wave_losses} != off's "
                                  f"{losses}")
-        loss_rel, param_rel = sound
-        if not (max(loss_rel + [step0]) <= TP_LOSS_RTOL
-                and param_rel <= TP_PARAM_RTOL):
+        if not (max(sound[0] + [step0]) <= TP_LOSS_RTOL
+                and sound[1] <= TP_PARAM_RTOL):
             raise AssertionError(
                 f"tp {label} vs the twins: lags_dp step 0's loss {step0}, "
-                f"dense losses {loss_rel} (limit {TP_LOSS_RTOL}), dense "
-                f"parameters {param_rel} (limit {TP_PARAM_RTOL})")
+                f"dense losses {sound[0]} (limit {TP_LOSS_RTOL}), dense "
+                f"parameters {sound[1]} (limit {TP_PARAM_RTOL})")
         if not (fault[1] > TP_PARAM_RTOL
                 and fault[0][-1] > TP_LOSS_RTOL):
             raise AssertionError(
                 f"tp planted fault: parameters {fault[1]} and the last "
                 f"loss {fault[0][-1]} from the twin's, not above "
                 f"{TP_PARAM_RTOL} and {TP_LOSS_RTOL}")
+        for mode, (rel0, p_rel, same) in whole.items():
+            if not (same and rel0 <= TP_LOSS_RTOL
+                    and (p_rel is None or p_rel <= TP_PARAM_RTOL)):
+                raise AssertionError(
+                    f"tp {label} {mode}: wave == off {same}, step 0's loss "
+                    f"{rel0} from the twin's (limit {TP_LOSS_RTOL}), "
+                    f"parameters after step 0 {p_rel} (limit "
+                    f"{TP_PARAM_RTOL})")
     if totals["ef_select_pack"] == 0:
         raise AssertionError("tp: ef_select_pack never launched")
     return totals, results, errs

@@ -7,7 +7,9 @@ surfaces, as ``repro.api.session.Session`` composes them:
     sim = Session(cfg, run).simulator(loss_fn, params, n_workers=4)
 
     # distributed, one process per rank (launch.mesh); the hierarchy
-    # (lags_hier, lags_hier2) on a ("pod", "data") mesh: make_mesh(pod=2)
+    # (lags_hier, lags_hier2) on a ("pod", "data") mesh: make_mesh(pod=2);
+    # tensor parallelism (dense decoders, every mode) on ("data", "model")
+    # or ("pod", "data", "model"): make_mesh(model=2, pod=2)
     M.init_process_group("tcp://localhost:29500", world_size, rank)
     sess = Session(cfg, run, mesh=M.make_mesh())
     step_fn, state_specs, meta = sess.train_step()
@@ -155,7 +157,8 @@ class Session:
         controller state periodically, plus a final
         ``ckpt_final``/``runtime_final`` pair.  On a mesh with a 'model'
         axis the checkpoint holds the full tensors (every rank gathers
-        them, so every rank must be given ``out_dir``); a controller or a
+        them, over ('data', 'model') under ``lags_hier``, so every rank
+        must be given ``out_dir``); a controller or a
         publisher there raises (``launch.train.refuse_model_axis``).
 
         Each JSONL row is a thin view over the metrics plane

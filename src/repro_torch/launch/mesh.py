@@ -8,7 +8,10 @@ rank of the default process group: 1-D ``("data",)``, or ``("pod",
 ``model`` size, the mesh gains a last ``"model"`` axis (``("data",
 "model")`` or ``("pod", "data", "model")``), the fastest-varying rank
 index, as the reference's ``make_host_mesh`` lays out its devices; the
-parameters are then ``DTensor``s over it (``sharding.dtensor``).  A mesh
+parameters are then ``DTensor``s over it, or under ``lags_hier`` over
+the pod's ("data", "model") sub-mesh (``sharding.dtensor.sub_mesh``),
+and the data axes' worker group is that of the ranks of one model index
+(:func:`worker_axes`).  A mesh
 without a ``"model"`` axis creates no DTensor.  The backend follows the
 device: NCCL for ``cuda``, gloo for ``cpu``; a mismatch raises, with no
 fallback.
@@ -119,31 +122,45 @@ def n_workers(mesh, axes: tuple[str, ...]) -> int:
     return math.prod(mesh.size(names.index(a)) for a in axes)
 
 
-def model_size(mesh) -> int:
-    """The size of the mesh's "model" axis (1 when it has none)."""
-    names = mesh.mesh_dim_names
-    return mesh.size(names.index("model")) if "model" in names else 1
+def _model_index_group(mesh, names: tuple[str, ...]):
+    """The process group of the ranks that share this rank's model index
+    over the axes ``names`` (every axis but 'model'), its ranks in the
+    reference's worker order (row-major over ``names``: pod-major).  One
+    group per model index, made once per mesh with
+    ``dist.new_subgroups_by_enumeration`` (every rank makes all of them,
+    in one order) and kept on the mesh."""
+    groups = mesh.__dict__.setdefault("_worker_groups", {})
+    if names not in groups:
+        m = mesh.mesh_dim_names.index("model")
+        ranks = mesh.mesh.movedim(m, 0).reshape(mesh.size(m), -1)
+        groups[names] = dist.new_subgroups_by_enumeration(
+            [r.tolist() for r in ranks])[0]
+    return groups[names]
 
 
 def worker_axes(mesh, names: tuple[str, ...]) -> lags.Axes | None:
     """The exchange's :class:`~repro_torch.core.lags.Axes` for ``names``
-    (None when empty): one mesh dim and its process group, or every dim
-    of the mesh, whose group is the default one: ``init_device_mesh``
-    lays the ranks out row-major, the reference's outer-major worker
-    order."""
+    (None when empty): one mesh dim and its process group; every dim of
+    the mesh, whose group is the default one (``init_device_mesh`` lays
+    the ranks out row-major, the reference's outer-major worker order);
+    or, on a mesh with a 'model' axis, every other dim: the group of the
+    ranks of this rank's model index (``_model_index_group``).  With
+    several names, ``parts`` holds one ``Axes`` per name (its dim's
+    group of this rank's coordinate)."""
     names = tuple(names)
     if not names:
         return None
     if len(names) == 1:
         return lags.Axes(names, mesh.get_group(names[0]))
-    if names != tuple(mesh.mesh_dim_names):
-        item = (" (the 'pod' axes beside 'model': ROADMAP.md queue 1 item "
-                "7, its tensor-parallel second part)"
-                if "model" in mesh.mesh_dim_names else "")
-        raise NotImplementedError(
-            f"axes {names} of the mesh {mesh.mesh_dim_names}: the "
-            f"exchange runs over one mesh axis or over all of them{item}")
-    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
-        raise ValueError("the mesh does not lay out every rank in order")
-    return lags.Axes(names, dist.group.WORLD,
-                     parts=tuple(worker_axes(mesh, (a,)) for a in names))
+    dims = tuple(mesh.mesh_dim_names)
+    parts = tuple(worker_axes(mesh, (a,)) for a in names)
+    if names == dims:
+        if mesh.mesh.flatten().tolist() != list(range(
+                dist.get_world_size())):
+            raise ValueError("the mesh does not lay out every rank in order")
+        return lags.Axes(names, dist.group.WORLD, parts=parts)
+    if names == tuple(a for a in dims if a != "model") and "model" in dims:
+        return lags.Axes(names, _model_index_group(mesh, names), parts=parts)
+    raise NotImplementedError(
+        f"axes {names} of the mesh {dims}: the exchange runs over one mesh "
+        f"axis, over all of them, or over all but 'model'")

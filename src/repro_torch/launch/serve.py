@@ -5,8 +5,7 @@ No gradients, so no LAGS here.  The reference lays the parameters and
 caches out over a TPU mesh with GSPMD (tensor parallelism over
 ``model``, FSDP where a copy would not fit its device); the port places
 everything on the device that holds the parameters.  A mesh with a
-``model`` axis larger than 1 raises (ROADMAP.md queue 1 item 7's
-tensor-parallel tail).  The steps' argument specs are ``meta`` tensors
+``model`` axis larger than 1 raises (ROADMAP.md queue 1 item 7f).  The steps' argument specs are ``meta`` tensors
 (shapes and dtypes, no storage), the counterpart of the reference's
 ``ShapeDtypeStruct``s: a step applied to them returns ``meta`` outputs of
 the right shapes.
@@ -37,8 +36,8 @@ def check_mesh(mesh) -> None:
     if "model" in names and mesh.size(names.index("model")) > 1:
         raise NotImplementedError(
             "serving over a model axis > 1 (tensor parallelism) is not "
-            "ported yet (ROADMAP.md queue 1 item 7, its tensor-parallel "
-            "tail)")
+            "ported yet (ROADMAP.md queue 1 item 7f, the tensor-parallel "
+            "part for serving)")
 
 
 def state_specs(cfg, mesh, shape):

@@ -47,25 +47,47 @@ axes; under ``lags_hier`` the pod's, the same on each of its ranks);
 ``step`` is a Python int.  The port updates the parameters and the
 velocity in place, which saves one copy of each; under ``async1`` with
 mc the pending leaves are the velocity's own.  The reference's
-``lags_hier`` shards the parameters over 'data' (FSDP); here they stay
-replicated (that memory layout is ROADMAP.md queue 1 item 7's tail), but
-its block exchange takes the FSDP layout's blocks (``_block_layout``).
+``lags_hier`` shards the parameters over 'data' (FSDP); on a mesh
+without a 'model' axis they stay replicated here (that layout waits for
+ROADMAP.md queue 1 item 7g), but its block exchange takes the FSDP
+layout's blocks (``_block_layout``).
 
-Tensor parallelism (a mesh with a 'model' axis, ``make_mesh(model=)``;
-the reference's GSPMD auto axis): the parameters are ``DTensor``s over
-'model', laid out by ``param_pspecs`` (``sharding.dtensor``), and stay
-plain replicas over the data axes, so each data rank takes its own
-gradient as above.  A rank takes its data coordinate's rows (every
-'model' rank of one data rank the same); the forward and backward run
-under ``implicit_replication``; each gradient is reduced to its
-parameter's placements (``dtensor.grad_to_local``, inside the hooks
-under ``wave``) before ``u`` is formed; the exchange runs over the data
-ranks of this rank's model index on its chunk rows
-(``BlockLAGSExchange(row_axes=)``, ``shard_dims`` over 'model'); ``ef``,
-``mom`` and ``pending`` hold this rank's chunk, ``(1, *chunk)`` f32; the
-update is applied in place to the chunk; the loss is averaged over the
-data ranks.  It covers dense decoders under ``dense`` and ``lags_dp``
-(``TP_MODES``); the rest raises (``check_tensor_parallel``).
+Tensor parallelism (a mesh with a 'model' axis, ``make_mesh(model=)``,
+beside 'data' and optionally 'pod'; the reference's GSPMD auto axis):
+the parameters are ``DTensor``s over 'model', laid out by
+``param_pspecs`` (``sharding.dtensor``), and stay plain replicas over
+the data axes, so each data rank takes its own gradient as above.  A
+rank takes its (pod, data) coordinate's rows (every 'model' rank of one
+coordinate the same); the forward and backward run under
+``implicit_replication``; each gradient is reduced to its parameter's
+placements (``dtensor.grad_to_local``, inside the hooks under ``wave``)
+before ``u`` is formed; the worker axes are the data axes' ranks of this
+rank's model index (``mesh.worker_axes``); ``ef``, ``mom`` and
+``pending`` hold this rank's chunk, ``(1, *chunk)`` f32; the update is
+applied in place to the chunk; the loss is averaged over the data ranks.
+By mode:
+
+  * ``dense`` and ``lags_dp`` exchange each rank's chunk rows
+    (``BlockLAGSExchange(row_axes=)``, ``shard_dims`` over 'model');
+  * ``slgs`` and ``lags_hier2`` select on whole leaves, as the
+    reference's factories (which take no ``shard_dims``) do under GSPMD:
+    each update and residual chunk is gathered over 'model' to its full
+    leaf, the unchanged exchange runs over the data workers, and each
+    rank keeps its chunk of the mean and of each residual
+    (``_WholeLeaves``: a leaf at a time, ``slgs`` the whole model at
+    once; every 'model' rank selects the same entries);
+  * ``lags_hier`` shards the parameters over 'data' too (FSDP, the
+    reference's ``param_pspecs(..., "lags_hier")``): each is a
+    ``DTensor`` on the pod's ('data', 'model') sub-mesh, and ``ef``,
+    ``mom`` and ``pending`` hold its 2-D block.  Each leaf is gathered
+    over 'data' outside autograd before the forward, and each update
+    reduce-scattered over 'data' after the backward (``DataShards``);
+    the exchange gathers the update and the residual over the pod's
+    ('data', 'model') ranks a leaf at a time and runs the block exchange
+    over 'pod' on the full leaf with the reference's two-dim
+    ``shard_dims`` (('data', 'model') in that order).
+
+It covers dense decoders (``check_tensor_parallel``); the rest raises.
 
 ``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
 the scalar ratio's per-leaf budgets, through
@@ -111,10 +133,19 @@ from repro_torch.sharding import dtensor as D
 from repro_torch.sharding import rules
 from repro_torch.training.train_loop import Spec
 
-#: what a mesh with a 'model' axis does not run yet
-TP_NEXT = "ROADMAP.md queue 1 item 7, its tensor-parallel second part"
+#: what a mesh with a 'model' axis does not run yet: the other families
+TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e, the tensor-parallel part "
+                    "for the other families")
+#: ... and the health quantities, the controller, profile_model and the
+#: publisher
+TP_NEXT = ("ROADMAP.md queue 1 item 7g, the tensor-parallel part for the "
+           "health quantities, the controller, profile_model and the "
+           "publisher")
 #: the modes a mesh with a 'model' axis runs
-TP_MODES = ("dense", "lags_dp")
+TP_MODES = ("dense", "lags_dp", "slgs", "lags_hier2", "lags_hier")
+#: ... of which these exchange each rank's chunk rows; the others gather
+#: whole leaves (``_WholeLeaves``)
+TP_CHUNK_MODES = ("dense", "lags_dp")
 
 
 def _mode(cfg, mesh, method: str | None):
@@ -163,26 +194,24 @@ def refuse_model_axis(mesh, what: str) -> None:
 
 def check_tensor_parallel(cfg, mesh, mode: str, *, health: bool = False):
     """Raise for what a mesh with a 'model' axis does not run yet: modes
-    other than ``TP_MODES``, a 'pod' axis, a model family other than the
-    dense decoder, and the health quantities.  A mesh without a 'model'
-    axis passes."""
+    other than ``TP_MODES`` (a strategy registered later), a model family
+    other than the dense decoder, and the health quantities.  A mesh
+    without a 'model' axis passes."""
     names = tuple(mesh.mesh_dim_names)
     if "model" not in names:
         return
-    what = None
+    what, item = None, TP_NEXT
     if mode not in TP_MODES:
         what = f"mode {mode!r}"
-    elif "pod" in names:
-        what = "a 'pod' axis"
     elif cfg.family != "dense" or cfg.n_experts or cfg.n_encoder_layers:
-        what = f"the {cfg.family} family ({cfg.name})"
+        what, item = f"the {cfg.family} family ({cfg.name})", \
+            TP_NEXT_FAMILIES
     elif health:
         what = "the health quantities (health_every > 0)"
     if what is not None:
         raise NotImplementedError(
-            f"{what} on the mesh {names}: tensor parallelism runs dense "
-            f"decoders under {' and '.join(TP_MODES)} on ('data', 'model') "
-            f"only ({TP_NEXT})")
+            f"{what} on the mesh {names}: tensor parallelism trains dense "
+            f"decoders under {', '.join(TP_MODES)} ({item})")
 
 
 def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
@@ -231,6 +260,145 @@ class _OneWorker:
         return self.launch_bucket(wave, updates, state, axis_names).finish()
 
 
+def _gather_dim(x, dim: int, axes: lags.Axes):
+    """Every rank's chunk ``x`` of ``axes`` concatenated along ``dim``,
+    in rank order (``x`` itself on one rank)."""
+    if axes.size == 1:
+        return x
+    y = x.movedim(dim, 0).contiguous()
+    out = torch.empty((axes.size * y.shape[0],) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    dist.all_gather_into_tensor(out, y, group=axes.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _chunk_dim(x, dim: int, axes: lags.Axes):
+    """This rank's chunk of ``x`` along ``dim`` over ``axes`` (a view)."""
+    n = x.shape[dim] // axes.size
+    return x.narrow(dim, dist.get_rank(axes.group) * n, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class _WholeLeaves:
+    """``exch`` on whole leaves, for the modes that select on them on a
+    mesh with a 'model' axis (``slgs``, ``lags_hier2``, ``lags_hier``).
+
+    ``layout[i]``: the (dim, :class:`~repro_torch.core.lags.Axes`) pairs
+    leaf ``i``'s chunks are split over.  Each update and residual chunk
+    is gathered to its full leaf, ``exch`` runs on the full leaves over
+    the worker axes, and this rank's chunks of the mean and of every new
+    residual are kept.  A leaf at a time, so that one full leaf's
+    transients are alive at once; ``slgs`` (one wave of the whole model)
+    all at once.  Nothing stays in flight: the launch finishes the
+    exchange, and every rank of a leaf's chunk axes selects the same
+    entries (redundantly)."""
+    exch: object
+    layout: tuple
+
+    @property
+    def wave_granularity(self) -> str:
+        return self.exch.wave_granularity
+
+    def _full(self, i: int, x):
+        for dim, axes in self.layout[i]:
+            x = _gather_dim(x, dim, axes)
+        return x
+
+    def _chunk(self, i: int, x):
+        for dim, axes in self.layout[i]:
+            x = _chunk_dim(x, dim, axes)
+        return x.contiguous()
+
+    def _run(self, ids, updates, state, axis_names, key):
+        def each(fn, xs):
+            return [fn(i, x) for i, x in zip(ids, xs)]
+        tiers = isinstance(state, dict)
+        full = ({t: each(self._full, v) for t, v in state.items()} if tiers
+                else each(self._full, state))
+        means, new = self.exch.exchange_bucket(
+            ids, each(self._full, updates), full, axis_names, key=key)
+        del full
+        return (each(self._chunk, means),
+                {t: each(self._chunk, v) for t, v in new.items()} if tiers
+                else each(self._chunk, new))
+
+    def launch_bucket(self, wave, updates, state, axis_names, *, key=None):
+        ids = lags._wave_ids(wave)
+        if self.wave_granularity == "model":
+            return lags._done(*self._run(ids, updates, state, axis_names,
+                                         key))
+        tiers = isinstance(state, dict)
+        means, new = [], ({t: [] for t in state} if tiers else [])
+        for j, i in enumerate(ids):
+            one = ({t: [v[j]] for t, v in state.items()} if tiers
+                   else [state[j]])
+            m, n = self._run((i,), [updates[j]], one, axis_names, key)
+            means += m
+            if tiers:
+                for t in new:
+                    new[t] += n[t]
+            else:
+                new += n
+        return lags._done(means, new)
+
+    def exchange_bucket(self, wave, updates, state, axis_names, *, key=None):
+        return self.launch_bucket(wave, updates, state, axis_names,
+                                  key=key).finish()
+
+
+class DataShards:
+    """``lags_hier``'s FSDP over 'data' on a mesh with a 'model' axis:
+    each parameter a ``DTensor`` on the pod's ('data', 'model') sub-mesh,
+    ``dims[i]`` the dim leaf ``i`` splits over 'data' (None: replicated
+    over it), ``placements[i]`` its placements on the 'model' sub-mesh
+    ``model_mesh``, ``data`` the pod's 'data' ranks of this rank's model
+    index.
+
+    :meth:`leaves` gathers each leaf over 'data' OUTSIDE autograd into a
+    fresh leaf on the 'model' sub-mesh that requires grad: the forward
+    and backward of the data-parallel layout then run on it, and
+    :meth:`targets` are what the gradients are taken of.  :meth:`mean`
+    reduce-scatters an update of that leaf over 'data' onto its FSDP dim
+    and divides by the data size: this rank's block of the pod's dense
+    mean.  (DTensor takes a ``Replicate`` placement to mean the same
+    numbers on every rank, so the backward of a gather over 'data' inside
+    autograd would keep each rank's own rows' share of the gradient and
+    sum nothing.)"""
+
+    def __init__(self, dims, placements, data: lags.Axes, model_mesh):
+        self.dims, self.placements = list(dims), list(placements)
+        self.data, self.model_mesh = data, model_mesh
+
+    def leaves(self, params) -> list:
+        from torch.distributed.tensor import DTensor
+        out = []
+        with torch.no_grad():
+            for p, dim, pl in zip(params, self.dims, self.placements):
+                x = D.local(p).detach()
+                if dim is not None:
+                    x = _gather_dim(x, dim, self.data)
+                out.append(DTensor.from_local(
+                    x, self.model_mesh, pl, run_check=False).requires_grad_())
+        return out
+
+    def targets(self, params, leaves) -> list:
+        return leaves
+
+    def mean(self, i: int, u):
+        dim = self.dims[i]
+        if dim is None:
+            dist.all_reduce(u, op=dist.ReduceOp.SUM, group=self.data.group)
+        elif self.data.size > 1:
+            y = u.movedim(dim, 0).contiguous()
+            out = torch.empty((y.shape[0] // self.data.size,)
+                              + tuple(y.shape[1:]), dtype=y.dtype,
+                              device=y.device)
+            dist.reduce_scatter_tensor(out, y, op=dist.ReduceOp.SUM,
+                                       group=self.data.group)
+            u = out.movedim(0, dim).contiguous()
+        return u.div_(self.data.size)
+
+
 def _block_layout(cfg, mesh, params_like, strat):
     """The per-leaf dims the block exchange lays first (its
     ``shard_dims``): under ``pod_auto`` the reference shards the
@@ -261,15 +429,19 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
     params = tree.map(lambda m: Spec(m.shape, m.dtype, dev),
                       T.abstract_params(cfg))
     # on a 'model' axis each rank holds one chunk of a parameter (its
-    # Spec keeps the full shape, a DTensor's), and of its worker states
-    tp = M.model_size(mesh)
-    pspecs = (param_pspecs(cfg, mesh, mode, params)
-              if "model" in mesh.mesh_dim_names else None)
+    # Spec keeps the full shape, a DTensor's), and of its worker states:
+    # under lags_hier a 2-D block, FSDP over 'data' beside 'model'
+    pspecs = param_axes = None
     chunks = params
-    if pspecs is not None:
+    if "model" in mesh.mesh_dim_names:
+        pspecs = param_pspecs(cfg, mesh, mode, params)
+        param_axes = (D.PARAM_AXES_FSDP if mode == "lags_hier"
+                      else (D.MODEL,))
+        sizes = {a: s for a, s in rules.mesh_axis_sizes(mesh).items()
+                 if a in param_axes}
         leaves, treedef = tree.flatten(params)
         chunks = tree.unflatten(treedef, [
-            Spec(D.local_shape(s.shape, spec, tp), s.dtype, dev)
+            Spec(D.local_shape(s.shape, spec, sizes), s.dtype, dev)
             for s, spec in zip(leaves, tree.flatten_up_to(treedef, pspecs))])
 
     def local(s):
@@ -289,7 +461,7 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
         state["extra"] = {"mom": tree.map(local, chunks)}
     meta = {"mode": mode, "manual": manual, "worker_axes": worker,
             "n_workers": M.n_workers(mesh, worker), "pipeline": pipeline,
-            "pspecs": pspecs}
+            "pspecs": pspecs, "param_axes": param_axes}
     return state, meta
 
 
@@ -318,9 +490,11 @@ def build_train_step(cfg, mesh, run: RunConfig):
     ks_override = R.resolve_schedule_ks(run.schedule, mode,
                                         state_specs["params"],
                                         n_workers=meta["n_workers"])
-    # tensor parallelism: the parameters are DTensors over 'model', and
-    # the exchange runs on each rank's chunk of the block rows
+    # tensor parallelism: the parameters are DTensors over 'model' (and
+    # 'data' under lags_hier); dense and lags_dp exchange each rank's
+    # chunk of the block rows, the other modes whole leaves
     tp = meta["pspecs"] is not None
+    whole = tp and mode not in TP_CHUNK_MODES
     rows = M.worker_axes(mesh, ("model",)) if tp else None
     exch = R.build_exchange(R.ExchangeSpec(
         mode=mode, params_like=state_specs["params"],
@@ -331,10 +505,11 @@ def build_train_step(cfg, mesh, run: RunConfig):
         n_workers=meta["n_workers"], ratio_inner=run.resolved_ratio_inner(),
         n_inner=max(1, M.n_workers(mesh, M.inner_axis_names(mesh))),
         shard_dims=(rules.shard_dims_tree(state_specs["params"],
-                                          meta["pspecs"], ("model",))
+                                          meta["pspecs"], meta["param_axes"])
                     if tp else _block_layout(cfg, mesh,
                                              state_specs["params"], strat)),
-        row_axes=rows, momentum_correction=run.momentum_correction))
+        row_axes=None if whole else rows,
+        momentum_correction=run.momentum_correction))
     # every rank of the data axes (of this rank's model index): the batch
     # split and the loss mean
     ranks = M.worker_axes(mesh, M.data_axis_names(mesh))
@@ -344,6 +519,22 @@ def build_train_step(cfg, mesh, run: RunConfig):
     inner = (M.worker_axes(mesh, M.inner_axis_names(mesh))
              if strat.axes == "pod_auto" else None)
     step_exch = exch if axes is not None else _OneWorker(exch)
+    shards = None
+    if whole:
+        specs = tree.flatten_up_to(tree.flatten(state_specs["params"])[1],
+                                   meta["pspecs"])
+        # per leaf, the dim each of its sub-mesh's axes splits (or None)
+        dims = [{a: rules.sharded_dim(spec, a) for a in meta["param_axes"]}
+                for spec in specs]
+        over = {"data": inner, "model": rows}
+        step_exch = _WholeLeaves(step_exch, tuple(
+            tuple((d[a], over[a]) for a in meta["param_axes"]
+                  if d[a] is not None) for d in dims))
+        if strat.axes == "pod_auto":
+            shards = DataShards(
+                [d["data"] for d in dims],
+                [rules.placements(spec, D.MODEL) for spec in specs], inner,
+                D.sub_mesh(mesh))
     meta["ks"] = getattr(exch, "ks", None)
     meta["schedule"] = run.schedule
     meta["run"] = dataclasses.replace(run, mode=mode)
@@ -472,16 +663,19 @@ def build_train_step(cfg, mesh, run: RunConfig):
                     for t, v in flat.items()}
         return tree.unflatten(treedef, [e[None] for e in flat])
 
-    def update_of(g, lr, mom, stale=None):
-        """``u = lr·f32(g)``, the pod's mean of it under pod_auto, and
-        the velocity ``mom = mc·mom + u`` (in place) under mc.  ``u`` is
+    def update_of(i, g, lr, mom, stale=None):
+        """``u = lr·f32(g)`` of leaf ``i``, the pod's mean of it under
+        pod_auto (this rank's block of it under ``shards``), and the
+        velocity ``mom = mc·mom + u`` (in place) under mc.  ``u`` is
         contiguous, as NCCL's buffers must be (a gradient may be
         strided: the sLSTM's on the card).  ``stale`` (async1 health
         under mc, where the pending update IS the old velocity): gets
         ``||mom_new - mom_old||^2`` appended before the old one is
         overwritten."""
         u = g.float().contiguous().mul_(lr)
-        if inner is not None:
+        if shards is not None:
+            u = shards.mean(i, u)
+        elif inner is not None:
             dist.all_reduce(u, op=dist.ReduceOp.SUM, group=inner.group)
             u.div_(inner.size)
         if mom is None:
@@ -532,19 +726,26 @@ def build_train_step(cfg, mesh, run: RunConfig):
                 if stale is None or mc > 0.0:
                     del pend
             with replicated():
-                loss, _aux = loss_fn(params, local_batch, groups)
-                grads = list(torch.autograd.grad(loss, leaves))
-                for i, p in enumerate(leaves):
+                # lags_hier's FSDP: the forward on leaves gathered over
+                # 'data' outside autograd
+                fwd = leaves if shards is None else shards.leaves(leaves)
+                loss, _aux = loss_fn(tree.unflatten(treedef, fwd),
+                                     local_batch, groups)
+                wrt = fwd if shards is None else shards.targets(leaves, fwd)
+                del fwd
+                grads = list(torch.autograd.grad(loss, wrt))
+                for i, p in enumerate(wrt):
                     # in place: each gradient goes as its chunk lands
                     grads[i] = D.grad_to_local(grads[i], p)
+                del wrt
             moms = (tree.leaves(state["extra"]["mom"]) if mc > 0.0
                     else [None] * len(grads))
             with torch.no_grad():
                 # DGC momentum correction: the velocity accumulates
                 # BEFORE sparsification, per worker (in place)
                 diffs = stale[1] if stale is not None and mc > 0.0 else None
-                updates = [update_of(g, lr, m, diffs)
-                           for g, m in zip(grads, moms)]
+                updates = [update_of(i, g, lr, m, diffs)
+                           for i, (g, m) in enumerate(zip(grads, moms))]
                 del grads
                 if stale is not None:
                     stale[0].extend(H.sq_norm(u) for u in updates)
@@ -624,7 +825,8 @@ def init_state(cfg, mesh, *, method: str | None = None, seed: int = 0,
 
     if meta["pspecs"] is not None and not all(
             D.is_dtensor(p) for p in tree.leaves(params)):
-        params = D.distribute(params, meta["pspecs"], mesh)
+        params = D.distribute(params, meta["pspecs"], mesh,
+                              meta["param_axes"])
 
     def zeros(s):
         return torch.zeros(s.shape, dtype=s.dtype, device=s.device)

@@ -16,12 +16,14 @@ passes run in the reference's order:
     ``FSDP_CANDIDATES`` order, that divides by the axis size.
 
 The port lays its parameters out by these specs on a mesh with a 'model'
-axis: each leaf is a ``DTensor`` over the mesh's 'model' dim with the
-placements of :func:`placements` (``sharding.dtensor``).  FSDP over
-'data' stays a block layout only: the parameters are replicated over
-'data', but the exchange's blocks follow the FSDP specs, as the
-reference's do: ``BlockLAGSExchange`` lays the sharded dims of a leaf
-first (``shard_dims_tree``), which decides which entries share a block.
+axis: each leaf is a ``DTensor`` over the mesh's 'model' dim, or under
+``lags_hier`` over the pod's ('data', 'model') sub-mesh, with the
+placements of :func:`placements` (``sharding.dtensor``).  On a mesh
+without a 'model' axis FSDP over 'data' stays a block layout only: the
+parameters are replicated over 'data', but the exchange's blocks follow
+the FSDP specs, as the reference's do: ``BlockLAGSExchange`` lays the
+sharded dims of a leaf first (``shard_dims_tree``), which decides which
+entries share a block.
 """
 from __future__ import annotations
 
@@ -115,13 +117,17 @@ def sharded_dim(spec, axis: str = "model") -> int | None:
     return dims[0] if dims else None
 
 
-def placements(spec, axis: str = "model") -> tuple:
-    """The ``DTensor`` placements of a leaf on the 1-D ``axis`` sub-mesh:
-    ``(Shard(i),)`` for the dim the spec shards over ``axis``, else
-    ``(Replicate(),)``.  Other axes of the spec are not placed."""
+def placements(spec, axes="model") -> tuple:
+    """The ``DTensor`` placements of a leaf on the sub-mesh of ``axes``
+    (one axis name, or a tuple of them in the sub-mesh's dim order): per
+    axis, ``Shard(i)`` for the dim the spec shards over it, else
+    ``Replicate()``.  Axes of the spec outside ``axes`` are not placed."""
     from torch.distributed.tensor import Replicate, Shard
-    i = sharded_dim(spec, axis)
-    return (Replicate(),) if i is None else (Shard(i),)
+    out = []
+    for axis in ((axes,) if isinstance(axes, str) else tuple(axes)):
+        i = sharded_dim(spec, axis)
+        out.append(Replicate() if i is None else Shard(i))
+    return tuple(out)
 
 
 def shard_dims_tree(params, specs, row_axes: tuple) -> Any:

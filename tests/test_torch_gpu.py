@@ -718,3 +718,57 @@ def test_data_by_model_one_by_one_equals_the_data_only_step_bitwise(cuda):
     assert out["data"][0] == out["data_model"][0]
     for part in (1, 2):
         _bitwise(out["data_model"][part], out["data"][part])
+
+
+@pytest.mark.parametrize("mode", ["slgs", "lags_hier2", "lags_hier"])
+def test_whole_leaf_modes_one_by_one_equal_the_data_only_step_bitwise(
+        cuda, mode):
+    """``slgs``, ``lags_hier2`` and ``lags_hier`` (its FSDP blocks on the
+    ('data', 'model') sub-mesh) with the kernel backend: 3 steps on a
+    ("data", "model") = 1 × 1 mesh leave the losses, parameters and
+    residuals (every tier) of the same steps on the data-only mesh, bit
+    for bit, from the same weights and batch; the mode's kernels
+    launched on both."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.sharding import dtensor as D
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(tinyllama_1_1b.smoke_config(), n_layers=2)
+    toks = torch.randint(0, cfg.vocab, (2, 33),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    flat_mesh = _nccl_world_of_one()
+    want = {"slgs": ("ef_block_candidates", "ef_select_pack"),
+            "lags_hier2": ("ef_block_candidates", "ef_select_pack"),
+            "lags_hier": ("ef_select_pack",)}[mode]
+    out = {}
+    try:
+        for name, mesh in (("data", flat_mesh),
+                           ("data_model", M.make_mesh(model=1,
+                                                      device="cuda"))):
+            run = api.RunConfig(mode=mode, ratio=16.0, lr=0.1,
+                                selection_backend="kernel", block_size=1024,
+                                inner_compressor="topk_block",
+                                ratio_inner=4.0, chunk=16, loss_chunk=16)
+            sess = api.Session(cfg, run, mesh=mesh)
+            state, _ = sess.init_state(
+                params=TT.Transformer(cfg, seed=0, device=cuda).params)
+            assert all(D.is_dtensor(p) for p in tree.leaves(
+                state["params"])) == (name == "data_model")
+            kernels.reset_launch_counts()
+            losses = []
+            for _ in range(3):
+                state, metrics = sess.step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+            counts = kernels.launch_counts()
+            assert all(counts[k] > 0 for k in want), counts
+            out[name] = (losses, [D.local(p).detach() for p in
+                                  tree.leaves(state["params"])],
+                         tree.leaves(state["ef"]))
+    finally:
+        dist.destroy_process_group()
+    assert out["data"][0] == out["data_model"][0]
+    for part in (1, 2):
+        assert len(out["data_model"][part]) == len(out["data"][part])
+        _bitwise(out["data_model"][part], out["data"][part])

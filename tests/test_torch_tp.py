@@ -29,7 +29,10 @@ Contracts:
     exchange with the same ``shard_dims``, on leaves whose chunks fall
     on block boundaries, straddle them, or are not sharded; ``distribute``
     / ``gather`` round trip; ``Session.run``'s checkpoint holds the full
-    tensors; every mode, mesh and family the slice does not cover raises
+    tensors; ``slgs``, ``lags_hier2``, ``lags_hier`` and the ('pod',
+    'data', 'model') mesh build (``test_torch_tp_modes.py`` holds them
+    to the reference), the data axes of that mesh the group of one model
+    index; every family and plane the slice does not cover raises
     ``NotImplementedError`` naming ROADMAP.md queue 1 item 7.
 """
 import dataclasses
@@ -71,13 +74,15 @@ EX_LEAVES = {"aligned": ((8, 96), 0, 40),       # chunks of 6 blocks
              "narrow": ((4, 30), 1, 9),         # chunk < one block
              "whole": ((10, 7), None, 11)}      # not sharded
 EX_BLOCK = 64
-# what the slice does not cover: case -> (what, RunConfig kwargs)
-REFUSED = {"lags_hier": dict(mode="lags_hier"),
-           "lags_hier2": dict(mode="lags_hier2"),
-           "slgs": dict(mode="slgs"),
-           "pod_mesh": dict(mode="lags_dp"),
-           "moe_family": dict(mode="lags_dp"),
+# what the slice does not cover: case -> RunConfig kwargs
+REFUSED = {"moe_family": dict(mode="lags_dp"),
            "health": dict(mode="lags_dp", health_every=1)}
+# what the first part refused and the second builds: case -> (RunConfig
+# kwargs, its worker count)
+ADMITTED = {"lags_hier": (dict(mode="lags_hier"), 1),
+            "lags_hier2": (dict(mode="lags_hier2"), 2),
+            "slgs": (dict(mode="slgs"), 2),
+            "pod_mesh": (dict(mode="lags_dp"), 2)}
 
 JAX_SCRIPT = """
 import dataclasses, sys
@@ -270,22 +275,22 @@ for case, call in (
         out[f"refused/{case}"] = np.array(str(err))
 for case, kw in REFUSED.items():
     try:
-        c, m = cfg, mesh
-        if case == "moe_family":
-            c = granite_moe_3b_a800m.smoke_config()
-        if case == "pod_mesh":
-            m = M.make_mesh(pod=2, model=MODEL, device="cpu")
-            assert m.mesh_dim_names == ("pod", "data", "model")
-            # no worker group over the data axes beside 'model' yet
-            try:
-                M.worker_axes(m, M.data_axis_names(m))
-                out["pod_data_axes"] = np.array("no error")
-            except NotImplementedError as err:
-                out["pod_data_axes"] = np.array(str(err))
-        api.Session(c, api.RunConfig(**RUN_KW, **kw), mesh=m).train_step()
+        c = granite_moe_3b_a800m.smoke_config() if case == "moe_family" \
+            else cfg
+        api.Session(c, api.RunConfig(**RUN_KW, **kw), mesh=mesh).train_step()
         out[f"refused/{case}"] = np.array("no error")
     except NotImplementedError as err:
         out[f"refused/{case}"] = np.array(str(err))
+pod_mesh = M.make_mesh(pod=2, model=MODEL, device="cpu")
+assert pod_mesh.mesh_dim_names == ("pod", "data", "model")
+# the worker group over the data axes beside 'model': one model index
+out["pod_data_axes"] = np.array(dist.get_process_group_ranks(
+    M.worker_axes(pod_mesh, M.data_axis_names(pod_mesh)).group))
+for case, (kw, _) in ADMITTED.items():
+    m = pod_mesh if case == "pod_mesh" else mesh
+    meta = api.Session(cfg, api.RunConfig(**RUN_KW, **kw),
+                       mesh=m).train_step()[2]
+    out[f"admitted/{case}"] = np.array(meta["n_workers"])
 np.savez(out_path, **out)
 dist.destroy_process_group()
 print("OK rank", rank)
@@ -296,7 +301,7 @@ def _constants() -> str:
     return "".join(f"{name} = {globals()[name]!r}\n" for name in (
         "DATA", "MODEL", "WORLD", "STEPS", "SMALL", "MODES", "RUN_KW",
         "WAVE_PARITY", "WAVE_BYTES", "EX_LEAVES", "EX_BLOCK", "REFUSED",
-        "B", "S"))
+        "ADMITTED", "B", "S"))
 
 
 @pytest.fixture(scope="module")
@@ -466,6 +471,27 @@ def test_placements_and_local_shapes():
         D.local_shape((6, 8), ("model", None), 4)
 
 
+def test_placements_and_local_shapes_on_data_by_model():
+    """Under ``lags_hier`` a leaf lies on the pod's ('data', 'model')
+    sub-mesh: one placement per axis, and its chunk splits on both
+    dims (a 2-D block)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding import dtensor as D
+    from repro_torch.sharding import rules as TR
+    axes = D.PARAM_AXES_FSDP
+    assert axes == ("data", "model")
+    assert TR.placements((None, "model", "data"), axes) == (Shard(2),
+                                                            Shard(1))
+    assert TR.placements(("data", None), axes) == (Shard(0), Replicate())
+    assert TR.placements((None, None), axes) == (Replicate(), Replicate())
+    sizes = {"data": 2, "model": 4}
+    assert D.local_shape((6, 8, 2), (None, "model", "data"), sizes) == (
+        6, 2, 1)
+    assert D.local_shape((6, 8), ("data", None), sizes) == (3, 8)
+    with pytest.raises(ValueError):
+        D.local_shape((5, 8), ("data", "model"), sizes)
+
+
 # -- four gloo ranks against the reference ---------------------------------------
 
 @pytest.mark.slow
@@ -601,15 +627,26 @@ def test_distribute_gather_and_checkpoint_hold_the_full_tensors(runs):
 @pytest.mark.parametrize("case", list(REFUSED) + [
     "controller", "profile_model", "publisher"])
 def test_what_the_slice_does_not_cover_raises_naming_item_7(runs, case):
-    """``lags_hier``, ``lags_hier2``, ``slgs``, a 'pod' axis beside
-    'model', an MoE model, the health quantities, the re-planning
-    controller, ``profile_model`` and a stream publisher raise
-    ``NotImplementedError`` on a mesh with a 'model' axis, naming the
-    next part of item 7; nothing falls back to a gathered leaf."""
+    """An MoE model, the health quantities, the re-planning controller,
+    ``profile_model`` and a stream publisher raise
+    ``NotImplementedError`` on a mesh with a 'model' axis, naming their
+    part of item 7; nothing falls back to a gathered leaf."""
     _, _, ranks = runs
     for res in ranks:
         msg = str(res[f"refused/{case}"])
         assert "item 7" in msg and "tensor-parallel" in msg, msg
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", list(ADMITTED))
+def test_the_modes_and_the_pod_mesh_of_the_second_part_build(runs, case):
+    """What the first part refused builds: ``lags_hier`` (one worker on a
+    single pod), ``lags_hier2`` and ``slgs`` on ('data', 'model'), and
+    ``lags_dp`` on ('pod', 'data', 'model') = 2 × 1 × 2, each with the
+    reference's worker count."""
+    _, _, ranks = runs
+    for res in ranks:
+        assert int(res[f"admitted/{case}"]) == ADMITTED[case][1]
 
 
 @pytest.mark.slow
@@ -622,11 +659,12 @@ def test_a_mesh_without_a_model_axis_creates_no_dtensor(runs):
 
 
 @pytest.mark.slow
-def test_data_axes_of_a_pod_mesh_with_a_model_axis_raise_naming_item_7(runs):
+def test_data_axes_of_a_pod_mesh_with_a_model_axis_are_one_model_index(
+        runs):
     """On ("pod", "data", "model") = 2 × 1 × 2, the exchange's worker
-    axes over 'pod' and 'data' (a group of the ranks of one model index)
-    are refused, naming the next part of item 7, as the train step is."""
+    axes over 'pod' and 'data' are the group of the ranks of this rank's
+    model index, pod-major."""
     _, _, ranks = runs
-    for res in ranks:
-        msg = str(res["pod_data_axes"])
-        assert "item 7" in msg and "tensor-parallel" in msg, msg
+    for r, res in enumerate(ranks):
+        np.testing.assert_array_equal(res["pod_data_axes"],
+                                      [r % MODEL, MODEL + r % MODEL])
