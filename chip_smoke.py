@@ -115,7 +115,12 @@
    last step, must equal the same steps on the data-only mesh from the
    same weights and batch (a twin run per mode, its launches not counted
    in the phase's), bit for bit; the gradients' placements before their
-   reduction print.
+   reduction print.  Then its families part (``tp_families``, its
+   launches in their own row, ``tp_families``): Granite-3.0-MoE-3B at
+   full width cut to ``TP1_GRANITE_LAYERS`` layers (the MoE layers on a
+   'model' axis of one rank: ``models.moe``'s local path, its sum over
+   'model' an all-reduce over one rank), 3 ``lags_dp`` + kernel steps
+   on 1 × 1 bitwise the same steps on the data-only mesh.
 6b. The observe plane and online re-planning, in the same NCCL group:
    ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
    steps each with the health quantities off and on (their step times),
@@ -269,7 +274,19 @@ bytes a card holds at rest under ``lags_hier`` beside ``lags_dp``'s;
 then pod 2 × data 1 × model 2: 3 steps each of ``lags_dp``,
 ``lags_hier2`` and ``lags_hier``, the pods' chunks bitwise equal after
 every step; each step's time and peak memory over the four ranks beside
-the twins'.  Then the
+the twins'.  Then the tp phase's families part at data 2 × model 2
+(``tp_families``; one sequence a data rank): Granite-3.0-MoE-3B (the F
+layout: expert d_ff 512, 256 a rank) and OLMoE-1B-7B (the E layout: 64
+experts, 32 a rank) at full width and depth, 3 ``lags_dp`` + kernel
+steps ``off`` and ``wave``; SeamlessM4T-Large-v2 at full width and
+depth and LLaVA-NeXT-Mistral-7B at ``LLAVA_TRAIN_LAYERS`` layers, 2 of
+each; losses finite, step 0's ``ef_select_pack`` launches held to the
+plain version, ``wave`` bitwise ``off`` (each step's parameters and
+residuals by ``bit_digest``), the data replicas bitwise, step 0's loss
+within ``TP_FAMILY_LOSS_RTOL`` of the data-only forward's; Granite's
+``dense`` held to its data 4 × model 1 twin above ``moe_sum_fault``;
+the bytes a card holds at rest.  The launches by phase, summed over the ranks,
+print before the card line.  Then the
 observe phase (6b) on the four ranks: the replicas must stay bitwise equal after the swap, every
 rank ingests rank 0's trace, and the wire α and β attributed from it
 print beside ``H100_NVLINK``'s (the re-plan's fit must be
@@ -2038,7 +2055,8 @@ def at_rest_bytes(state) -> int:
 
 
 def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
-             rank: int = 0) -> tuple[dict, dict, dict]:
+             rank: int = 0, families: bool = False
+             ) -> tuple[dict, dict, dict]:
     """Tensor parallelism (``sharding.dtensor``: the parameters DTensors
     over the mesh's 'model' axis, under ``lags_hier`` over the pod's
     ('data', 'model') sub-mesh; ``BlockLAGSExchange(row_axes=)``: the
@@ -2083,6 +2101,9 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     chunks equal bit for bit after every step.  Each step's time and peak
     memory print as the range over the four ranks, beside the twins'.
 
+    ``families``: the other families instead of ``cfg``
+    (``tp_families``' docstring), its launches in their own row.
+
     Returns (launch counts of the DTensor runs, per-run rows, each
     kernel's largest error against its plain version)."""
     import torch
@@ -2092,8 +2113,8 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     from repro_torch.launch import mesh as M
     from repro_torch.sharding import dtensor as D
 
-    batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=3).batch(
-        0, world, seq, device=dev)
+    batch = None if families else synthetic.MarkovLM(
+        vocab=cfg.vocab, seed=3).batch(0, world, seq, device=dev)
     model = 1 if world == 1 else 2
     tp_mesh = M.make_mesh(model=model, device=dev.type)
     data_group = M.worker_axes(tp_mesh, ("data",)).group
@@ -2102,9 +2123,11 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     shape = dict(zip(tp_mesh.mesh_dim_names, tp_mesh.mesh.shape))
     label = f"{shape['data']}x{shape['model']}"
 
-    def snapshot(state):
-        return [D.local(x.detach()).to("cpu", copy=True) for x in
-                tree.leaves(state["params"]) + tree.leaves(state["ef"])]
+    def snapshot(state, digest=False):
+        parts = tree.leaves(state["params"]) + tree.leaves(state["ef"])
+        if digest:
+            return [bit_digest(D.local(x)) for x in parts]
+        return [D.local(x.detach()).to("cpu", copy=True) for x in parts]
 
     def count(counts):
         for k, v in counts.items():
@@ -2112,12 +2135,15 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
 
     def train(label, mesh, pipeline, hold=None, rows_of=batch, ends=None,
               keep=False, mode="lags_dp", plain0=False, n_steps=steps,
-              replicas=None, first=None, placements=None, config=cfg):
+              replicas=None, first=None, placements=None, config=cfg,
+              digest=False):
         """``n_steps`` steps on the global batch ``rows_of``; returns
         (losses, state, launch counts, per-step (loss, snapshot) when
         ``keep``); ``plain0``: step 0's kernel launches held to their
         plain versions; ``hold`` (the label and per-step snapshots of an
-        earlier run, or None) is held bitwise after each step;
+        earlier run, or None) is held bitwise after each step
+        (``digest``: the snapshots are each leaf's ``bit_digest``, for
+        models whose per-step host copies would not fit);
         ``replicas``: a group whose ranks must hold equal chunks after
         each step; ``ends`` (a dict, or None) takes host copies of the
         parameters before the first step and after the last, ``first``
@@ -2177,13 +2203,18 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
                     if loss != want_loss:
                         raise AssertionError(f"tp {label} step {t}: loss "
                                              f"{loss!r} != {want_loss!r}")
-                    got = snapshot(state)
+                    got = snapshot(state, digest)
                     for i, (g, w) in enumerate(zip(got, want)):
-                        assert_bitwise(f"tp {label} step {t} leaf {i}",
-                                       (g,), (w,))
+                        if digest and g != w:
+                            raise AssertionError(
+                                f"tp {label} step {t} leaf {i}: bit "
+                                f"digest {g} != {hold[0]}'s {w}")
+                        if not digest:
+                            assert_bitwise(f"tp {label} step {t} leaf {i}",
+                                           (g,), (w,))
                     del got
                 elif keep:
-                    snaps.append((loss, snapshot(state)))
+                    snaps.append((loss, snapshot(state, digest)))
                 rows.append({"step": t, "loss": loss, "step_s": step_s,
                              "max_memory_allocated": mem,
                              "launches": step_counts})
@@ -2262,7 +2293,24 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
                   f"{TP_LOSS_RTOL:.1e}{note})")
         return rels
 
-    if world == 1:
+    def print_ranks():
+        """Each step's time and peak memory over the ranks, per run."""
+        if rank != 0:
+            return
+        for name, res in results.items():
+            if not isinstance(res, dict) or "ranks" not in res:
+                continue
+            for t in range(len(res["steps"])):
+                ts = [r[t][0] for r in res["ranks"]]
+                ms = [r[t][1] / 2**30 for r in res["ranks"]]
+                print(f"tp {name} step {t} over the {world} ranks: "
+                      f"step_s {min(ts):.4f}-{max(ts):.4f} peak "
+                      f"{min(ms):.3f}-{max(ms):.3f} GiB")
+
+    if families:
+        tp_families(dev, seq, steps, world, rank, tp_mesh, train, snapshot,
+                    loss_rel, param_rel, count, print_ranks, results)
+    elif world == 1:
         flat = M.make_mesh(device=dev.type)
         for mode in ("lags_dp",) + TP_WHOLE:
             # its launches stay in its own row, out of the phase's counts
@@ -2409,16 +2457,7 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
             del state
             torch.cuda.empty_cache()
             count(p_counts)
-        if rank == 0:
-            for name, res in results.items():
-                if not isinstance(res, dict) or "ranks" not in res:
-                    continue
-                for t in range(len(res["steps"])):
-                    ts = [r[t][0] for r in res["ranks"]]
-                    ms = [r[t][1] / 2**30 for r in res["ranks"]]
-                    print(f"tp {name} step {t} over the {world} ranks: "
-                          f"step_s {min(ts):.4f}-{max(ts):.4f} peak "
-                          f"{min(ms):.3f}-{max(ms):.3f} GiB")
+        print_ranks()
         if wave_losses != losses:
             raise AssertionError(f"tp wave losses {wave_losses} != off's "
                                  f"{losses}")
@@ -2445,6 +2484,261 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     if totals["ef_select_pack"] == 0:
         raise AssertionError("tp: ef_select_pack never launched")
     return totals, results, errs
+
+
+#: the families part of the tp phase on one card: Granite-3.0-MoE-3B at
+#: full width cut to this depth on the 1 × 1 mesh against its data-only
+#: twin (bitwise needs no depth; the single-card run's time limit does)
+TP1_GRANITE_LAYERS = 8
+#: ... and on four cards, data 2 × model 2: each model at full width
+#: (LLaVA at its training depth) and its steps a run
+TP_FAMILY_STEPS = {"granite-moe": 3, "olmoe": 3, "seamless": 2, "llava": 2}
+#: the families' step-0 loss on data 2 × model 2 against the data-only
+#: forward of the same weights and rows, relative.  The bf16 roundings of
+#: the row-parallel partial sums (``TP_LOSS_RTOL``'s) reach the routers,
+#: whose top-8 picks near a tie then flip, so an MoE model reads above
+#: TinyLlama's 5.29e-05.  Read on four H100s (deterministic, the same
+#: bits every run): sound 6.439e-05 Granite, 1.076e-04 OLMoE, 1.431e-05
+#: SeamlessM4T, 8.129e-05 LLaVA; ``moe_sum_fault`` on Granite 9.245e-04
+#: (its step 0 against the same forward)
+TP_FAMILY_LOSS_RTOL = 3e-4
+
+
+def bit_digest(x, chunk: int = 1 << 26) -> tuple:
+    """Two wrap-around int64 sums of ``x``'s bit patterns (int16 for a
+    2-byte dtype, else int32), each weighted by a fixed odd multiplier
+    below 2^31 that depends on the position, computed on ``x``'s device
+    a chunk at a time.  One entry that differs changes both sums (a
+    nonzero difference below 2^32 times an odd number below 2^31 is
+    never 0 mod 2^64); several cancel in both with negligible
+    probability.  What ``wave`` == ``off`` is held by where per-step host
+    copies of a multi-billion-parameter state would not fit."""
+    import torch
+    v = x.detach().contiguous().reshape(-1)
+    v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+    out = [0, 0]
+    for lo in range(0, v.numel(), chunk):
+        part = v[lo:lo + chunk].to(torch.int64)
+        i = torch.arange(lo, lo + part.numel(), device=v.device,
+                         dtype=torch.int64)
+        for j, (a, b) in enumerate(((2654435761, 97), (40503, 11))):
+            m = ((i * a + b) % 2147483647) | 1
+            out[j] = (out[j] + int((part * m).sum())) % 2**64
+        del part, i
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def moe_sum_fault():
+    """A planted fault of the MoE layers' sum over 'model': each rank's
+    partial output averaged over the 'model' ranks where a sum belongs
+    (``models.moe._model_sum`` divided by the 'model' size), wrong the
+    same way on every data replica."""
+    from repro_torch.models import moe
+    real = moe._model_sum
+    moe._model_sum = lambda x, mesh: real(x, mesh) / mesh.size()
+    try:
+        yield
+    finally:
+        moe._model_sum = real
+
+
+def tp_families(dev, seq: int, steps: int, world: int, rank: int, tp_mesh,
+                train, snapshot, loss_rel, param_rel, count, print_ranks,
+                results) -> None:
+    """The families part of ``tp_phase`` (its helpers passed in): the MoE
+    layers on 'model' (``models.moe``: Granite's F layout, OLMoE's E
+    layout), the encoder-decoder and the VLM, ``TP_RUN`` steps under
+    deterministic algorithms.
+
+    One card: Granite-3.0-MoE-3B at full width cut to
+    ``TP1_GRANITE_LAYERS`` layers, 3 steps on the 1 × 1 mesh (step 0's
+    ``ef_select_pack`` launches held to the plain version) against the
+    same steps on the data-only mesh: every loss, and the parameters and
+    residuals after the last step, bit for bit; and the sum over a
+    'model' axis of one rank returns its input's bits.
+
+    Four cards, data 2 × model 2, one ``seq``-token sequence a data rank
+    (``MarkovLM``; the encoder-decoder's and the VLM's ``frontend_batch``
+    at their phase's shapes): Granite-3.0-MoE-3B and OLMoE-1B-7B at full
+    width and depth, SeamlessM4T-Large-v2 at full width and depth and
+    LLaVA-NeXT-Mistral-7B at full width and ``LLAVA_TRAIN_LAYERS``
+    layers, ``TP_FAMILY_STEPS`` ``lags_dp`` + kernel steps each ``off``
+    (step 0's ``ef_select_pack`` launches held to the plain version) and
+    ``wave``: finite losses; ``wave``'s losses, and each step's
+    parameters and residuals (by ``bit_digest``), equal ``off``'s; the
+    two data replicas of each model chunk bitwise after every step
+    (``check_replicas``); step 0's loss within ``TP_FAMILY_LOSS_RTOL`` of
+    the data-only loss (a forward of the same seeded weights, plain, on the
+    same rows, averaged over the data ranks).  Then Granite's ``dense``
+    against its data 4 × model 1 twin (each data rank's sequence on both
+    ranks of its pair): every loss within ``TP_LOSS_RTOL``, the gathered
+    parameters after the last step within ``TP_PARAM_RTOL`` of the
+    twin's update, and with ``moe_sum_fault`` planted above both.  Each
+    run's bytes at rest a card print; each step's time and peak memory
+    over the four ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, tree
+    from repro_torch.configs import (granite_moe_3b_a800m,
+                                     llava_next_mistral_7b, olmoe_1b_7b,
+                                     seamless_m4t_large_v2)
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor as D
+
+    shape = dict(zip(tp_mesh.mesh_dim_names, tp_mesh.mesh.shape))
+    label = f"{shape['data']}x{shape['model']}"
+    flat = M.make_mesh(device=dev.type)
+    granite = granite_moe_3b_a800m.CONFIG
+
+    def markov(config, rows):
+        return synthetic.MarkovLM(vocab=config.vocab, seed=3).batch(
+            0, rows, seq, device=dev)
+
+    if world == 1:
+        g = dataclasses.replace(granite, n_layers=TP1_GRANITE_LAYERS)
+        rows = markov(g, 1)
+        want_losses, twin, _, _ = train("data-only/granite-moe", flat, "off",
+                                        rows_of=rows, config=g)
+        want = snapshot(twin)
+        del twin
+        torch.cuda.empty_cache()
+        losses, state, counts, _ = train("1x1/granite-moe", tp_mesh, "off",
+                                         rows_of=rows, config=g, plain0=True)
+        if losses != want_losses:
+            raise AssertionError(f"tp 1x1 granite-moe: losses {losses} != "
+                                 f"data-only's {want_losses}")
+        got = snapshot(state)
+        if len(got) != len(want):
+            raise AssertionError(f"tp 1x1 granite-moe: {len(got)} leaves, "
+                                 f"data-only {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert_bitwise(f"tp 1x1 granite-moe leaf {i} vs data-only",
+                           (a,), (b,))
+        x = torch.randn((seq, granite.d_model), device=dev)
+        assert_bitwise("the MoE sum over a 'model' axis of one rank",
+                       (moe._model_sum(x, D.sub_mesh(tp_mesh)),), (x,))
+        print(f"tp 1x1 granite-moe ({TP1_GRANITE_LAYERS} of "
+              f"{granite.n_layers} layers, full width): {steps} steps == "
+              f"the data-only mesh's, bitwise (losses; {len(got)} parameter "
+              f"and residual leaves after the last step); the sum over a "
+              f"'model' axis of one rank returns its input's bits")
+        del got, want, state
+        torch.cuda.empty_cache()
+        count(counts)
+        return
+
+    run = api.RunConfig(**TP_RUN)
+    data_group = M.worker_axes(tp_mesh, ("data",)).group
+    models = {
+        "granite-moe": granite, "olmoe": olmoe_1b_7b.CONFIG,
+        "seamless": seamless_m4t_large_v2.CONFIG,
+        "llava": dataclasses.replace(llava_next_mistral_7b.CONFIG,
+                                     n_layers=LLAVA_TRAIN_LAYERS)}
+    shapes = {"seamless": seq, "llava": LLAVA_SEQ}
+
+    def rows_for(name, config):
+        if name in shapes:
+            return frontend_batch(config, shapes[name], shape["data"], dev,
+                                  seed=3)
+        return markov(config, shape["data"])
+
+    def forward_loss(config, rows) -> float:
+        """The loss of the same seeded weights, plain, on this rank's
+        data rows (a forward, no gradient), averaged over the data
+        ranks: step 0's loss on the data-only layout."""
+        d, n = dist.get_rank(data_group), shape["data"]
+        per = rows["tokens"].shape[0] // n
+        with torch.no_grad():
+            params = T.init_params(config, seed=0, device=dev)
+            loss, _ = T.loss_fn(params, config,
+                                {k: v[d * per:(d + 1) * per]
+                                 for k, v in rows.items()},
+                                chunk=run.chunk, loss_chunk=run.loss_chunk)
+            del params
+            loss = loss.float().clone()
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=data_group)
+        torch.cuda.empty_cache()
+        return float(loss) / n
+
+    fails, at_rest = [], {}
+    for name, config in models.items():
+        n_steps = TP_FAMILY_STEPS[name]
+        rows = rows_for(name, config)
+        if rank == 0:
+            print(f"tp families: {name} ({config.name}, {config.n_layers} "
+                  f"layers, {config.param_count()} parameters) on {label}",
+                  flush=True)
+        twin0 = forward_loss(config, rows)
+        lab = f"{label}/{name}"
+        losses, state, counts, snaps = train(
+            lab, tp_mesh, "off", rows_of=rows, keep=True, plain0=True,
+            replicas=data_group, n_steps=n_steps, config=config, digest=True)
+        at_rest[name] = results[lab]["at_rest_bytes"]
+        del state
+        torch.cuda.empty_cache()
+        w_losses, state, w_counts, _ = train(
+            f"{lab}/wave", tp_mesh, "wave", ("off", snaps), rows_of=rows,
+            replicas=data_group, n_steps=n_steps, config=config, digest=True)
+        del state, snaps, rows
+        torch.cuda.empty_cache()
+        count(counts)
+        count(w_counts)
+        rel0 = abs(losses[0] - twin0) / abs(twin0)
+        results[lab]["vs_forward"] = {"loss": twin0, "loss_rel": rel0}
+        if rank == 0:
+            print(f"tp {lab}: step 0's loss {losses[0]!r} vs the data-only "
+                  f"forward's {twin0!r}: relative {rel0:.3e} (limit "
+                  f"{TP_FAMILY_LOSS_RTOL:.1e}); wave == off, bitwise "
+                  f"{w_losses == losses}; at rest a card (parameters + "
+                  f"residuals) {at_rest[name]} B = "
+                  f"{at_rest[name] / 2**30:.3f} GiB", flush=True)
+        if not (w_losses == losses and rel0 <= TP_FAMILY_LOSS_RTOL):
+            fails.append(f"{lab}: wave == off {w_losses == losses}, step "
+                         f"0's loss {rel0} from the data-only forward's")
+    results["families_at_rest_bytes"] = at_rest
+
+    # Granite's dense against its data 4 x model 1 twin, and the fault
+    rows = rows_for("granite-moe", granite)
+    twin_rows = {k: v.reshape(shape["data"], -1, *v.shape[1:])
+                 .repeat_interleave(shape["model"], dim=0)
+                 .reshape(-1, *v.shape[1:]) for k, v in rows.items()}
+    ends: dict = {}
+    dense_twin, state, _, _ = train("data4x1-twin/granite-moe/dense", flat,
+                                    "off", rows_of=twin_rows, ends=ends,
+                                    mode="dense", config=granite)
+    del state
+    torch.cuda.empty_cache()
+    lab = f"{label}/granite-moe/dense"
+    d_losses, state, _, _ = train(lab, tp_mesh, "off", rows_of=rows,
+                                  mode="dense", config=granite)
+    sound = (loss_rel(lab, d_losses, dense_twin),
+             param_rel(lab, tree.leaves(state["params"]), ends, steps - 1))
+    del state
+    torch.cuda.empty_cache()
+    with moe_sum_fault():
+        f_losses, state, _, _ = train(f"{lab}/fault", tp_mesh, "off",
+                                      rows_of=rows, mode="dense",
+                                      config=granite)
+    fault = (loss_rel(f"{lab}/fault", f_losses, dense_twin),
+             param_rel(f"{lab}/fault", tree.leaves(state["params"]), ends,
+                       steps - 1))
+    del state, ends
+    torch.cuda.empty_cache()
+    print_ranks()
+    if not (max(sound[0]) <= TP_LOSS_RTOL and sound[1] <= TP_PARAM_RTOL):
+        fails.append(f"{lab} vs its twin: losses {sound[0]} (limit "
+                     f"{TP_LOSS_RTOL}), parameters {sound[1]} (limit "
+                     f"{TP_PARAM_RTOL})")
+    if not (fault[1] > TP_PARAM_RTOL and fault[0][-1] > TP_LOSS_RTOL):
+        fails.append(f"the MoE sum fault: parameters {fault[1]} and the last "
+                     f"loss {fault[0][-1]} from the twin's, not above "
+                     f"{TP_PARAM_RTOL} and {TP_LOSS_RTOL}")
+    if fails:
+        raise AssertionError("tp families: " + "; ".join(fails))
 
 
 DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
@@ -4262,6 +4556,8 @@ def main(argv=None) -> int:
         dist_totals, dist_results, dist_errs = distributed(
             dev, cfg, seq, steps, plans=plans)
         tp_totals, tp, tp_errs = tp_phase(dev, cfg, seq, steps)
+        fam_totals, tp_fam, fam_errs = tp_phase(dev, cfg, seq, steps,
+                                                families=True)
         lstm_totals, lstm_results, lstm_errs = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
             configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
@@ -4272,7 +4568,8 @@ def main(argv=None) -> int:
                                                       XLSTM_STEPS)
         encdec_totals, encdec, encdec_errs = encdec_phase(dev)
         jamba_totals, jamba, jamba_errs = jamba_phase(dev)
-    for part in (paper_errs, dist_errs, tp_errs, lstm_errs, stream.pop("errs"),
+    for part in (paper_errs, dist_errs, tp_errs, fam_errs, lstm_errs,
+                 stream.pop("errs"),
                  moe_errs, xlstm_errs, encdec_errs, jamba_errs):
         for name, err in part.items():
             errs[name] = max(errs[name], err)
@@ -4280,7 +4577,8 @@ def main(argv=None) -> int:
                              stream["block_topk"]["max_abs_err"])
     phases = {"main": main_totals, "ef_accum": path_counts,
               "paper": paper_totals, "distributed": dist_totals,
-              "tp": tp_totals, "paper_distributed": lstm_totals, "observe": observe_totals,
+              "tp": tp_totals, "tp_families": fam_totals,
+              "paper_distributed": lstm_totals, "observe": observe_totals,
               "stream": stream_totals, "moe": moe_totals,
               "xlstm": xlstm_totals, "encdec": encdec_totals,
               "jamba": jamba_totals}
@@ -4305,6 +4603,7 @@ def main(argv=None) -> int:
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
          "timings": times, "autotune": autotune, "planned_pack": planned,
          "main": results, "distributed": dist_results, "tp": tp,
+         "tp_families": tp_fam,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
          "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
@@ -4367,6 +4666,16 @@ def ranks_main(world: int) -> int:
     if failed:
         print(f"chip_smoke: ranks {failed} failed", file=sys.stderr)
         return 1
+    # each kernel's launches by phase, summed over the ranks
+    phases = {"distributed": "launches", "tp": "tp_launches",
+              "tp_families": "tp_families_launches",
+              "paper_distributed": "paper_launches",
+              "observe": "observe_launches"}
+    rows = [json.loads((out_dir / f"chip_smoke_rank{r}.json").read_text())
+            for r in range(world)]
+    print(json.dumps({"launches_by_phase": {
+        ph: {k: sum(row[key][k] for row in rows) for k in rows[0][key]}
+        for ph, key in phases.items()}}))
     print(card_line())
     print(result_line(torch))
     return 0
@@ -4387,6 +4696,9 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
                                          out_dir=out_dir)
         tp_totals, tp, _ = tp_phase(dev, cfg, seq, steps, world=args.ranks,
                                     rank=args.rank)
+        fam_totals, tp_fam, _ = tp_phase(dev, cfg, seq, steps,
+                                         world=args.ranks, rank=args.rank,
+                                         families=True)
         lstm_totals, lstm_results, _ = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, world=args.ranks,
             rank=args.rank, plans={},
@@ -4399,6 +4711,7 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
          "world": args.ranks, "rank": args.rank, "seq": seq,
          "launches": totals, "distributed": results,
          "tp_launches": tp_totals, "tp": tp,
+         "tp_families_launches": fam_totals, "tp_families": tp_fam,
          "paper_launches": lstm_totals, "paper_distributed": lstm_results,
          "observe_launches": observe_totals, "observe": observe},
         indent=1))

@@ -87,7 +87,10 @@ By mode:
     over 'pod' on the full leaf with the reference's two-dim
     ``shard_dims`` (('data', 'model') in that order).
 
-It covers dense decoders (``check_tensor_parallel``); the rest raises.
+It covers the dense decoders, the MoE family (each rank runs its part
+of the experts, in the F or the E layout: ``models.moe``), the
+encoder-decoder and the VLM (``check_tensor_parallel``); the recurrent
+families raise.
 
 ``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
 the scalar ratio's per-leaf budgets, through
@@ -133,9 +136,13 @@ from repro_torch.sharding import dtensor as D
 from repro_torch.sharding import rules
 from repro_torch.training.train_loop import Spec
 
-#: what a mesh with a 'model' axis does not run yet: the other families
-TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e, the tensor-parallel part "
-                    "for the other families")
+#: the model families a mesh with a 'model' axis trains
+TP_FAMILIES = ("dense", "moe", "audio", "vlm")
+#: what it does not run yet: the recurrent families, and the MoE token
+#: groups that span ranks
+TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e's second part, the "
+                    "tensor-parallel part for xLSTM, Mamba and Jamba and "
+                    "the MoE token groups across ranks")
 #: ... and the health quantities, the controller, profile_model and the
 #: publisher
 TP_NEXT = ("ROADMAP.md queue 1 item 7g, the tensor-parallel part for the "
@@ -195,23 +202,24 @@ def refuse_model_axis(mesh, what: str) -> None:
 def check_tensor_parallel(cfg, mesh, mode: str, *, health: bool = False):
     """Raise for what a mesh with a 'model' axis does not run yet: modes
     other than ``TP_MODES`` (a strategy registered later), a model family
-    other than the dense decoder, and the health quantities.  A mesh
-    without a 'model' axis passes."""
+    outside ``TP_FAMILIES`` (xLSTM's ``ssm``, Jamba's ``hybrid``), and
+    the health quantities.  A mesh without a 'model' axis passes."""
     names = tuple(mesh.mesh_dim_names)
     if "model" not in names:
         return
     what, item = None, TP_NEXT
     if mode not in TP_MODES:
         what = f"mode {mode!r}"
-    elif cfg.family != "dense" or cfg.n_experts or cfg.n_encoder_layers:
+    elif cfg.family not in TP_FAMILIES:
         what, item = f"the {cfg.family} family ({cfg.name})", \
             TP_NEXT_FAMILIES
     elif health:
         what = "the health quantities (health_every > 0)"
     if what is not None:
         raise NotImplementedError(
-            f"{what} on the mesh {names}: tensor parallelism trains dense "
-            f"decoders under {', '.join(TP_MODES)} ({item})")
+            f"{what} on the mesh {names}: tensor parallelism trains the "
+            f"{', '.join(TP_FAMILIES)} families under {', '.join(TP_MODES)} "
+            f"({item})")
 
 
 def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
@@ -235,8 +243,8 @@ def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
         f"lags_hier on {pods} pods x {data}: the reference dispatches each "
         f"pod's {slice_rows} rows as one MoE token group (its "
         f"{pods * data} groups do not divide them), a group across the "
-        f"pod's ranks; gathering its tokens is not ported (ROADMAP.md "
-        f"queue 1 item 7, its tensor-parallel tail)")
+        f"pod's ranks; gathering its tokens is not ported "
+        f"({TP_NEXT_FAMILIES})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,14 +24,43 @@ Leaves: ``router`` (D, E), ``w_up`` and ``w_gate`` (E, D, F), ``w_down``
 (E, F, D), with the logical axes ``("embed", None)`` and
 ``("experts", "embed", "expert_ffn")`` / ``("experts", "expert_ffn",
 "embed")``.
+
+Tensor parallelism.  On a mesh with a 'model' axis the leaves are
+``DTensor``s over it (``sharding.dtensor``), laid out by the reference's
+rules in one of two ways, and ``moe_forward_auto`` runs each rank's
+part on local tensors (DTensor has no sharding rule for the dispatch's
+sort, search and gathers):
+
+  * the F layout (``TP_PRIORITY``, Granite): ``w_up``/``w_gate`` split
+    on F, ``w_down`` on its F dim; each rank runs every expert on its F
+    chunk, and ``w_down``'s contraction gives a partial (slots, D);
+  * the E layout (``TP_PRIORITY_EXPERTS``, OLMoE; ``moe_forward_ep``):
+    every expert leaf split on E; rank r of n owns experts
+    ``r·E/n … (r+1)·E/n − 1`` and keeps only their slots (the
+    reference's ``moe_forward_ep`` body: positions and capacity over all
+    E, the other ranks' slots at zero weight).
+
+The router, the positions and the dispatch run on every rank's copy of
+the replicated tokens, the same on each (the dispatch is deterministic).
+Each rank's partial (G, T, D) output, in f32, is summed over 'model'
+once (:func:`_model_sum`), then cast.  Gradients: the combine path
+gives each rank its share of x's and the router's gradient, so both
+local views declare a ``Partial`` gradient (summed over 'model' by the
+step's reduction); every rank computes the aux loss in full, so its
+gradient enters at 1/n a rank (:func:`_aux_share`) and is counted once;
+each expert leaf's chunk gets its own gradient.  The result equals the
+unsharded ``moe_forward_grouped``'s up to reduction order, and on a
+'model' axis of one rank its bits.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.dtensor import is_dtensor
 
 
 def moe_specs(d_model: int, d_ff: int, n_experts: int,
@@ -79,7 +108,7 @@ def _route(p, xt, top_k: int):
     expert_idx (..., T, K), aux (...)): the Switch load-balance loss
     ``E · sum_e f_e · p_e`` per leading index."""
     t = xt.shape[-2]
-    e = p["w_up"].shape[0]
+    e = p["router"].shape[-1]
     logits = torch.einsum("...td,de->...te", xt.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k's picks: largest first, ties to the lowest index
@@ -122,31 +151,45 @@ def _expert_ffn(p, buf, act, dtype):
     return torch.einsum("...ecf,efd->...ecd", h, p["w_down"].to(dtype))
 
 
-def _grouped_core(p, xt, *, top_k: int, act, capacity: int):
+def _grouped_sum(p, xt, *, top_k: int, act, capacity: int,
+                 experts: tuple | None = None):
     """Dispatch over ``G`` groups of tokens ``xt`` (G, T, D), each with
-    its own ``capacity`` per expert -> ((G, T, D), aux per group (G,))."""
+    its own ``capacity`` per expert -> (the combined output in f32
+    (G, T, D), aux per group (G,)).  ``experts`` (lo, n): ``p``'s expert
+    leaves hold experts ``lo … lo + n − 1`` only, and only their slots
+    are dispatched (the E layout); positions and capacity count every
+    expert, as the unsharded dispatch does."""
     g, t, d = xt.shape
-    e = p["w_up"].shape[0]
+    e = p["router"].shape[-1]
+    lo, n_e = (0, e) if experts is None else experts
     dev = xt.device
     gate_vals, expert_idx, aux = _route(p, xt, top_k)
     n = t * top_k
     flat_expert = expert_idx.reshape(g, n)
     position, keep = _positions(flat_expert, e, capacity)
+    if experts is not None:
+        keep = keep & (flat_expert >= lo) & (flat_expert < lo + n_e)
     gates_flat = gate_vals.reshape(g * n, 1) * keep.reshape(g * n, 1)
-    slots = g * e * capacity
+    slots = g * n_e * capacity
     # the buffer row of each (token, k), or the zero row when it drops;
     # and the (token, k) row of each buffer slot, or the zero row
-    base = torch.arange(g, device=dev)[:, None] * (e * capacity)
-    dst = torch.where(keep, base + flat_expert * capacity + position,
+    base = torch.arange(g, device=dev)[:, None] * (n_e * capacity)
+    dst = torch.where(keep, base + (flat_expert - lo) * capacity + position,
                       slots).reshape(-1)
     src = torch.full((slots + 1,), g * n, device=dev).scatter_(
         0, dst, torch.arange(g * n, device=dev))[:slots]
     x_rep = xt[:, :, None].expand(g, t, top_k, d).reshape(g * n, d)
-    buf = _TakeRows.apply(x_rep, src, dst).view(g, e, capacity, d)
+    buf = _TakeRows.apply(x_rep, src, dst).view(g, n_e, capacity, d)
     out_buf = _expert_ffn(p, buf, act, xt.dtype).reshape(slots, d)
     gathered = _TakeRows.apply(out_buf, dst, src)             # (G·N, D)
     weighted = gathered.float() * gates_flat
-    out = weighted.view(g, t, top_k, d).sum(2)
+    return weighted.view(g, t, top_k, d).sum(2), aux
+
+
+def _grouped_core(p, xt, *, top_k: int, act, capacity: int):
+    """:func:`_grouped_sum` over all experts, cast to the tokens' dtype
+    -> ((G, T, D), aux per group (G,))."""
+    out, aux = _grouped_sum(p, xt, top_k=top_k, act=act, capacity=capacity)
     return out.to(xt.dtype), aux
 
 
@@ -193,13 +236,147 @@ def moe_forward_grouped(p, x, *, top_k: int, activation: str = "silu",
     return out.reshape(b, s, d), aux.mean()
 
 
+#: the F dim of each expert leaf: what the F layout splits
+_FFN_DIM = {"w_up": 2, "w_gate": 2, "w_down": 1}
+
+
+def tp_layout(p) -> str:
+    """The tensor-parallel layout of an MoE layer's ``DTensor`` leaves on
+    a 1-D 'model' mesh: ``"experts"`` (every expert leaf ``Shard(0)``),
+    ``"ffn"`` (``w_up``/``w_gate`` ``Shard(2)``, ``w_down`` ``Shard(1)``;
+    also every leaf whole on a mesh of one rank, where both layouts are
+    the whole layer), or ``"replicated"`` (every leaf whole on several
+    ranks).  Anything else raises."""
+    from torch.distributed.tensor import Shard
+    mesh = p["router"].device_mesh
+    if mesh.ndim != 1:
+        raise ValueError(f"MoE leaves on a {mesh.ndim}-D mesh: tensor "
+                         f"parallelism lays them over one 'model' axis")
+    place = {k: tuple(v.placements) for k, v in p.items()}
+    experts = [k for k in place if k != "router"]
+    if place["router"][0].is_replicate():
+        if all(pl[0].is_replicate() for pl in place.values()):
+            return "ffn" if mesh.size() == 1 else "replicated"
+        if all(place[k] == (Shard(0),) for k in experts):
+            return "experts"
+        if all(place[k] == (Shard(_FFN_DIM[k]),) for k in experts):
+            return "ffn"
+    raise NotImplementedError(f"MoE leaves laid out as {place} over "
+                              f"'model': neither the F nor the E layout")
+
+
+class _SumOver(torch.autograd.Function):
+    """Each rank's partial sum, all-reduced over ``group``; the gradient
+    of each partial is the sum's (the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose gradient is scaled by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def _model_sum(x, mesh):
+    """The sum of every 'model' rank's partial output ``x`` (f32)."""
+    return _SumOver.apply(x, mesh.get_group())
+
+
+def _aux_share(aux, mesh):
+    """The aux loss, computed in full on every 'model' rank, with its
+    gradient divided among them: summed over 'model' with the combine
+    path's shares, it counts once."""
+    return _ScaleGrad.apply(aux, 1.0 / mesh.size())
+
+
+def _tokens_local(x, mesh, partial: bool):
+    """The replicated tokens ``x`` (a ``DTensor``, or a plain tensor the
+    same on every rank) as this rank's local copy; their gradient comes
+    back as a ``Partial`` sum over 'model' when ``partial`` (each rank's
+    share of the combine path), else ``Replicate``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    whole = (Replicate(),) * mesh.ndim
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, whole, run_check=False)
+    elif tuple(x.placements) != whole:
+        x = x.redistribute(x.device_mesh, whole)
+    return x.to_local(grad_placements=(Partial(),) * mesh.ndim if partial
+                      else whole)
+
+
+def _tp_forward(p, x, *, top_k: int, activation: str,
+                capacity_factor: float, groups: int,
+                layout: str | None = None):
+    """``moe_forward_grouped`` on ``DTensor`` leaves over a 1-D 'model'
+    mesh, each rank running its part of the experts on local tensors
+    (module docstring) -> (out, aux), ``DTensor``s replicated over
+    'model'.  ``layout``: ``tp_layout(p)`` unless given."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = p["router"].device_mesh
+    layout = layout or tp_layout(p)
+    partial = layout != "replicated"
+    n = mesh.size()
+    xl = _tokens_local(x, mesh, partial)
+    pl = {k: v.to_local(grad_placements=(Partial(),) * mesh.ndim)
+          if k == "router" and partial else v.to_local()
+          for k, v in p.items()}
+    b, s, d = xl.shape
+    g = groups if groups > 1 and b % groups == 0 else 1
+    tg = (b // g) * s
+    e = pl["router"].shape[-1]
+    experts = None
+    if layout == "experts":
+        experts = (mesh.get_local_rank() * (e // n), e // n)
+    out, aux = _grouped_sum(pl, xl.reshape(g, tg, d), top_k=top_k,
+                            act=L.ACTIVATIONS[activation],
+                            capacity=_capacity(capacity_factor, tg, top_k, e),
+                            experts=experts)
+    if partial:
+        out = _model_sum(out, mesh)
+        aux = _aux_share(aux, mesh)
+    out = out.to(xl.dtype).reshape(b, s, d)
+    aux = aux.mean() if g > 1 else aux[0]
+    whole = (Replicate(),) * mesh.ndim
+    return (DTensor.from_local(out, mesh, whole, run_check=False),
+            DTensor.from_local(aux, mesh, whole, run_check=False))
+
+
 def moe_forward_ep(p, x, *, top_k: int, activation: str = "silu",
                    capacity_factor: float = 1.25, axis: str = "model"):
-    """Expert parallelism shards the experts over a ``model`` axis."""
-    raise NotImplementedError(
-        "expert-parallel MoE needs a model axis > 1: tensor parallelism "
-        "is not ported yet (ROADMAP.md queue 1 item 7, its tensor-parallel "
-        "tail)")
+    """Expert parallelism, the reference's ``moe_forward_ep``: the leaves
+    are ``DTensor``s on the 1-D mesh of ``axis``, every expert leaf split
+    on E (the router whole); ``x`` is replicated over it (a ``DTensor``,
+    or a plain tensor the same on every rank).  Each rank routes every
+    token, keeps the slots of its own experts and runs them; one sum
+    over ``axis`` combines.  One dispatch over all B·S tokens (capacity
+    over all E) -> (out, aux), ``DTensor``s replicated over ``axis``.
+    The training path reaches the same code through
+    ``moe_forward_auto``, which reads the layout off the leaves."""
+    router = p.get("router")
+    mesh = router.device_mesh if is_dtensor(router) else None
+    if mesh is None or tuple(mesh.mesh_dim_names or ()) != (axis,) or (
+            mesh.size() > 1 and tp_layout(p) != "experts"):
+        raise ValueError(f"moe_forward_ep takes DTensor leaves on the "
+                         f"{axis!r} mesh, every expert leaf split on E")
+    return _tp_forward(p, x, top_k=top_k, activation=activation,
+                       capacity_factor=capacity_factor, groups=1,
+                       layout="experts")
 
 
 def moe_forward_auto(p, x, *, top_k: int, activation: str = "silu",
@@ -210,7 +387,12 @@ def moe_forward_auto(p, x, *, top_k: int, activation: str = "silu",
     dispatches its own tokens as one group, as every rank of the port
     does by default.  Under its ``pod_auto`` step (``lags_hier``) a
     rank's rows hold several of the reference's groups: the step passes
-    their number (``launch.train.pod_auto_moe_groups``)."""
+    their number (``launch.train.pod_auto_moe_groups``).  ``DTensor``
+    leaves over 'model' run each rank's part of the experts
+    (:func:`_tp_forward`, in the layout the leaves carry)."""
+    if is_dtensor(p["router"]):
+        return _tp_forward(p, x, top_k=top_k, activation=activation,
+                           capacity_factor=capacity_factor, groups=groups)
     return moe_forward_grouped(p, x, top_k=top_k, activation=activation,
                                capacity_factor=capacity_factor,
                                groups=groups)

@@ -772,3 +772,71 @@ def test_whole_leaf_modes_one_by_one_equal_the_data_only_step_bitwise(
     for part in (1, 2):
         assert len(out["data_model"][part]) == len(out["data"][part])
         _bitwise(out["data_model"][part], out["data"][part])
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_tp_moe_layer_one_by_one_is_bitwise_the_grouped_dispatch(cuda,
+                                                                 groups):
+    """The MoE layer on a ("data", "model") = 1 × 1 mesh (its leaves
+    ``DTensor``s over a 'model' axis of one rank, the sum over 'model' an
+    all-reduce over one NCCL rank), in both layouts: the F layout through
+    ``moe_forward_auto`` and the E layout through ``moe_forward_ep``
+    (groups 1) or the same path at groups 2; its output, aux and the
+    gradients of ``sum(out·w) + aux`` with respect to x, the router and
+    every expert leaf equal ``moe_forward_grouped``'s on plain tensors,
+    bit for bit (Granite's widths cut to d 256, F 128; 40 experts, top
+    8; 512 bf16 tokens, pairs dropping at capacity factor 1.25)."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import moe
+    from repro_torch.sharding import dtensor as D
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    d, f, e = 256, 128, 40
+    p = {"router": torch.randn((d, e), generator=gen, device=cuda) / 16,
+         "w_up": torch.randn((e, d, f), generator=gen, device=cuda) / 16,
+         "w_gate": torch.randn((e, d, f), generator=gen, device=cuda) / 16,
+         "w_down": torch.randn((e, f, d), generator=gen, device=cuda) / 11}
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    x = torch.randn((2, 256, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randn((2, 256, d), generator=gen, device=cuda)
+    names = sorted(p)
+
+    def run(leaves, xx, fwd):
+        out, aux = fwd(leaves, xx)
+        grads = torch.autograd.grad((out.float() * w).sum() + aux,
+                                    [xx] + [leaves[k] for k in names])
+        return [t.full_tensor() if D.is_dtensor(t) else t
+                for t in [out, aux] + list(grads)]
+
+    want = run({k: v.clone().requires_grad_() for k, v in p.items()},
+               x.clone().requires_grad_(),
+               lambda q, xx: moe.moe_forward_grouped(q, xx, top_k=8,
+                                                     groups=groups))
+    _nccl_world_of_one()
+    try:
+        mesh = M.make_mesh(model=1, device="cuda")
+        layouts = {"ffn": lambda q, xx: moe.moe_forward_auto(
+            q, xx, top_k=8, groups=groups)}
+        layouts["experts"] = (
+            (lambda q, xx: moe.moe_forward_ep(q, xx, top_k=8))
+            if groups == 1 else
+            (lambda q, xx: moe._tp_forward(
+                q, xx, top_k=8, activation="silu", capacity_factor=1.25,
+                groups=groups, layout="experts")))
+        for layout, fwd in layouts.items():
+            leaves = D.distribute(p, {k: (None,) * v.dim()
+                                      for k, v in p.items()}, mesh)
+            assert moe.tp_layout(leaves) == "ffn"
+            xx = DTensor.from_local(x.clone(), D.sub_mesh(mesh),
+                                    (Replicate(),)).requires_grad_()
+            with implicit_replication():
+                got = run(leaves, xx, fwd)
+            assert len(got) == len(want) == 3 + len(names), layout
+            _bitwise(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -274,7 +274,11 @@ def test_forward_and_backward_repeat_bitwise():
 
 
 def test_expert_parallel_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Expert parallelism runs (``tests/test_torch_tp_families.py`` holds
+    it to the reference on a 'model' axis); on plain leaves, which no
+    'model' axis splits, ``moe_forward_ep`` refuses and names what it
+    takes."""
+    with pytest.raises(ValueError, match="DTensor leaves.*split on E"):
         TM.moe_forward_ep(_torch(_layer()), torch.from_numpy(_x()), top_k=2)
 
 

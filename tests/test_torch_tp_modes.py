@@ -127,7 +127,7 @@ import numpy as np, torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 from repro_torch import api, tree
-from repro_torch.configs import granite_moe_3b_a800m, tinyllama_1_1b
+from repro_torch.configs import tinyllama_1_1b
 from repro_torch.launch import mesh as M, serve as SV, train as TR
 from repro_torch.models import transformer as TT
 from repro_torch.sharding import dtensor as D
@@ -218,10 +218,9 @@ def record_placements(mesh):
 def refusals(mesh):
     from repro_torch.autotune import profiler as PR
     calls = {
-        "moe_family": lambda: api.Session(
-            granite_moe_3b_a800m.smoke_config(),
-            api.RunConfig(mode="lags_hier", **RUN_KW), mesh=mesh
-            ).train_step(),
+        # what stays refused of the MoE family: lags_hier's token groups
+        # across ranks (4 rows on 2 pods x 2)
+        "moe_family": lambda: TR.pod_auto_moe_groups(4, 2, 2),
         "health": lambda: api.Session(
             cfg, api.RunConfig(mode="lags_hier2", health_every=1, **RUN_KW),
             mesh=mesh).train_step(),
@@ -563,10 +562,10 @@ def test_gradient_placements_before_grad_to_local(runs):
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_what_the_slice_does_not_cover_raises_naming_item_7(runs, case):
-    """On pod 2 × data 1 × model 2: an MoE model, the health quantities,
-    the re-planning controller, ``profile_model``, a stream publisher
-    and serving raise ``NotImplementedError`` naming their part of
-    ROADMAP.md queue 1 item 7."""
+    """On pod 2 × data 1 × model 2: the MoE token groups across ranks,
+    the health quantities, the re-planning controller, ``profile_model``,
+    a stream publisher and serving raise ``NotImplementedError`` naming
+    their part of ROADMAP.md queue 1 item 7."""
     for res in runs[1]:
         msg = str(res[f"refused/{case}"])
         assert "item 7" in msg, msg
