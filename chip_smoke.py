@@ -120,7 +120,13 @@
    full width cut to ``TP1_GRANITE_LAYERS`` layers (the MoE layers on a
    'model' axis of one rank: ``models.moe``'s local path, its sum over
    'model' an all-reduce over one rank), 3 ``lags_dp`` + kernel steps
-   on 1 × 1 bitwise the same steps on the data-only mesh.
+   on 1 × 1 bitwise the same steps on the data-only mesh.  Then its
+   recurrent part (``tp_recurrent``, its launches in their own row,
+   ``tp_recurrent``): xLSTM-1.3B at full width cut to
+   ``TP1_XLSTM_LAYERS`` layers (one mLSTM, one sLSTM) on
+   ``TP_XLSTM_SEQ`` tokens and Jamba-v0.1 at the jamba phase's training
+   cut, the same way (the layers' local paths of ``models.xlstm`` and
+   ``models.ssm``, every 'model' boundary the identity at one rank).
 6b. The observe plane and online re-planning, in the same NCCL group:
    ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
    steps each with the health quantities off and on (their step times),
@@ -285,7 +291,14 @@ plain version, ``wave`` bitwise ``off`` (each step's parameters and
 residuals by ``bit_digest``), the data replicas bitwise, step 0's loss
 within ``TP_FAMILY_LOSS_RTOL`` of the data-only forward's; Granite's
 ``dense`` held to its data 4 × model 1 twin above ``moe_sum_fault``;
-the bytes a card holds at rest.  The launches by phase, summed over the ranks,
+the bytes a card holds at rest.  Then its recurrent part at data 2 ×
+model 2 (``tp_recurrent``): xLSTM-1.3B at full width and
+``TP_XLSTM_LAYERS`` layers (512 tokens a data rank), the paper LSTM at
+its full size (20 × 35 tokens a data rank) and Jamba-v0.1 at the
+training cut under ``lags_dp`` and ``lags_hier`` (1024 tokens a data
+rank), ``off`` and ``wave``, with the same bitwise checks, step 0's loss
+within ``TP_RECURRENT_LOSS_RTOL`` of the data-only forward's and
+``recurrent_fault`` (the layers' output sums averaged) above it.  The launches by phase, summed over the ranks,
 print before the card line.  Then the
 observe phase (6b) on the four ranks: the replicas must stay bitwise equal after the swap, every
 rank ingests rank 0's trace, and the wire α and β attributed from it
@@ -2055,7 +2068,7 @@ def at_rest_bytes(state) -> int:
 
 
 def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
-             rank: int = 0, families: bool = False
+             rank: int = 0, families: bool = False, recurrent: bool = False
              ) -> tuple[dict, dict, dict]:
     """Tensor parallelism (``sharding.dtensor``: the parameters DTensors
     over the mesh's 'model' axis, under ``lags_hier`` over the pod's
@@ -2102,7 +2115,9 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     memory print as the range over the four ranks, beside the twins'.
 
     ``families``: the other families instead of ``cfg``
-    (``tp_families``' docstring), its launches in their own row.
+    (``tp_families``' docstring), its launches in their own row;
+    ``recurrent``: the recurrent families (``tp_recurrent``'s
+    docstring), likewise.
 
     Returns (launch counts of the DTensor runs, per-run rows, each
     kernel's largest error against its plain version)."""
@@ -2113,7 +2128,7 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     from repro_torch.launch import mesh as M
     from repro_torch.sharding import dtensor as D
 
-    batch = None if families else synthetic.MarkovLM(
+    batch = None if families or recurrent else synthetic.MarkovLM(
         vocab=cfg.vocab, seed=3).batch(0, world, seq, device=dev)
     model = 1 if world == 1 else 2
     tp_mesh = M.make_mesh(model=model, device=dev.type)
@@ -2310,6 +2325,9 @@ def tp_phase(dev, cfg, seq: int, steps: int, world: int = 1,
     if families:
         tp_families(dev, seq, steps, world, rank, tp_mesh, train, snapshot,
                     loss_rel, param_rel, count, print_ranks, results)
+    elif recurrent:
+        tp_recurrent(dev, steps, world, rank, tp_mesh, train, snapshot, count,
+                     print_ranks, results)
     elif world == 1:
         flat = M.make_mesh(device=dev.type)
         for mode in ("lags_dp",) + TP_WHOLE:
@@ -2739,6 +2757,230 @@ def tp_families(dev, seq: int, steps: int, world: int, rank: int, tp_mesh,
                      f"{TP_PARAM_RTOL} and {TP_LOSS_RTOL}")
     if fails:
         raise AssertionError("tp families: " + "; ".join(fails))
+
+
+#: the recurrent part of the tp phase on one card: xLSTM-1.3B at full
+#: width cut to this depth (one mLSTM and one sLSTM layer) and these
+#: tokens, and Jamba-v0.1 at the jamba phase's training cut
+#: (``JAMBA_TRAIN_LAYERS``, dense FFNs) on ``JAMBA_SEQ`` tokens, on the
+#: 1 × 1 mesh against their data-only twins (the single-card run's time
+#: limit sets the depth)
+TP1_XLSTM_LAYERS = 2
+TP_XLSTM_SEQ = 512
+#: ... and on four cards, data 2 × model 2: xLSTM-1.3B cut to this depth
+TP_XLSTM_LAYERS = 8
+#: each four-card run's steps
+TP_RECURRENT_STEPS = {"xlstm": 2, "paper-lstm": 3, "jamba": 2,
+                      "jamba/lags_hier": 2}
+#: the recurrent models' step-0 loss on data 2 × model 2 against the
+#: data-only forward of the same weights and rows, relative: where the
+#: row-parallel products' bf16 partial outputs (``down_proj``,
+#: ``out_proj``, ``wo``) round twice before their f32 sum, and the
+#: recurrences carry it.  Read on four H100s (deterministic, the same
+#: bits every run): sound 5.263e-05 xLSTM-1.3B (8 layers), 4.118e-06
+#: Jamba-v0.1 (8 layers, both modes), 0 the f32 paper LSTM;
+#: ``recurrent_fault`` 1.262e-03 xLSTM, 3.169e-04 Jamba.  Set between
+#: the largest sound and the smallest fault reading, ~2.4x from each
+TP_RECURRENT_LOSS_RTOL = 1.3e-4
+
+
+@contextlib.contextmanager
+def recurrent_fault():
+    """A planted fault of the recurrent layers' sum over 'model': each
+    rank's partial output averaged over the 'model' ranks where a sum
+    belongs (``models.tp.model_sum`` divided by the 'model' size, as
+    ``moe_sum_fault`` plants it in the MoE layer), wrong the same way on
+    every data replica."""
+    from repro_torch.models import tp
+    real = tp.model_sum
+    tp.model_sum = lambda x, mesh: real(x, mesh) / mesh.size()
+    try:
+        yield
+    finally:
+        tp.model_sum = real
+
+
+def tp_recurrent(dev, steps: int, world: int, rank: int, tp_mesh, train,
+                 snapshot, count, print_ranks, results) -> None:
+    """The recurrent part of ``tp_phase`` (its helpers passed in): the
+    mLSTM, sLSTM and Mamba layers on 'model' (``models.xlstm``,
+    ``models.ssm``: each rank's heads or channels on local tensors
+    between the boundaries of ``models.tp``), ``TP_RUN`` steps under
+    deterministic algorithms.
+
+    One card: xLSTM-1.3B at full width cut to ``TP1_XLSTM_LAYERS`` layers
+    on ``TP_XLSTM_SEQ`` tokens, and Jamba-v0.1 at full width at the
+    jamba phase's training cut on ``JAMBA_SEQ`` tokens, ``steps`` steps
+    each on the 1 × 1 mesh (step 0's ``ef_select_pack`` launches held to
+    the plain version) against the same steps on the data-only mesh:
+    every loss, and the parameters and residuals after the last step,
+    bit for bit.
+
+    Four cards, data 2 × model 2: xLSTM-1.3B at full width cut to
+    ``TP_XLSTM_LAYERS`` layers, one ``TP_XLSTM_SEQ``-token sequence a
+    data rank; the paper's LSTM at its full size (2 × 1500), the
+    paper's ``LSTM_SEQS`` sequences of ``LSTM_SEQ`` tokens a data rank;
+    Jamba-v0.1 at the training cut, one ``JAMBA_SEQ``-token sequence a
+    data rank, under ``lags_dp`` and under ``lags_hier`` (its own
+    ``train_mode``).  ``TP_RECURRENT_STEPS`` ``lags_dp`` (or
+    ``lags_hier``) + kernel steps each ``off`` (step 0's
+    ``ef_select_pack`` launches held to the plain version) and ``wave``:
+    finite losses; ``wave``'s losses, and each step's parameters and
+    residuals (by ``bit_digest``), equal ``off``'s; the two data replicas
+    of each model chunk bitwise after every step (not under
+    ``lags_hier``, whose FSDP blocks differ over 'data'); step 0's loss
+    within ``TP_RECURRENT_LOSS_RTOL`` of the data-only forward's (the
+    same seeded weights, plain, on the same rows, averaged over the data
+    ranks), and one step of xLSTM and of Jamba's ``lags_dp`` with
+    ``recurrent_fault`` planted above it.  Each run's bytes
+    at rest a card print; each step's time and peak memory over the four
+    ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.configs import jamba_v0_1_52b, paper_lstm_ptb, xlstm_1_3b
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    shape = dict(zip(tp_mesh.mesh_dim_names, tp_mesh.mesh.shape))
+    label = f"{shape['data']}x{shape['model']}"
+    flat = M.make_mesh(device=dev.type)
+    jamba = dataclasses.replace(jamba_v0_1_52b.CONFIG,
+                                n_layers=JAMBA_TRAIN_LAYERS, n_experts=0,
+                                moe_top_k=0)
+
+    def uniform(config, rows, tokens):
+        return synthetic.lm_input_batch(3, rows, tokens, config.vocab,
+                                        device=dev)
+
+    if world == 1:
+        models = {"xlstm": (dataclasses.replace(
+            xlstm_1_3b.CONFIG, n_layers=TP1_XLSTM_LAYERS), TP_XLSTM_SEQ),
+            "jamba": (jamba, JAMBA_SEQ)}
+        for name, (config, tokens) in models.items():
+            rows = uniform(config, 1, tokens)
+            want_losses, twin, _, _ = train(f"data-only/{name}", flat, "off",
+                                            rows_of=rows, config=config)
+            want = snapshot(twin)
+            del twin
+            torch.cuda.empty_cache()
+            losses, state, counts, _ = train(f"1x1/{name}", tp_mesh, "off",
+                                             rows_of=rows, config=config,
+                                             plain0=True)
+            if losses != want_losses:
+                raise AssertionError(f"tp 1x1 {name}: losses {losses} != "
+                                     f"data-only's {want_losses}")
+            got = snapshot(state)
+            if len(got) != len(want):
+                raise AssertionError(f"tp 1x1 {name}: {len(got)} leaves, "
+                                     f"data-only {len(want)}")
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert_bitwise(f"tp 1x1 {name} leaf {i} vs data-only",
+                               (a,), (b,))
+            print(f"tp 1x1 {name} ({config.name}, {config.n_layers} "
+                  f"layers, full width, {tokens} tokens): {steps} steps == "
+                  f"the data-only mesh's, bitwise (losses; {len(got)} "
+                  f"parameter and residual leaves after the last step)")
+            del got, want, state
+            torch.cuda.empty_cache()
+            count(counts)
+        return
+
+    data_group = M.worker_axes(tp_mesh, ("data",)).group
+    n_data = shape["data"]
+    xlstm = dataclasses.replace(xlstm_1_3b.CONFIG, n_layers=TP_XLSTM_LAYERS)
+    lstm = paper_lstm_ptb.CONFIG
+    # name -> (model, mode, global batch, whether a fault is planted)
+    runs = {
+        "xlstm": (xlstm, "lags_dp", uniform(xlstm, n_data, TP_XLSTM_SEQ),
+                  True),
+        "paper-lstm": (lstm, "lags_dp", synthetic.MarkovLM(
+            vocab=lstm.vocab, seed=3).batch(0, n_data * LSTM_SEQS, LSTM_SEQ,
+                                            device=dev), False),
+        "jamba": (jamba, "lags_dp", uniform(jamba, n_data, JAMBA_SEQ), True),
+        "jamba/lags_hier": (jamba, "lags_hier",
+                            uniform(jamba, n_data, JAMBA_SEQ), False)}
+    run = api.RunConfig(**TP_RUN)
+
+    def forward_loss(config, rows) -> float:
+        """The loss of the same seeded weights, plain, on this rank's
+        data rows (a forward, no gradient), averaged over the data
+        ranks: step 0's loss on the data-only layout."""
+        d = dist.get_rank(data_group)
+        per = rows["tokens"].shape[0] // n_data
+        with torch.no_grad():
+            params = T.init_params(config, seed=0, device=dev)
+            loss, _ = T.loss_fn(params, config,
+                                {k: v[d * per:(d + 1) * per]
+                                 for k, v in rows.items()},
+                                chunk=run.chunk, loss_chunk=run.loss_chunk)
+            del params
+            loss = loss.float().clone()
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=data_group)
+        torch.cuda.empty_cache()
+        return float(loss) / n_data
+
+    fails, at_rest, readings = [], {}, {}
+    for name, (config, mode, rows, fault) in runs.items():
+        n_steps = TP_RECURRENT_STEPS[name]
+        reps = None if mode == "lags_hier" else data_group
+        if rank == 0:
+            print(f"tp recurrent: {name} ({config.name}, {config.n_layers} "
+                  f"layers, {config.param_count()} parameters, {mode}, "
+                  f"{tuple(rows['tokens'].shape)} tokens a step) on {label}",
+                  flush=True)
+        twin0 = forward_loss(config, rows)
+        lab = f"{label}/{name}"
+        losses, state, counts, snaps = train(
+            lab, tp_mesh, "off", rows_of=rows, keep=True, plain0=True,
+            replicas=reps, n_steps=n_steps, config=config, digest=True,
+            mode=mode)
+        at_rest[name] = results[lab]["at_rest_bytes"]
+        del state
+        torch.cuda.empty_cache()
+        w_losses, state, w_counts, _ = train(
+            f"{lab}/wave", tp_mesh, "wave", ("off", snaps), rows_of=rows,
+            replicas=reps, n_steps=n_steps, config=config, digest=True,
+            mode=mode)
+        del state, snaps
+        torch.cuda.empty_cache()
+        count(counts)
+        count(w_counts)
+        rel0 = abs(losses[0] - twin0) / abs(twin0)
+        results[lab]["vs_forward"] = {"loss": twin0, "loss_rel": rel0}
+        readings[name] = rel0
+        fault_rel = None
+        if fault:
+            with recurrent_fault():
+                f_losses, state, _, _ = train(
+                    f"{lab}/fault", tp_mesh, "off", rows_of=rows, n_steps=1,
+                    config=config, mode=mode)
+            del state
+            torch.cuda.empty_cache()
+            fault_rel = abs(f_losses[0] - twin0) / abs(twin0)
+            results[lab]["fault"] = {"loss_rel": fault_rel}
+        del rows
+        if rank == 0:
+            print(f"tp {lab}: step 0's loss {losses[0]!r} vs the data-only "
+                  f"forward's {twin0!r}: relative {rel0:.3e} (limit "
+                  f"{TP_RECURRENT_LOSS_RTOL:.1e})"
+                  + (f"; with the planted sum fault {fault_rel:.3e}"
+                     if fault else "")
+                  + f"; wave == off, bitwise {w_losses == losses}; at rest "
+                  f"a card (parameters + residuals) {at_rest[name]} B = "
+                  f"{at_rest[name] / 2**30:.3f} GiB", flush=True)
+        if not (w_losses == losses and rel0 <= TP_RECURRENT_LOSS_RTOL
+                and (fault_rel is None
+                     or fault_rel > TP_RECURRENT_LOSS_RTOL)):
+            fails.append(f"{lab}: wave == off {w_losses == losses}, step "
+                         f"0's loss {rel0} from the data-only forward's, "
+                         f"planted fault {fault_rel}")
+    results["recurrent_at_rest_bytes"] = at_rest
+    results["recurrent_step0_loss_rel"] = readings
+    print_ranks()
+    if fails:
+        raise AssertionError("tp recurrent: " + "; ".join(fails))
 
 
 DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
@@ -4558,6 +4800,8 @@ def main(argv=None) -> int:
         tp_totals, tp, tp_errs = tp_phase(dev, cfg, seq, steps)
         fam_totals, tp_fam, fam_errs = tp_phase(dev, cfg, seq, steps,
                                                 families=True)
+        rec_totals, tp_rec, rec_errs = tp_phase(dev, cfg, seq, steps,
+                                                recurrent=True)
         lstm_totals, lstm_results, lstm_errs = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
             configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
@@ -4568,7 +4812,8 @@ def main(argv=None) -> int:
                                                       XLSTM_STEPS)
         encdec_totals, encdec, encdec_errs = encdec_phase(dev)
         jamba_totals, jamba, jamba_errs = jamba_phase(dev)
-    for part in (paper_errs, dist_errs, tp_errs, fam_errs, lstm_errs,
+    for part in (paper_errs, dist_errs, tp_errs, fam_errs, rec_errs,
+                 lstm_errs,
                  stream.pop("errs"),
                  moe_errs, xlstm_errs, encdec_errs, jamba_errs):
         for name, err in part.items():
@@ -4578,6 +4823,7 @@ def main(argv=None) -> int:
     phases = {"main": main_totals, "ef_accum": path_counts,
               "paper": paper_totals, "distributed": dist_totals,
               "tp": tp_totals, "tp_families": fam_totals,
+              "tp_recurrent": rec_totals,
               "paper_distributed": lstm_totals, "observe": observe_totals,
               "stream": stream_totals, "moe": moe_totals,
               "xlstm": xlstm_totals, "encdec": encdec_totals,
@@ -4603,7 +4849,7 @@ def main(argv=None) -> int:
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
          "timings": times, "autotune": autotune, "planned_pack": planned,
          "main": results, "distributed": dist_results, "tp": tp,
-         "tp_families": tp_fam,
+         "tp_families": tp_fam, "tp_recurrent": tp_rec,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
          "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
@@ -4669,6 +4915,7 @@ def ranks_main(world: int) -> int:
     # each kernel's launches by phase, summed over the ranks
     phases = {"distributed": "launches", "tp": "tp_launches",
               "tp_families": "tp_families_launches",
+              "tp_recurrent": "tp_recurrent_launches",
               "paper_distributed": "paper_launches",
               "observe": "observe_launches"}
     rows = [json.loads((out_dir / f"chip_smoke_rank{r}.json").read_text())
@@ -4699,6 +4946,9 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
         fam_totals, tp_fam, _ = tp_phase(dev, cfg, seq, steps,
                                          world=args.ranks, rank=args.rank,
                                          families=True)
+        rec_totals, tp_rec, _ = tp_phase(dev, cfg, seq, steps,
+                                         world=args.ranks, rank=args.rank,
+                                         recurrent=True)
         lstm_totals, lstm_results, _ = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, world=args.ranks,
             rank=args.rank, plans={},
@@ -4712,6 +4962,7 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
          "launches": totals, "distributed": results,
          "tp_launches": tp_totals, "tp": tp,
          "tp_families_launches": fam_totals, "tp_families": tp_fam,
+         "tp_recurrent_launches": rec_totals, "tp_recurrent": tp_rec,
          "paper_launches": lstm_totals, "paper_distributed": lstm_results,
          "observe_launches": observe_totals, "observe": observe},
         indent=1))

@@ -87,10 +87,14 @@ By mode:
     over 'pod' on the full leaf with the reference's two-dim
     ``shard_dims`` (('data', 'model') in that order).
 
-It covers the dense decoders, the MoE family (each rank runs its part
-of the experts, in the F or the E layout: ``models.moe``), the
-encoder-decoder and the VLM (``check_tensor_parallel``); the recurrent
-families raise.
+It covers every family (``check_tensor_parallel``): the dense decoders,
+the encoder-decoder and the VLM on DTensor propagation; the MoE layer
+(each rank its part of the experts, in the F or the E layout:
+``models.moe``), the mLSTM, sLSTM and Mamba layers (each rank its heads
+or channels: ``models.xlstm``, ``models.ssm``) on local tensors between
+the explicit 'model' boundaries of ``models.tp``.  Under ``lags_hier``
+an MoE token group that would span a pod's ranks raises
+(``pod_auto_moe_groups``).
 
 ``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
 the scalar ratio's per-leaf budgets, through
@@ -137,12 +141,11 @@ from repro_torch.sharding import rules
 from repro_torch.training.train_loop import Spec
 
 #: the model families a mesh with a 'model' axis trains
-TP_FAMILIES = ("dense", "moe", "audio", "vlm")
-#: what it does not run yet: the recurrent families, and the MoE token
-#: groups that span ranks
-TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e's second part, the "
-                    "tensor-parallel part for xLSTM, Mamba and Jamba and "
-                    "the MoE token groups across ranks")
+TP_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
+#: what it does not run yet: the MoE token groups that span ranks
+TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e's third part, the "
+                    "tensor-parallel part for the MoE token groups across "
+                    "ranks")
 #: ... and the health quantities, the controller, profile_model and the
 #: publisher
 TP_NEXT = ("ROADMAP.md queue 1 item 7g, the tensor-parallel part for the "
@@ -202,7 +205,7 @@ def refuse_model_axis(mesh, what: str) -> None:
 def check_tensor_parallel(cfg, mesh, mode: str, *, health: bool = False):
     """Raise for what a mesh with a 'model' axis does not run yet: modes
     other than ``TP_MODES`` (a strategy registered later), a model family
-    outside ``TP_FAMILIES`` (xLSTM's ``ssm``, Jamba's ``hybrid``), and
+    outside ``TP_FAMILIES`` (every family of the registry is in it), and
     the health quantities.  A mesh without a 'model' axis passes."""
     names = tuple(mesh.mesh_dim_names)
     if "model" not in names:

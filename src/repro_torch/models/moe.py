@@ -57,9 +57,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp as TP
 from repro_torch.sharding.dtensor import is_dtensor
 
 
@@ -265,19 +265,10 @@ def tp_layout(p) -> str:
                               f"'model': neither the F nor the E layout")
 
 
-class _SumOver(torch.autograd.Function):
-    """Each rank's partial sum, all-reduced over ``group``; the gradient
-    of each partial is the sum's (the same on every rank)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
+#: the sum over 'model' and the tokens' local view (``models.tp``), by
+#: these names so that a fault can be planted in this layer alone
+_model_sum = TP.model_sum
+_tokens_local = TP.tokens_local
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -293,31 +284,11 @@ class _ScaleGrad(torch.autograd.Function):
         return grad * ctx.scale, None
 
 
-def _model_sum(x, mesh):
-    """The sum of every 'model' rank's partial output ``x`` (f32)."""
-    return _SumOver.apply(x, mesh.get_group())
-
-
 def _aux_share(aux, mesh):
     """The aux loss, computed in full on every 'model' rank, with its
     gradient divided among them: summed over 'model' with the combine
     path's shares, it counts once."""
     return _ScaleGrad.apply(aux, 1.0 / mesh.size())
-
-
-def _tokens_local(x, mesh, partial: bool):
-    """The replicated tokens ``x`` (a ``DTensor``, or a plain tensor the
-    same on every rank) as this rank's local copy; their gradient comes
-    back as a ``Partial`` sum over 'model' when ``partial`` (each rank's
-    share of the combine path), else ``Replicate``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    whole = (Replicate(),) * mesh.ndim
-    if not is_dtensor(x):
-        x = DTensor.from_local(x, mesh, whole, run_check=False)
-    elif tuple(x.placements) != whole:
-        x = x.redistribute(x.device_mesh, whole)
-    return x.to_local(grad_placements=(Partial(),) * mesh.ndim if partial
-                      else whole)
 
 
 def _tp_forward(p, x, *, top_k: int, activation: str,

@@ -26,6 +26,12 @@ scans a block of channels at a time (``SCAN_BLOCK`` f32 elements of (B,
 S, channels, D_STATE)) in log2(S) doubling steps, so its transient is a
 few blocks, whatever the depth.  Its products group differently from
 ``associative_scan``'s, so the port matches the reference to allclose.
+
+Tensor parallelism: ``DTensor`` leaves on the 'model' mesh, laid out by
+the reference's rules (``MAMBA_TP``: every leaf on its ``inner`` dim),
+run each rank's channels on local tensors between the boundaries of
+``models.tp`` (``mamba_forward``); the data-only path runs the same
+code with ``mesh=None``, where every boundary is the identity.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp as TP
+from repro_torch.sharding.dtensor import is_dtensor
 
 D_STATE = 16
 D_CONV = 4
@@ -97,11 +105,15 @@ def mamba_specs(d_model: int) -> tuple[dict, dict]:
     return specs, axes
 
 
-def _ssm_params(p, x):
+def _ssm_params(p, x, mesh=None):
     """x: (B, S, d_inner) -> dt (B, S, d_inner), Bm and Cm (B, S,
-    D_STATE), all f32."""
+    D_STATE), all f32.  ``mesh`` (tensor parallelism): ``x`` holds this
+    rank's channels, ``p`` its rows of ``x_proj`` and its columns of
+    ``dt_proj_w``; the partial (dt, B, C) are summed over 'model' (in
+    f32) before softplus, and dt is this rank's channels."""
     r = p["dt_proj_w"].shape[0]
-    proj = torch.einsum("bsi,ir->bsr", x, p["x_proj"].to(x.dtype))
+    proj = TP.all_sum(torch.einsum("bsi,ir->bsr", x, p["x_proj"].to(x.dtype)),
+                      mesh)
     dt, Bm, Cm = torch.split(proj, [r, D_STATE, D_STATE], dim=-1)
     dt = torch.einsum("bsr,ri->bsi", dt, p["dt_proj_w"].to(x.dtype))
     dt = F.softplus(dt.float() + p["dt_proj_b"].float())
@@ -229,15 +241,15 @@ def selective_scan(dt, A, Bm, Cm, x):
     return _SelectiveScan.apply(dt, A, Bm, Cm, x, SCAN_BLOCK)
 
 
-def mamba_forward(p, x, *, return_state: bool = False):
-    """x: (B, S, D) -> (B, S, D) in x's dtype; with ``return_state`` also
-    the final ``{"conv", "ssm"}`` (the reference's ``_mamba_prefill``):
-    the decode state after the sequence."""
+def _mamba(p, x, mesh=None):
+    """The Mamba block -> (out, the conv tail, the last SSM state); with
+    ``mesh``, this rank's part on its chunks ``p`` (``mamba_forward``):
+    a partial output."""
     xz = torch.einsum("bsd,di->bsi", x, p["in_proj"].to(x.dtype))
-    xi, z = torch.chunk(xz, 2, dim=-1)
+    xi, z = TP.split_pair(xz, mesh)
     xi, conv = _causal_conv(xi, p["conv_w"], p["conv_b"])
     xi = F.silu(xi)
-    dt, Bm, Cm = _ssm_params(p, xi)
+    dt, Bm, Cm = _ssm_params(p, xi, mesh)
     A = -torch.exp(p["A_log"].float())
     xf = xi.float()
     y, last = selective_scan(dt, A, Bm, Cm, xf)
@@ -245,6 +257,35 @@ def mamba_forward(p, x, *, return_state: bool = False):
     y = y * F.silu(z.float())
     out = torch.einsum("bsi,id->bsd", y.to(x.dtype),
                        p["out_proj"].to(x.dtype))
+    return out, conv, last
+
+
+#: the Mamba block's leaves on 'model' (``TP_PRIORITY``: "inner"): the
+#: dim each is split on
+MAMBA_TP = {"A_log": 0, "D": 0, "conv_b": 0, "conv_w": 1, "dt_proj_b": 0,
+            "dt_proj_w": 1, "in_proj": 1, "out_proj": 0, "x_proj": 0}
+
+
+def mamba_forward(p, x, *, return_state: bool = False):
+    """x: (B, S, D) -> (B, S, D) in x's dtype; with ``return_state`` also
+    the final ``{"conv", "ssm"}`` (the reference's ``_mamba_prefill``):
+    the decode state after the sequence.
+
+    ``DTensor`` leaves on the 'model' mesh (laid out as ``MAMBA_TP``)
+    run this rank's channels on local tensors: ``in_proj``'s output
+    gathered for its channels of x and z (``models.tp.split_pair``), the
+    conv, ``dt_proj`` and the scan (``_SelectiveScan`` unchanged) on
+    them, ``x_proj``'s partial (dt, B, C) summed over 'model' before
+    softplus, ``out_proj``'s partial output summed in f32.  x is
+    replicated over 'model' (its gradient comes back ``Partial``); the
+    output is a replicated ``DTensor``.  Training only."""
+    if is_dtensor(p["in_proj"]):
+        if return_state:
+            raise NotImplementedError(TP.SERVING)
+        mesh, pl = TP.local_leaves(p, MAMBA_TP, "Mamba")
+        out, _, _ = _mamba(pl, TP.tokens_local(x, mesh, True), mesh)
+        return TP.replicated_sum(out, mesh)
+    out, conv, last = _mamba(p, x)
     if return_state:
         return out, {"conv": conv.clone(), "ssm": last}
     return out

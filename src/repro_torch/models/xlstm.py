@@ -26,6 +26,13 @@ int(4/3 · D)``.  Its state is (c, n, m, h), each (B, H, hd).
 The recurrences and the gate projections run in f32.
 ``*_forward(state=, return_state=True)`` carries the state across
 calls: the serving engine's prefill and one-token decode.
+
+Tensor parallelism: ``DTensor`` leaves on the 'model' mesh, laid out by
+the reference's rules (``MLSTM_TP``, ``SLSTM_TP``), run each rank's heads
+on local tensors between the boundaries of ``models.tp`` (DTensor has
+no rule for ``log_sigmoid_backward`` nor for the sLSTM's written-out
+scan).  The data-only path runs the same code with ``mesh=None``, where
+every boundary is the identity.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp as TP
+from repro_torch.sharding.dtensor import is_dtensor
 
 MLSTM_EXPAND = 2
 SLSTM_PROJ = 4 / 3
@@ -105,23 +114,37 @@ def _mlstm_chunk(state, q, k, v, i_raw, f_raw):
     return (C, n, m[..., -1]), num / den[..., None]
 
 
-def _mlstm_scan(p, xi, n_heads: int, state=None, chunk: int = 1024):
-    """xi: (B, S, d_inner) f32 -> (h (B, S, d_inner) f32, the final
-    (C, n, m)).  ``state``: the (C, n, m) to start from (zeros).  The
+def _mlstm_project(p, xi):
+    """xi: (B, S, I) f32 -> q (unscaled), k, v (B, H, S, hd) and the
+    gates' inputs without their biases (B, H, S), f32; under tensor
+    parallelism partial sums over this rank's rows of I."""
+    return (torch.einsum("bsi,ihk->bhsk", xi, p["wq"].float()),
+            torch.einsum("bsi,ihk->bhsk", xi, p["wk"].float()),
+            torch.einsum("bsi,ihk->bhsk", xi, p["wv"].float()),
+            torch.einsum("bsi,ih->bhs", xi, p["w_igate"].float()),
+            torch.einsum("bsi,ih->bhs", xi, p["w_fgate"].float()))
+
+
+def _mlstm_scan(p, xi, state=None, chunk: int = 1024, mesh=None):
+    """xi: (B, S, d_inner) f32 -> (h (B, S, H·hd) f32, the final (C, n,
+    m)).  ``state``: the (C, n, m) to start from (zeros).  The
     reference's time loop runs ``chunk`` steps at a time in closed form
     (``_mlstm_chunk``): the same stabiliser and denominator, the sums
-    in another order; (B, H, chunk, chunk) weights a chunk."""
-    b, s, d_inner = xi.shape
-    scale = 1.0 / math.sqrt(d_inner // n_heads)
-    q = torch.einsum("bsi,ihk->bhsk", xi, p["wq"].float()) * scale
-    k = torch.einsum("bsi,ihk->bhsk", xi, p["wk"].float())
-    v = torch.einsum("bsi,ihk->bhsk", xi, p["wv"].float())
-    i_raw = torch.einsum("bsi,ih->bhs", xi, p["w_igate"].float()) \
-        + p["b_igate"].float()[:, None]
-    f_raw = torch.einsum("bsi,ih->bhs", xi, p["w_fgate"].float()) \
-        + p["b_fgate"].float()[:, None]
+    in another order; (B, H, chunk, chunk) weights a chunk.
+
+    ``mesh`` (tensor parallelism): ``xi`` holds this rank's channels and
+    ``p`` its rows of the projections; one reduce-scatter of the partial
+    projections gives this rank's H/n heads, whose h is its channels."""
+    b, s, _ = xi.shape
+    hd = p["wq"].shape[-1]
+    q, k, v, i_raw, f_raw = TP.scatter_sum(_mlstm_project(p, xi), 1, mesh)
+    nh = q.shape[1]
+    h0 = 0 if mesh is None else mesh.get_local_rank() * nh
+    q = q * (1.0 / math.sqrt(hd))
+    i_raw = i_raw + p["b_igate"][h0:h0 + nh].float()[:, None]
+    f_raw = f_raw + p["b_fgate"][h0:h0 + nh].float()[:, None]
     if state is None:
-        state = init_mlstm_state(b, d_inner // MLSTM_EXPAND, n_heads,
+        state = init_mlstm_state(b, nh * hd // MLSTM_EXPAND, nh,
                                  device=xi.device)
     hs = []
     for lo in range(0, s, chunk):
@@ -131,21 +154,62 @@ def _mlstm_scan(p, xi, n_heads: int, state=None, chunk: int = 1024):
                                 f_raw[..., lo:hi])
         hs.append(h)
     h = torch.cat(hs, dim=2).transpose(1, 2)
-    return h.reshape(b, s, d_inner), state
+    return h.reshape(b, s, nh * hd), state
+
+
+def _rms_norm(x, scale, mesh, eps: float = 1e-6):
+    """``layers.rms_norm`` over a last dim whose chunks the 'model' ranks
+    hold (``x`` and ``scale`` this rank's): the mean square of the whole
+    row is the mean of the ranks' chunk means."""
+    dt = x.dtype
+    x = x.float()
+    var = TP.model_mean(torch.mean(x * x, dim=-1, keepdim=True), mesh)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dt)
+
+
+def _mlstm(p, x, state, chunk: int, mesh=None):
+    """The mLSTM block -> (out, the final state); with ``mesh``, this
+    rank's part on its chunks ``p`` (``mlstm_forward``): a partial
+    output."""
+    uz = torch.einsum("bsd,di->bsi", x, p["up_proj"].to(x.dtype))
+    u, z = TP.split_pair(uz, mesh)
+    h, new_state = _mlstm_scan(p, u.float(), state, chunk, mesh)
+    h = _rms_norm(h, p["out_norm"], mesh)
+    h = h * F.silu(z.float())
+    out = torch.einsum("bsi,id->bsd", h.to(x.dtype),
+                       p["down_proj"].to(x.dtype))
+    return out, new_state
+
+
+#: the mLSTM's leaves on 'model' (``TP_PRIORITY``: "inner" before
+#: "heads"): the dim each is split on, None replicated
+MLSTM_TP = {"up_proj": 1, "wq": 0, "wk": 0, "wv": 0, "w_igate": 0,
+            "b_igate": None, "w_fgate": 0, "b_fgate": None, "out_norm": 0,
+            "down_proj": 0}
 
 
 def mlstm_forward(p, x, *, n_heads: int, state=None,
                   return_state: bool = False, chunk: int = 1024):
     """x: (B, S, D) -> (B, S, D) in x's dtype; with ``return_state`` also
     the final (C, n, m) f32 (the decode state).  ``chunk``: the steps
-    the scan takes at once."""
-    uz = torch.einsum("bsd,di->bsi", x, p["up_proj"].to(x.dtype))
-    u, z = torch.chunk(uz, 2, dim=-1)
-    h, new_state = _mlstm_scan(p, u.float(), n_heads, state, chunk)
-    h = L.rms_norm(h, p["out_norm"])
-    h = h * F.silu(z.float())
-    out = torch.einsum("bsi,id->bsd", h.to(x.dtype),
-                       p["down_proj"].to(x.dtype))
+    the scan takes at once; the heads are the leaves' (``n_heads``).
+
+    ``DTensor`` leaves on the 'model' mesh (laid out as ``MLSTM_TP``)
+    run this rank's part on local tensors: ``up_proj``'s output gathered
+    for this rank's channels of u and z (``models.tp.split_pair``), the
+    projections' partial sums reduce-scattered to its heads, the norm's
+    mean square over the whole row, ``down_proj``'s partial output
+    summed in f32.  x is replicated over 'model' (its gradient comes
+    back ``Partial``); the output is a replicated ``DTensor``."""
+    if is_dtensor(p["wq"]):
+        if state is not None or return_state:
+            raise NotImplementedError(TP.SERVING)
+        mesh, pl = TP.local_leaves(p, MLSTM_TP, "mLSTM")
+        out, _ = _mlstm(pl, TP.tokens_local(x, mesh, True), None, chunk,
+                        mesh)
+        return TP.replicated_sum(out, mesh)
+    out, new_state = _mlstm(p, x, state, chunk)
     if return_state:
         return out, new_state
     return out
@@ -288,35 +352,66 @@ class _SLSTMScan(torch.autograd.Function):
         return dpre, d_r, dc, dn, dm, dh
 
 
-def _slstm_scan(p, x, n_heads: int, state=None):
-    """x: (B, S, D) -> (h (B, S, D) f32, the final (c, n, m, h)).
+def _slstm_scan(p, x, state=None):
+    """x: (B, S, D) -> (h (B, S, H·hd) f32, the final (c, n, m, h)), H
+    and hd the leaves' (under tensor parallelism this rank's heads).
     ``state``: the (c, n, m, h) to start from (zeros by default)."""
-    b, s, d = x.shape
-    hd = d // n_heads
+    b, s, _ = x.shape
+    _, _, nh, hd = p["w_gates"].shape
     gx = torch.einsum("bsd,gdhk->shbgk", x.float(), p["w_gates"].float()) \
         + p["b_gates"].float().transpose(0, 1)[None, :, None]
     if state is None:
         # the stabiliser m starts at 0, as c, n and h
-        state = init_slstm_state(b, d, n_heads, device=x.device)
+        state = init_slstm_state(b, nh * hd, nh, device=x.device)
     r = p["r_gates"].float()
-    R = r.permute(1, 2, 0, 3).reshape(n_heads, hd, 4 * hd)
+    R = r.permute(1, 2, 0, 3).reshape(nh, hd, 4 * hd)
     hs, *final = _SLSTMScan.apply(gx.contiguous(), R,
                                   *(v.transpose(0, 1) for v in state))
-    h = hs.permute(2, 0, 1, 3).reshape(b, s, d)
+    h = hs.permute(2, 0, 1, 3).reshape(b, s, nh * hd)
     return h, tuple(v.transpose(0, 1) for v in final)
+
+
+def _slstm(p, x, state, mesh=None):
+    """The sLSTM block -> (out, the final state); with ``mesh``, this
+    rank's part on its chunks ``p`` (``slstm_forward``): a partial
+    output."""
+    h, new_state = _slstm_scan(p, x, state)
+    h = L.rms_norm(TP.gather_last(h, mesh), p["out_norm"])
+    uz = torch.einsum("bsd,du->bsu", h.to(x.dtype), p["up_proj"].to(x.dtype))
+    u, z = TP.split_pair(uz, mesh)
+    out = torch.einsum("bsu,ud->bsd",
+                       L.ACTIVATIONS["gelu"](u) * torch.sigmoid(z),
+                       p["down_proj"].to(x.dtype))
+    return out, new_state
+
+
+#: the sLSTM's leaves on 'model' (``TP_PRIORITY``: "ffn" for the up and
+#: down projections, "heads" for the gates): the dim each is split on,
+#: None replicated
+SLSTM_TP = {"w_gates": 2, "b_gates": 1, "r_gates": 1, "out_norm": None,
+            "up_proj": 1, "down_proj": 0}
 
 
 def slstm_forward(p, x, *, n_heads: int, state=None,
                   return_state: bool = False):
     """x: (B, S, D) -> (B, S, D) in x's dtype; with ``return_state`` also
-    the final (c, n, m, h), each (B, H, hd) f32 (the decode state)."""
-    h, new_state = _slstm_scan(p, x, n_heads, state)
-    h = L.rms_norm(h, p["out_norm"])
-    uz = torch.einsum("bsd,du->bsu", h.to(x.dtype), p["up_proj"].to(x.dtype))
-    u, z = torch.chunk(uz, 2, dim=-1)
-    out = torch.einsum("bsu,ud->bsd",
-                       L.ACTIVATIONS["gelu"](u) * torch.sigmoid(z),
-                       p["down_proj"].to(x.dtype))
+    the final (c, n, m, h), each (B, H, hd) f32 (the decode state).  The
+    heads are the leaves' (``n_heads``).
+
+    ``DTensor`` leaves on the 'model' mesh (laid out as ``SLSTM_TP``)
+    run this rank's part on local tensors: its heads' recurrence
+    (``_SLSTMScan`` unchanged), h gathered over 'model' for ``out_norm``,
+    ``up_proj``'s output gathered for this rank's chunks of u and z,
+    ``down_proj``'s partial output summed in f32.  x is replicated over
+    'model' (its gradient comes back ``Partial``); the output is a
+    replicated ``DTensor``.  Training only."""
+    if is_dtensor(p["w_gates"]):
+        if state is not None or return_state:
+            raise NotImplementedError(TP.SERVING)
+        mesh, pl = TP.local_leaves(p, SLSTM_TP, "sLSTM")
+        out, _ = _slstm(pl, TP.tokens_local(x, mesh, True), None, mesh)
+        return TP.replicated_sum(out, mesh)
+    out, new_state = _slstm(p, x, state)
     if return_state:
         return out, new_state
     return out

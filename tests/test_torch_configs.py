@@ -135,11 +135,12 @@ def test_unported_families_raise_naming_item_13d(arch):
 @pytest.mark.parametrize("what", ["train_step", "check_mesh",
                                   "moe_forward_ep"])
 def test_tensor_parallel_tail_raises_naming_item_7(what):
-    """What the port still refuses: on a ``model`` axis the train step of
-    a recurrent family (xLSTM), the serving launch, and of the MoE
-    family, whose expert-parallel layer runs since 7e's first part, the
-    token groups that span ranks (ROADMAP.md queue 1 item 7, its
-    tensor-parallel tail)."""
+    """What the port still refuses: on a ``model`` axis the train step's
+    health quantities (here of xLSTM, whose training runs there since
+    7e's second part), the serving launch, and of the MoE family, whose
+    expert-parallel layer runs since 7e's first part, the token groups
+    that span ranks (ROADMAP.md queue 1 item 7, its tensor-parallel
+    tail)."""
     import types
     from repro_torch.launch import serve as SV
     from repro_torch.launch import train as LT
@@ -147,7 +148,7 @@ def test_tensor_parallel_tail_raises_naming_item_7(what):
                                  size=lambda i: 2)
     calls = {
         "train_step": lambda: LT.check_tensor_parallel(
-            TB.get_smoke_config("xlstm_1_3b"), mesh, "lags_dp"),
+            TB.get_smoke_config("xlstm_1_3b"), mesh, "lags_dp", health=True),
         "check_mesh": lambda: SV.check_mesh(types.SimpleNamespace(
             mesh_dim_names=("data", "model"), size=lambda i: (1, 2)[i])),
         "moe_forward_ep": lambda: LT.pod_auto_moe_groups(4, 2, 2),

@@ -840,3 +840,67 @@ def test_tp_moe_layer_one_by_one_is_bitwise_the_grouped_dispatch(cuda,
             _bitwise(got, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "mamba"])
+def test_tp_recurrent_layer_one_by_one_is_bitwise_the_plain_layer(cuda,
+                                                                   kind):
+    """The mLSTM, sLSTM and Mamba layers on a ("data", "model") = 1 × 1
+    mesh (their leaves ``DTensor``s over a 'model' axis of one rank:
+    every boundary of ``models.tp`` the identity, the output sum an
+    all-reduce over one NCCL rank): the output and the gradients of
+    ``sum(out·w)`` with respect to x and every leaf equal the layer's on
+    plain tensors, bit for bit (d 256, 4 heads, 512 bf16 tokens)."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.sharding import dtensor as D
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    d, heads = 256, 4
+    specs = {"mlstm": lambda: xlstm.mlstm_specs(d, heads),
+             "slstm": lambda: xlstm.slstm_specs(d, heads),
+             "mamba": lambda: ssm.mamba_specs(d)}[kind]()[0]
+    fwd = {"mlstm": lambda q, xx: xlstm.mlstm_forward(q, xx, n_heads=heads,
+                                                      chunk=128),
+           "slstm": lambda q, xx: xlstm.slstm_forward(q, xx, n_heads=heads),
+           "mamba": lambda q, xx: ssm.mamba_forward(q, xx)}[kind]
+    gen = torch.Generator(device=cuda).manual_seed(28)
+
+    def leaf(shape, init):
+        if isinstance(init, L.Full):
+            return torch.full(shape, init.value, device=cuda)
+        if isinstance(init, L.Values):
+            return init.fn().to(cuda)
+        return torch.randn(shape, generator=gen, device=cuda) * init
+    p = {k: leaf(*v).to(torch.bfloat16) for k, v in specs.items()}
+    x = torch.randn((2, 256, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randn((2, 256, d), generator=gen, device=cuda)
+    names = sorted(p)
+
+    def run(leaves, xx):
+        out = fwd(leaves, xx)
+        grads = torch.autograd.grad((out.float() * w).sum(),
+                                    [xx] + [leaves[k] for k in names])
+        return [t.full_tensor() if D.is_dtensor(t) else t
+                for t in [out] + list(grads)]
+
+    want = run({k: v.clone().requires_grad_() for k, v in p.items()},
+               x.clone().requires_grad_())
+    _nccl_world_of_one()
+    try:
+        mesh = M.make_mesh(model=1, device="cuda")
+        leaves = D.distribute(p, {k: (None,) * v.dim() for k, v in p.items()},
+                              mesh)
+        xx = DTensor.from_local(x.clone(), D.sub_mesh(mesh),
+                                (Replicate(),)).requires_grad_()
+        with implicit_replication():
+            got = run(leaves, xx)
+        assert len(got) == len(want) == 2 + len(names)
+        _bitwise(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -30,8 +30,9 @@ Contracts:
   * on ("data", "model") = 1 × 1 (a world of one), 3 bf16 ``lags_dp``
     steps of Granite and OLMoE are bitwise the data-only mesh's;
   * ``check_tensor_parallel`` admits the ``moe``, ``audio`` and ``vlm``
-    families under every mode and refuses ``ssm`` and ``hybrid``, and
-    the MoE token groups across ranks, naming item 7e's second part.
+    families under every mode, and ``ssm`` and ``hybrid`` (item 7e's
+    second part) but for their health quantities; the MoE token groups
+    across ranks stay refused, naming item 7e's third part.
 """
 import dataclasses
 import os
@@ -664,23 +665,27 @@ def test_check_tensor_parallel_admits_moe_audio_and_vlm(arch, mode):
 @pytest.mark.parametrize("arch", ["xlstm_1_3b", "paper_lstm_ptb",
                                   "jamba_v0_1_52b"])
 def test_check_tensor_parallel_refuses_the_recurrent_families(arch):
-    """xLSTM and the paper's LSTM (``ssm``) and Jamba (``hybrid``) raise
-    on a 'model' axis, naming item 7e's second part."""
+    """Since item 7e's second part, xLSTM and the paper's LSTM (``ssm``)
+    and Jamba (``hybrid``) pass on a 'model' axis; what it still refuses
+    for them is the health quantities, naming item 7g
+    (``tests/test_torch_tp_recurrent.py`` holds their training to the
+    reference)."""
     from repro_torch.configs import base
     from repro_torch.launch import train as LT
     cfg = base.get_smoke_config(arch)
     assert cfg.family in ("ssm", "hybrid")
+    LT.check_tensor_parallel(cfg, _model_mesh(), "lags_dp")
     with pytest.raises(NotImplementedError,
-                       match="item 7e's second part.*tensor-parallel"):
-        LT.check_tensor_parallel(cfg, _model_mesh(), "lags_dp")
+                       match="item 7g.*tensor-parallel"):
+        LT.check_tensor_parallel(cfg, _model_mesh(), "lags_dp", health=True)
 
 
 def test_moe_token_groups_across_ranks_stay_refused():
     """Under ``lags_hier`` on 2 pods × 2, a batch of 4 rows puts each
     pod's 2 rows in one MoE token group across its ranks: the step
-    refuses it, naming item 7e's second part."""
+    refuses it, naming item 7e's third part."""
     from repro_torch.launch import train as LT
     assert LT.pod_auto_moe_groups(8, 2, 2) == 2
     with pytest.raises(NotImplementedError,
-                       match="item 7e's second part.*tensor-parallel"):
+                       match="item 7e's third part.*tensor-parallel"):
         LT.pod_auto_moe_groups(4, 2, 2)
