@@ -127,6 +127,19 @@
    ``TP_XLSTM_SEQ`` tokens and Jamba-v0.1 at the jamba phase's training
    cut, the same way (the layers' local paths of ``models.xlstm`` and
    ``models.ssm``, every 'model' boundary the identity at one rank).
+   Then serving at 1 × 1 (``tp_serving_phase``): TinyLlama-1.1B (bf16)
+   served by ``ServeSession`` and ``launch/serve``'s steps on the
+   ("data", "model") = 1 × 1 mesh against ``mesh=None``, every step's
+   logits and the tokens bit for bit.  ``--ranks 4`` runs, after the
+   tp phases, ``moe_span_phase`` (Granite-3.0-MoE-3B at
+   ``MOE_SPAN_LAYERS`` layers under ``lags_hier`` on pod 2 × data 2 at
+   a global batch of 4: each pod's rows ONE MoE token group gathered
+   over its 'data' ranks; ``off`` with every launch held to its plain
+   version, ``wave`` == ``off``, the replicas bitwise, its launches in
+   their own row, ``moe_span``) and ``tp_serving_phase`` at data 2 ×
+   model 2 (the model in f32 against each card's own one-card serve:
+   the same tokens, logits within ``TP_SERVE_RTOL``; tok/s and the
+   peak a card printed).
 6b. The observe plane and online re-planning, in the same NCCL group:
    ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
    steps each with the health quantities off and on (their step times),
@@ -190,8 +203,9 @@
    with the planted fault and the tokens whose experts differ between
    the two paths.
 6e. The xLSTM family (``xlstm_phase``), in the same NCCL group:
-   xLSTM-1.3B at its published width and depth (48 layers alternating
-   mLSTM and sLSTM, d 2048, 4 heads, vocab 50304, untied, bf16, seeded
+   xLSTM-1.3B at its published width cut to ``XLSTM_LAYERS`` of its 48
+   layers (alternating mLSTM and sLSTM, d 2048, 4 heads, vocab 50304,
+   untied, bf16, seeded
    random weights) trains ``XLSTM_STEPS`` distributed ``lags_dp`` +
    kernel steps on one ``XLSTM_SEQ``-token ``MarkovLM`` sequence ``off``
    and as many under ``wave`` (``LARGE_DIST``), each period of the stack
@@ -2983,6 +2997,239 @@ def tp_recurrent(dev, steps: int, world: int, rank: int, tp_mesh, train,
         raise AssertionError("tp recurrent: " + "; ".join(fails))
 
 
+#: the MoE token groups across a pod's ranks (``moe_span_phase``):
+#: Granite-3.0-MoE-3B at full width cut to this depth, one sequence of
+#: ``MOE_SPAN_SEQ`` tokens a rank (a global batch of 4 on pod 2 x data 2)
+MOE_SPAN_LAYERS = 8
+MOE_SPAN_SEQ = 1024
+MOE_SPAN_STEPS = 3
+
+
+def moe_span_phase(dev, world: int, rank: int) -> tuple[dict, dict, dict]:
+    """``lags_hier`` (kernel backend) on pod 2 × data 2 at a global
+    batch of 4: each pod's 2 rows make ONE MoE token group across its
+    two ranks (``launch.train.pod_auto_moe_groups`` gives ``POD_SPAN``),
+    gathered over the pod's 'data' ranks (``models.moe.TokenSpan``).
+    Granite-3.0-MoE-3B at full width cut to ``MOE_SPAN_LAYERS`` layers
+    (seeded random weights), ``MOE_SPAN_STEPS`` steps ``off`` and
+    ``wave`` under deterministic algorithms: every kernel launch of the
+    ``off`` steps held to its plain version inside the step
+    (``held_to_plain``); after every step the parameters equal on every
+    rank; ``wave``'s losses equal ``off``'s every step and its
+    parameters and residuals after the last, bit for bit.  The span's
+    row gathers are counted (``models.tp.gather_rows``).  Returns (launch
+    counts of both runs, results, each kernel's largest error against
+    its plain version)."""
+    import torch
+    from repro_torch import api, kernels, tree
+    from repro_torch.configs import granite_moe_3b_a800m
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as LT
+    from repro_torch.models import tp as TP
+    cfg = dataclasses.replace(granite_moe_3b_a800m.CONFIG,
+                              n_layers=MOE_SPAN_LAYERS)
+    mesh = M.make_mesh(pod=2, device=dev.type)
+    batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=11).batch(
+        0, world, MOE_SPAN_SEQ, device=dev)
+    groups = LT.pod_auto_moe_groups(world, 2, world // 2)
+    if groups != LT.POD_SPAN:
+        raise AssertionError(f"moe_span: {world} rows on 2 pods give "
+                             f"{groups} groups, not a span")
+    totals = dict.fromkeys(kernels.WRAPPERS, 0)
+    errs, res, kept = {}, {}, {}
+    gathers = [0]
+    real_gather = TP.gather_rows
+
+    def counted(x, group, n):
+        gathers[0] += 1
+        return real_gather(x, group, n)
+    TP.gather_rows = counted
+    torch.use_deterministic_algorithms(True)
+    try:
+        for pipeline in ("off", "wave"):
+            label = f"moe_span {pipeline}"
+            sess = api.Session(cfg, api.RunConfig(
+                lr=0.01, mode="lags_hier", selection_backend="kernel",
+                pipeline=pipeline), mesh=mesh)
+            state, _ = sess.init_state(seed=0)
+            rows, shapes = [], {}
+            gathers[0] = 0
+            for t in range(MOE_SPAN_STEPS):
+                kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with (held_to_plain(errs, shapes) if pipeline == "off"
+                      else contextlib.nullcontext()):
+                    state, metrics = sess.step_fn(state, batch)
+                    loss = float(metrics["loss"])
+                step_s = time.perf_counter() - t0
+                counts = kernels.launch_counts()
+                for k, v in counts.items():
+                    totals[k] += v
+                mem = torch.cuda.max_memory_allocated() / 2 ** 30
+                if not math.isfinite(loss):
+                    raise AssertionError(f"{label} step {t}: loss {loss}")
+                check_replicas(state["params"], f"{label} step {t}")
+                if pipeline == "wave" and loss != kept["losses"][t]:
+                    raise AssertionError(f"{label} step {t}: loss {loss} != "
+                                         f"off's {kept['losses'][t]}")
+                rows.append({"step": t, "loss": loss, "step_s": step_s,
+                             "peak_gib": mem, "launches": counts})
+                print(f"{label} rank {rank}/{world} step {t}: loss "
+                      f"{loss:.6f} step_s {step_s:.4f} peak {mem:.3f} GiB "
+                      f"launches {counts}, parameters equal on every rank"
+                      + (", loss == off's" if pipeline == "wave" else ""),
+                      flush=True)
+            if not gathers[0]:
+                raise AssertionError(f"{label}: no token group was gathered")
+            parts = [host_copy(x) for x in tree.leaves(state["params"])
+                     + tree.leaves(state["ef"])]
+            if pipeline == "off":
+                if not shapes.get("ef_select_pack"):
+                    raise AssertionError(f"{label}: ef_select_pack never "
+                                         f"launched")
+                kept = {"losses": [r["loss"] for r in rows], "parts": parts}
+                print(f"{label} rank {rank}: every kernel launch of its "
+                      f"{MOE_SPAN_STEPS} steps == its plain version, "
+                      f"bitwise; (rows, bs, k) "
+                      f"{dict((k, sorted(v)) for k, v in shapes.items())}; "
+                      f"{gathers[0]} row gathers", flush=True)
+            else:
+                for i, (got, want) in enumerate(zip(parts, kept["parts"])):
+                    assert_bitwise(f"{label} leaf {i} vs off", (got,),
+                                   (want,))
+                print(f"{label} rank {rank}: losses, parameters and "
+                      f"residuals == off's, bitwise ({len(parts)} leaves); "
+                      f"{gathers[0]} row gathers", flush=True)
+            res[pipeline] = {"steps": rows, "gathers": gathers[0]}
+            del state, sess
+            torch.cuda.empty_cache()
+    finally:
+        TP.gather_rows = real_gather
+        torch.use_deterministic_algorithms(False)
+    return totals, res, errs
+
+
+def host_copy(x):
+    """A leaf's host copy (this rank's chunk of a ``DTensor``)."""
+    from repro_torch.sharding import dtensor as D
+    return D.local(x.detach()).to("cpu", copy=True)
+
+
+#: serving over ("data", "model") (``tp_serving_phase``): requests of
+#: ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens, this many
+#: generated, in f32 (the logits' comparison and the greedy tokens
+#: against one card then see only the sums' order)
+TP_SERVE_GEN = 16
+TP_SERVE_REQUESTS = 2
+#: |logits - one card's| over max |one card's|, at 2 x 2 in f32
+TP_SERVE_RTOL = 1e-4
+
+
+def tp_serving_phase(dev, world: int = 1, rank: int = 0) -> dict:
+    """TinyLlama-1.1B at full width (seeded random weights) served by
+    ``ServeSession`` and ``launch/serve``'s steps, inside
+    ``process_group``.  One card: ("data", "model") = 1 × 1 in the
+    config's bf16 against the one-device path (``mesh=None``) on the same
+    weights and prompts: every step's logits and the generated tokens
+    bit for bit.  ``world`` = 4: data 2 × model 2 in f32 (the parameters
+    over 'model', the batch over 'data', the caches' sequence over
+    'model'; every rank serves the same requests) against every rank's
+    own one-card serve: the generated tokens equal, prefill's and every
+    decode step's logits (fed the one card's tokens) within
+    ``TP_SERVE_RTOL``; the decode tok/s and the peak device memory a
+    card print for both.  Returns its rows."""
+    import torch
+    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.stream import ServeSession
+    tp = world > 1
+    cfg = tinyllama_1_1b.CONFIG
+    if tp:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+    mesh = M.make_mesh(model=2 if tp else 1, device=dev.type)
+    label = "2x2" if tp else "1x1"
+    params = T.init_params(cfg, seed=0, device=dev)
+    prompts = synthetic.MarkovLM(vocab=cfg.vocab, seed=7).batch(
+        20_000, SERVE_BATCH, SERVE_PROMPT, device=dev)["tokens"]
+    n, cap = SERVE_PROMPT, SERVE_PROMPT + TP_SERVE_GEN
+    shape = InputShape("serve", cap, SERVE_BATCH, "decode")
+    res: dict = {}
+
+    def requests(m):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sub = ServeSession(cfg, shape, params, mesh=m)
+        outs, rates = [], []
+        for _ in range(TP_SERVE_REQUESTS):
+            outs.append(sub.generate(prompts, TP_SERVE_GEN))
+            rates.append(sub.requests[-1].decode_tok_s)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del sub
+        torch.cuda.empty_cache()
+        return outs, rates, peak
+
+    def logits_of(m, toks):
+        """Prefill's and every decode step's logits, fed ``toks``."""
+        pre, _ = SV.make_prefill_step(cfg, m, dataclasses.replace(
+            shape, seq_len=n, kind="prefill"), chunk=64)
+        step, _ = SV.make_serve_step(cfg, m, shape, chunk=64)
+        placed = SV.place_params(cfg, m, params)
+        logits, states = pre(placed, {"tokens": prompts})
+        states = E.pad_states_for_decode(cfg, states, n, cap)
+        out = [logits.float()]
+        for i in range(TP_SERVE_GEN):
+            logits, states = step(placed, toks[:, i:i + 1], states, n + i)
+            out.append(logits.float())
+        del states, placed
+        torch.cuda.empty_cache()
+        return out
+
+    one_toks, one_rates, one_peak = requests(None)
+    got_toks, got_rates, got_peak = requests(mesh)
+    for i, (a, b) in enumerate(zip(got_toks, one_toks)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"tp serving {label} request {i}: tokens "
+                                 f"differ from one card's")
+    want = logits_of(None, one_toks[0])
+    got = logits_of(mesh, one_toks[0])
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if tp:
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst = max(worst, rel)
+            if not rel <= TP_SERVE_RTOL:
+                raise AssertionError(f"tp serving {label} step {i}: logits "
+                                     f"{rel:.3e} from one card's")
+        else:
+            assert_bitwise(f"tp serving 1x1 step {i} logits", (a,), (b,))
+    res = {"mesh": label, "dtype": cfg.dtype,
+           "requests": TP_SERVE_REQUESTS, "batch": SERVE_BATCH,
+           "prompt": n, "generated": TP_SERVE_GEN,
+           "tok_s": got_rates, "one_card_tok_s": one_rates,
+           "peak_gib": got_peak, "one_card_peak_gib": one_peak,
+           "logits_rel": worst}
+    how = (f"logits within {worst:.3e} of one card's (rtol "
+           f"{TP_SERVE_RTOL:g})" if tp else "logits == one device's, bitwise")
+    print(f"tp serving {label} rank {rank}/{world} ({cfg.dtype}): "
+          f"{TP_SERVE_REQUESTS} requests of {SERVE_BATCH} x {n} tokens, "
+          f"{TP_SERVE_GEN} generated: tokens == one card's; {how}; decode "
+          f"{', '.join(f'{r:.1f}' for r in got_rates)} tok/s (one card "
+          f"{', '.join(f'{r:.1f}' for r in one_rates)}); peak "
+          f"{got_peak:.3f} GiB a card (one card {one_peak:.3f})",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
 #: where the phase's large artifacts (the chrome trace, the full-width
 #: checkpoint) go before they are deleted: in the checkout, not copied
@@ -4142,15 +4389,19 @@ def moe_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
 #: chunkwise form holds (B, H, S, S) weights, not a C a token)
 XLSTM_SEQ = 1024
 #: steps per configuration: two show the loss fall, and the sLSTM's time
-#: loop makes each ~24–42 s (``PERF.md`` §5)
+#: loop makes each ~24–42 s at 48 layers (``PERF.md`` §5)
 XLSTM_STEPS = 2
+#: its depth, cut from 48 for the single-card run's time limit: at 48 the
+#: phase took ~4 min, and the whole run once 1176.5 s of the 1200 on an
+#: H100 at 700 W (its time loops scale with the depth)
+XLSTM_LAYERS = 12
 
 
 def xlstm_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
     """The xLSTM family at full width, over the world-size-1 NCCL group
-    (inside ``process_group``).  xLSTM-1.3B (48 layers alternating
-    mLSTM and sLSTM, d 2048, 4 heads, vocab 50304, untied, bf16, seeded
-    random weights) trains ``steps`` distributed ``lags_dp`` + kernel
+    (inside ``process_group``).  xLSTM-1.3B (cut to ``XLSTM_LAYERS`` of
+    its 48 layers alternating mLSTM and sLSTM, d 2048, 4 heads, vocab
+    50304, untied, bf16, seeded random weights) trains ``steps`` distributed ``lags_dp`` + kernel
     steps on one ``seq``-token ``MarkovLM`` sequence under ``off`` and
     ``wave`` (``LARGE_DIST``; each period recomputed in the backward,
     the training default): step 0 of ``off`` with every
@@ -4165,7 +4416,7 @@ def xlstm_phase(dev, seq: int, steps: int) -> tuple[dict, dict, dict]:
     res: dict = {}
     kept: dict = {}
     torch.cuda.empty_cache()
-    cfg = xlstm_1_3b.CONFIG
+    cfg = dataclasses.replace(xlstm_1_3b.CONFIG, n_layers=XLSTM_LAYERS)
     print(f"xlstm: {cfg.name}: {cfg.param_count()} parameters, "
           f"{cfg.n_layers} layers {cfg.xlstm_pattern}, d {cfg.d_model}, "
           f"{cfg.param_dtype}, {seq} tokens a step", flush=True)
@@ -4770,48 +5021,69 @@ def main(argv=None) -> int:
         return ranks_main(args.ranks)
     dev = torch.device("cuda", 0)
 
+    clock: dict = {}
     torch.use_deterministic_algorithms(True)
     try:
-        errs = parity(dev)
-        small_reference(dev)
+        with timed("parity", clock):
+            errs = parity(dev)
+            small_reference(dev)
     finally:
         torch.use_deterministic_algorithms(False)
 
     p = 2
-    times = timings(dev, cfg, p)
+    with timed("timings", clock):
+        times = timings(dev, cfg, p)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    plans, autotune = autotune_phase(dev, cfg, seq, out_dir)
-    planned = planned_pack_timings(dev, cfg, plans)
-    main_totals, results = main_path(dev, cfg, seq, steps, plans,
-                                     out_dir if args.profile else None)
+    with timed("autotune", clock):
+        plans, autotune = autotune_phase(dev, cfg, seq, out_dir)
+        planned = planned_pack_timings(dev, cfg, plans)
+    with timed("main", clock):
+        main_totals, results = main_path(dev, cfg, seq, steps, plans,
+                                         out_dir if args.profile else None)
     # each later path: counts set to 0 just before it, read just after
-    path_counts, path_err = ef_accum_path(dev, cfg, seq)
+    with timed("ef_accum", clock):
+        path_counts, path_err = ef_accum_path(dev, cfg, seq)
     errs["ef_accum_sparsify"] = max(
         errs["ef_accum_sparsify"], path_err,
         times["ef_accum_sparsify_bf16"]["max_abs_err"])
     for name in REPLACES:
         errs[name] = max(errs[name], times[name]["max_abs_err"])
-    paper_totals, paper_results, paper_errs = paper_path(dev, steps)
-    narrow = narrow_timings(dev)
+    with timed("paper", clock):
+        paper_totals, paper_results, paper_errs = paper_path(dev, steps)
+        narrow = narrow_timings(dev)
     with process_group(dev):
-        dist_totals, dist_results, dist_errs = distributed(
-            dev, cfg, seq, steps, plans=plans)
-        tp_totals, tp, tp_errs = tp_phase(dev, cfg, seq, steps)
-        fam_totals, tp_fam, fam_errs = tp_phase(dev, cfg, seq, steps,
-                                                families=True)
-        rec_totals, tp_rec, rec_errs = tp_phase(dev, cfg, seq, steps,
-                                                recurrent=True)
-        lstm_totals, lstm_results, lstm_errs = distributed(
-            dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
-            configs=PAPER_DIST, per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
-        observe_totals, observe = observe_phase(dev, cfg, seq, out_dir)
-        stream_totals, stream = stream_phase(dev, cfg, seq)
-        moe_totals, moe, moe_errs = moe_phase(dev, seq, steps)
-        xlstm_totals, xlstm, xlstm_errs = xlstm_phase(dev, XLSTM_SEQ,
-                                                      XLSTM_STEPS)
-        encdec_totals, encdec, encdec_errs = encdec_phase(dev)
-        jamba_totals, jamba, jamba_errs = jamba_phase(dev)
+        with timed("distributed", clock):
+            dist_totals, dist_results, dist_errs = distributed(
+                dev, cfg, seq, steps, plans=plans)
+        with timed("tp", clock):
+            tp_totals, tp, tp_errs = tp_phase(dev, cfg, seq, steps)
+        with timed("tp_families", clock):
+            fam_totals, tp_fam, fam_errs = tp_phase(dev, cfg, seq, steps,
+                                                    families=True)
+        with timed("tp_recurrent", clock):
+            rec_totals, tp_rec, rec_errs = tp_phase(dev, cfg, seq, steps,
+                                                    recurrent=True)
+        with timed("tp_serving", clock):
+            tp_serve = tp_serving_phase(dev)
+        with timed("paper_distributed", clock):
+            lstm_totals, lstm_results, lstm_errs = distributed(
+                dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
+                configs=PAPER_DIST, per_rank=LSTM_SEQS,
+                name="paper-lstm-ptb ")
+        with timed("observe", clock):
+            observe_totals, observe = observe_phase(dev, cfg, seq, out_dir)
+        with timed("stream", clock):
+            stream_totals, stream = stream_phase(dev, cfg, seq)
+        with timed("moe", clock):
+            moe_totals, moe, moe_errs = moe_phase(dev, seq, steps)
+        with timed("xlstm", clock):
+            xlstm_totals, xlstm, xlstm_errs = xlstm_phase(dev, XLSTM_SEQ,
+                                                          XLSTM_STEPS)
+        with timed("encdec", clock):
+            encdec_totals, encdec, encdec_errs = encdec_phase(dev)
+        with timed("jamba", clock):
+            jamba_totals, jamba, jamba_errs = jamba_phase(dev)
     for part in (paper_errs, dist_errs, tp_errs, fam_errs, rec_errs,
                  lstm_errs,
                  stream.pop("errs"),
@@ -4846,10 +5118,12 @@ def main(argv=None) -> int:
         for name in REPLACES]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
+         "phase_s": clock,
          "config": dataclasses.asdict(cfg), "workers": p, "seq": seq,
          "timings": times, "autotune": autotune, "planned_pack": planned,
          "main": results, "distributed": dist_results, "tp": tp,
          "tp_families": tp_fam, "tp_recurrent": tp_rec,
+         "tp_serving": tp_serve,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
          "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
@@ -4861,6 +5135,17 @@ def main(argv=None) -> int:
     print(card_line())
     print(result_line(torch))
     return 0
+
+
+@contextlib.contextmanager
+def timed(name: str, clock: dict):
+    """The block's wall time into ``clock[name]``, printed."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        clock[name] = time.perf_counter() - t0
+        print(f"phase {name}: {clock[name]:.1f} s", flush=True)
 
 
 def result_line(torch) -> str:
@@ -4916,6 +5201,7 @@ def ranks_main(world: int) -> int:
     phases = {"distributed": "launches", "tp": "tp_launches",
               "tp_families": "tp_families_launches",
               "tp_recurrent": "tp_recurrent_launches",
+              "moe_span": "moe_span_launches",
               "paper_distributed": "paper_launches",
               "observe": "observe_launches"}
     rows = [json.loads((out_dir / f"chip_smoke_rank{r}.json").read_text())
@@ -4949,6 +5235,8 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
         rec_totals, tp_rec, _ = tp_phase(dev, cfg, seq, steps,
                                          world=args.ranks, rank=args.rank,
                                          recurrent=True)
+        span_totals, span, _ = moe_span_phase(dev, args.ranks, args.rank)
+        tp_serve = tp_serving_phase(dev, args.ranks, args.rank)
         lstm_totals, lstm_results, _ = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, world=args.ranks,
             rank=args.rank, plans={},
@@ -4963,6 +5251,8 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
          "tp_launches": tp_totals, "tp": tp,
          "tp_families_launches": fam_totals, "tp_families": tp_fam,
          "tp_recurrent_launches": rec_totals, "tp_recurrent": tp_rec,
+         "moe_span_launches": span_totals, "moe_span": span,
+         "tp_serving": tp_serve,
          "paper_launches": lstm_totals, "paper_distributed": lstm_results,
          "observe_launches": observe_totals, "observe": observe},
         indent=1))

@@ -93,8 +93,9 @@ the encoder-decoder and the VLM on DTensor propagation; the MoE layer
 ``models.moe``), the mLSTM, sLSTM and Mamba layers (each rank its heads
 or channels: ``models.xlstm``, ``models.ssm``) on local tensors between
 the explicit 'model' boundaries of ``models.tp``.  Under ``lags_hier``
-an MoE token group that would span a pod's ranks raises
-(``pod_auto_moe_groups``).
+an MoE token group that spans a pod's ranks (``pod_auto_moe_groups``)
+is gathered over the pod's 'data' ranks (``models.moe.TokenSpan``) on
+a mesh without a 'model' axis, and raises on one with it.
 
 ``run.schedule`` (an autotuned ``Schedule``/``HierSchedule``) replaces
 the scalar ratio's per-leaf budgets, through
@@ -131,6 +132,7 @@ from repro_torch.api import registry as R
 from repro_torch.api.config import RunConfig, canonical_mode
 from repro_torch.core import lags
 from repro_torch.launch import mesh as M
+from repro_torch.models import moe as MO
 from repro_torch.models import transformer as T
 from repro_torch.observe import health as H
 from repro_torch.pipeline import buckets as WB
@@ -142,10 +144,11 @@ from repro_torch.training.train_loop import Spec
 
 #: the model families a mesh with a 'model' axis trains
 TP_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
-#: what it does not run yet: the MoE token groups that span ranks
+#: what it does not run yet: an MoE token group that spans a pod's ranks
+#: on a mesh with a 'model' axis
 TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e's third part, the "
-                    "tensor-parallel part for the MoE token groups across "
-                    "ranks")
+                    "tensor-parallel part for an MoE token group across a "
+                    "pod's ranks on a 'model' axis")
 #: ... and the health quantities, the controller, profile_model and the
 #: publisher
 TP_NEXT = ("ROADMAP.md queue 1 item 7g, the tensor-parallel part for the "
@@ -225,9 +228,14 @@ def check_tensor_parallel(cfg, mesh, mode: str, *, health: bool = False):
             f"({item})")
 
 
-def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
+#: what :func:`pod_auto_moe_groups` returns for one group across ranks
+POD_SPAN = 0
+
+
+def pod_auto_moe_groups(batch_rows: int, pods: int, data: int,
+                        model: int | None = None) -> int:
     """The MoE token groups among one rank's rows under the ``pod_auto``
-    plan (``lags_hier``) on ``pods`` × ``data`` ranks.
+    plan (``lags_hier``) on ``pods`` × ``data`` ranks, or ``POD_SPAN``.
 
     The reference takes each pod's gradient on its B/pods rows inside a
     vmap, where ``moe_forward_auto`` counts the auto 'pod' and 'data'
@@ -236,18 +244,22 @@ def pod_auto_moe_groups(batch_rows: int, pods: int, data: int) -> int:
     slice, so when the groups divide the slice its rows are exactly
     ``pods`` of them.  Otherwise the reference dispatches the whole
     slice as one group: this rank's rows when ``data`` is 1; else a
-    group that spans ranks, which the port would have to gather."""
+    group that spans the pod's ranks (``POD_SPAN``: the step passes a
+    ``models.moe.TokenSpan`` over the pod's 'data' group, which gathers
+    its tokens).  That span on a mesh with a 'model' axis (of ``model``
+    ranks; None: none) raises."""
     slice_rows = batch_rows // pods
     if slice_rows % (pods * data) == 0:
         return pods
     if data == 1:
         return 1
-    raise NotImplementedError(
-        f"lags_hier on {pods} pods x {data}: the reference dispatches each "
-        f"pod's {slice_rows} rows as one MoE token group (its "
-        f"{pods * data} groups do not divide them), a group across the "
-        f"pod's ranks; gathering its tokens is not ported "
-        f"({TP_NEXT_FAMILIES})")
+    if model is not None:
+        raise NotImplementedError(
+            f"lags_hier on {pods} pods x {data}: the reference dispatches "
+            f"each pod's {slice_rows} rows as one MoE token group across "
+            f"its ranks, not run beside a 'model' axis of {model} ranks "
+            f"({TP_NEXT_FAMILIES})")
+    return POD_SPAN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -633,10 +645,16 @@ def build_train_step(cfg, mesh, run: RunConfig):
         return T.loss_fn(params, cfg, batch, chunk=run.chunk,
                          loss_chunk=run.loss_chunk, moe_groups=moe_groups)
 
-    def moe_groups(batch_rows: int) -> int:
+    def moe_groups(batch_rows: int):
         if strat.axes != "pod_auto" or not cfg.n_experts:
             return 1
-        return pod_auto_moe_groups(batch_rows, meta["n_workers"], inner.size)
+        groups = pod_auto_moe_groups(batch_rows, meta["n_workers"],
+                                     inner.size,
+                                     model=rows.size if tp else None)
+        if groups != POD_SPAN:
+            return groups
+        return MO.TokenSpan(inner.group, inner.size,
+                            dist.get_rank(inner.group))
 
     def replicated():
         """Plain tensors meet the DTensor parameters as replicas

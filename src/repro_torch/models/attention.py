@@ -12,12 +12,29 @@ Cache layouts (the reference's):
   full cache : k/v (B, S_cap, KV, hd); entries at index <= pos are valid.
   ring cache : k/v (B, W, KV, hd) for a windowed layer; token ``pos`` at
                slot ``pos % W``.
+
+Serving over a tensor-parallel 'model' axis (``launch.serve``): the
+weights are ``DTensor``s, ``wq``/``wk``/``wv`` split on heads and ``wo``
+on its head dim.  :func:`prefill_attention` then hands back whole caches
+(every head, as plain tensors), and the decode step lays each out as a
+``DTensor`` over 'model', its sequence split when the capacity divides
+by the 'model' size (the reference's ``cache_seq``, flash-decoding).
+:func:`decode_attention` on such a cache runs on local tensors
+(:func:`_decode_local`): the new token's q, k and v gathered over
+'model' to every head, k and v written by the rank that owns the slot,
+this rank's slots attended with their absolute slot indices (the masks
+offset by its chunk's start), the ranks' (max, sum, output) combined by
+a log-sum-exp over 'model' (:func:`_lse_combine`), and the output handed
+to ``wo``'s row-parallel product as a replicated ``DTensor``.  A cache
+whose capacity does not divide stays whole on every rank and needs no
+combine.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import layers as L
 
@@ -57,6 +74,26 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
                             q_positions=q_positions, k_positions=k_positions,
                             causal=causal, window=window, chunk=chunk,
                             k_valid_len=k_valid_len)
+    m, l, acc = _softmax_stats(q, k, v, q_positions=q_positions,
+                               k_positions=k_positions, causal=causal,
+                               window=window, chunk=chunk,
+                               k_valid_len=k_valid_len)
+    return _normalized(acc, l, q.dtype)
+
+
+def _normalized(acc, l, dtype):
+    """The attention output (B, Sq, KV, G, hd) in ``dtype`` from the
+    running sum ``l`` and output ``acc`` (B, KV, G, Sq[, hd])."""
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(dtype)          # B,Sq,KV,G,hd
+
+
+def _softmax_stats(q, k, v, *, q_positions, k_positions, causal, window,
+                   chunk, k_valid_len):
+    """:func:`chunked_attention`'s online softmax on plain tensors ->
+    its running (max m, sum l, output acc), f32, (B, KV, G, Sq) and
+    (B, KV, G, Sq, hd), before the division by ``l``.  Keys that are
+    all masked leave m at ``NEG_INF``."""
     b, sq, kvh, g, hd = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
@@ -102,8 +139,7 @@ def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
         acc = acc * corr[..., None] + torch.einsum(
             "bhgqc,bhcd->bhgqd", p_, vc[j].float())
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)        # B,Sq,KV,G,hd
+    return m, l, acc
 
 
 def _local_heads(fn, q, k, v, **kw):
@@ -226,9 +262,16 @@ def prefill_attention(p, x, *, n_kv_heads: int, rope_theta: float = 10000.0,
                           k_positions=positions, causal=True, window=win,
                           chunk=chunk)
     out = _out_proj(p, o, x.dtype)
+    # tensor-parallel: the whole caches (every head), plain tensors
+    k, v = _whole(k), _whole(v)
     if win is not None and win < s:
         return out, {"k": k[:, -win:], "v": v[:, -win:]}
     return out, {"k": k, "v": v}
+
+
+def _whole(x):
+    """A ``DTensor``'s full tensor, a plain one as it is."""
+    return x.full_tensor() if type(x) is not torch.Tensor else x
 
 
 def decode_attention(p, x, cache, pos: int, *, n_kv_heads: int,
@@ -241,8 +284,13 @@ def decode_attention(p, x, cache, pos: int, *, n_kv_heads: int,
     A full cache takes the token at slot ``min(pos, cap - 1)`` and masks
     by absolute position; a ring (a windowed layer whose capacity is at
     most its window) at slot ``pos % cap``, every slot within the window,
-    the slots not yet written masked until the ring wraps."""
-    b = x.shape[0]
+    the slots not yet written masked until the ring wraps.  A cache laid
+    out over a tensor-parallel 'model' axis (a ``DTensor``) runs
+    :func:`_decode_local`."""
+    if type(cache["k"]) is not torch.Tensor:
+        return _decode_local(p, x, cache, pos, n_kv_heads=n_kv_heads,
+                             rope_theta=rope_theta, window=window,
+                             chunk=chunk)
     q, k_new, v_new = _qkv(p, x, n_kv_heads)
     posv = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new = _rope_qk(q, k_new, posv, rope_theta)
@@ -265,4 +313,57 @@ def decode_attention(p, x, cache, pos: int, *, n_kv_heads: int,
             q, cache["k"], cache["v"], q_positions=posv,
             k_positions=torch.arange(cap, device=x.device), causal=True,
             window=win, chunk=chunk, k_valid_len=valid)
+    return _out_proj(p, o, x.dtype), cache
+
+
+def _lse_combine(m, l, acc, group):
+    """Every 'model' rank's softmax statistics over its own slots (max
+    m, sum l, output acc; :func:`_softmax_stats`) combined over
+    ``group``: each rescaled to the global max, then summed (one
+    all-reduce of [acc | l]) -> (l, acc) of every slot.  A rank whose
+    slots are all masked holds m = ``NEG_INF`` and adds nothing."""
+    top = m.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(m - top)
+    both = torch.cat([acc * w[..., None], (l * w)[..., None]], dim=-1)
+    dist.all_reduce(both, op=dist.ReduceOp.SUM, group=group)
+    return both[..., -1], both[..., :-1]
+
+
+def _decode_local(p, x, cache, pos: int, *, n_kv_heads: int,
+                  rope_theta: float, window: int | None, chunk: int):
+    """:func:`decode_attention` on a cache laid out over a 'model' axis
+    (``DTensor``s ``k``, ``v`` (B, cap, KV, hd), split on the sequence
+    dim or whole), with the layer's weights ``DTensor``s over it (module
+    docstring).  Writes the token into the rank's chunk in place."""
+    from torch.distributed.tensor import DTensor, Replicate
+    q, k_new, v_new = _qkv(p, x, n_kv_heads)
+    posv = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k_new = _rope_qk(q, k_new, posv, rope_theta)
+    q, k_new, v_new = _whole(q), _whole(k_new), _whole(v_new)
+    mesh = cache["k"].device_mesh
+    kl, vl = cache["k"].to_local(), cache["v"].to_local()
+    cap, n = cache["k"].shape[1], kl.shape[1]
+    split = cache["k"].placements[0].is_shard()
+    start = mesh.get_local_rank() * n if split else 0
+    win = _window(window)
+    ring = win is not None and cap <= win
+    slot = pos % cap if ring else min(pos, cap - 1)
+    if start <= slot < start + n:
+        kl[:, slot - start] = k_new[:, 0].to(kl.dtype)
+        vl[:, slot - start] = v_new[:, 0].to(vl.dtype)
+    # this rank's slots start + i, masked as their absolute indices are
+    valid = min(pos + 1, cap) - start
+    if ring:
+        kpos = torch.zeros((n,), dtype=torch.long, device=x.device)
+    else:
+        kpos = torch.arange(start, start + n, device=x.device)
+    m, l, acc = _softmax_stats(q, kl, vl, q_positions=posv,
+                               k_positions=kpos, causal=not ring,
+                               window=None if ring else win, chunk=chunk,
+                               k_valid_len=valid)
+    if split and mesh.size() > 1:
+        l, acc = _lse_combine(m, l, acc, mesh.get_group())
+    o = DTensor.from_local(_normalized(acc, l, q.dtype), mesh,
+                           (Replicate(),), run_check=False)
     return _out_proj(p, o, x.dtype), cache

@@ -51,9 +51,25 @@ gradient enters at 1/n a rank (:func:`_aux_share`) and is counted once;
 each expert leaf's chunk gets its own gradient.  The result equals the
 unsharded ``moe_forward_grouped``'s up to reduction order, and on a
 'model' axis of one rank its bits.
+
+Token groups across ranks.  Under ``lags_hier`` the reference dispatches
+each pod's slice of the batch in pods·data groups, or as ONE group when
+they do not divide it (``launch.train.pod_auto_moe_groups``), and that
+group spans the pod's 'data' ranks.  ``groups=TokenSpan(...)`` runs it
+(:func:`_span_forward`): the rows of every rank of the pod's 'data'
+group are gathered (``tp.gather_rows``, data rank-major: the slice's
+order), the whole group is dispatched with its own capacity, and each
+rank keeps its own rows.  The gather's backward reduce-scatters: a
+token's output depends on the others only through the capacity drops,
+which are discrete, so the other rows' share of the combine's gradient
+is zero, and the aux loss's reaches every row.  Every rank computes the
+group's aux loss in full; the step takes the mean of the pod's ranks'
+gradients (and losses), so it counts once.  Data-only meshes only: on
+a 'model' axis the step refuses the span (``launch.train``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -350,17 +366,48 @@ def moe_forward_ep(p, x, *, top_k: int, activation: str = "silu",
                        layout="experts")
 
 
+@dataclasses.dataclass(frozen=True)
+class TokenSpan:
+    """One MoE token group made of the rows of every rank of ``group``
+    (``size`` ranks; this one is ``rank`` of them): what
+    ``moe_forward_auto(groups=)`` takes for a group across ranks."""
+    group: object
+    size: int
+    rank: int
+
+
+def _span_forward(p, x, span: TokenSpan, **kw):
+    """The rows ``x`` (b, S, D) of every rank of ``span`` dispatched as
+    one group, this rank's b rows of the output kept -> (out, aux)."""
+    b = x.shape[0]
+    out, aux = moe_forward_grouped(
+        p, TP.gather_rows(x, span.group, span.size), groups=1, **kw)
+    return out.narrow(0, span.rank * b, b), aux
+
+
 def moe_forward_auto(p, x, *, top_k: int, activation: str = "silu",
-                     capacity_factor: float = 1.25, groups: int = 1):
+                     capacity_factor: float = 1.25,
+                     groups: int | TokenSpan = 1):
     """The dispatch the model runs.  The reference groups tokens by the
     mesh's auto-partitioned data axes.  In its data-manual steps
     (``lags_dp`` and the rest) those axes are manual, so each worker
     dispatches its own tokens as one group, as every rank of the port
     does by default.  Under its ``pod_auto`` step (``lags_hier``) a
     rank's rows hold several of the reference's groups: the step passes
-    their number (``launch.train.pod_auto_moe_groups``).  ``DTensor``
-    leaves over 'model' run each rank's part of the experts
-    (:func:`_tp_forward`, in the layout the leaves carry)."""
+    their number (``launch.train.pod_auto_moe_groups``), or a
+    :class:`TokenSpan` when the rows of several ranks make one group
+    (module docstring).  ``DTensor`` leaves over 'model' run each rank's
+    part of the experts (:func:`_tp_forward`, in the layout the leaves
+    carry)."""
+    if isinstance(groups, TokenSpan):
+        if is_dtensor(p["router"]):
+            raise NotImplementedError(
+                "an MoE token group across ranks on DTensor leaves over "
+                "'model' (ROADMAP.md queue 1 item 7e's third part, the "
+                "tensor-parallel part on a 'model' axis)")
+        return _span_forward(p, x, groups, top_k=top_k,
+                             activation=activation,
+                             capacity_factor=capacity_factor)
     if is_dtensor(p["router"]):
         return _tp_forward(p, x, top_k=top_k, activation=activation,
                            capacity_factor=capacity_factor, groups=groups)

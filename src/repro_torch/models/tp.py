@@ -25,6 +25,14 @@ forward's transpose:
     'model' as one leaf (``up_proj``, ``in_proj``): rank r holds
     columns r·2c … (r+1)·2c − 1, not a_r and b_r.
 
+One boundary crosses a data axis instead: :func:`gather_rows`, every
+rank's rows (dim 0) of a process group concatenated in rank order, the
+gradient reduce-scattered back.  The MoE layer gathers an MoE token
+group that spans a pod's 'data' ranks with it (``models.moe.TokenSpan``,
+``lags_hier``): a redistribute of a ``DTensor`` to ``Replicate`` over
+'data' would not do, its backward takes this rank's chunk of the
+gradient and sums nothing.
+
 ``mesh=None`` (the data-only path) or a 'model' axis of one rank makes
 each of them but :func:`model_sum` the identity on its input (the same
 tensor, nothing communicated), so the local path runs the data-only
@@ -39,8 +47,8 @@ from repro_torch.sharding.dtensor import is_dtensor
 
 
 #: what the recurrent layers' local paths refuse: their decode states
-SERVING = ("serving over 'model' (ROADMAP.md queue 1 item 7f): the "
-           "tensor-parallel recurrent layers train only")
+SERVING = ("serving over 'model' (ROADMAP.md queue 1 item 7f's second "
+           "part): the tensor-parallel recurrent layers train only")
 
 
 def _single(mesh) -> bool:
@@ -200,6 +208,38 @@ def gather_last(x, mesh):
     if _single(mesh):
         return x
     return _GatherLast.apply(x, mesh.get_group(), mesh.size())
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows (dim 0) of ``group``, concatenated in rank
+    order; the gradient reduce-scattered back to the rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, n: int):
+        ctx.group, ctx.n = group, n
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = grad.new_empty((grad.shape[0] // ctx.n,)
+                             + tuple(grad.shape[1:]))
+        dist.reduce_scatter_tensor(out, grad, op=dist.ReduceOp.SUM,
+                                   group=ctx.group)
+        return out, None, None
+
+
+def gather_rows(x, group, n: int):
+    """The rows of every one of the ``n`` ranks of ``group`` (a plain
+    tensor each, the same shape on every rank), concatenated along dim 0
+    in group-rank order, on every rank; each rank's gradient of it flows
+    back summed over the ranks to the rows it came from."""
+    if n == 1:
+        return x
+    return _GatherRows.apply(x, group, n)
 
 
 def split_pair(x, mesh):

@@ -371,7 +371,8 @@ def forward(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024,
     its gradient is summed over them before it reaches the encoder.
 
     ``moe_groups``: the token groups each MoE layer dispatches apart,
-    each with its own capacity (``models.moe.moe_forward_grouped``)."""
+    each with its own capacity (``models.moe.moe_forward_grouped``), or
+    a ``models.moe.TokenSpan``: one group of the rows of several ranks."""
     dtype = L.DTYPES[cfg.dtype]
     x = L.embed(params["embed"], tokens, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

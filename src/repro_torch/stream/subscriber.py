@@ -80,21 +80,27 @@ def cache_regime(cfg) -> str:
 
 class ServeSession:
     """A served model following a :class:`StreamPublisher`'s packets.
-    It runs on the device that holds ``params``."""
+    It runs on the device that holds ``params``; on a mesh with a
+    'model' axis (``launch.serve.tensor_parallel``) every rank makes one
+    with the same full ``params``, which it lays out over 'model', and
+    ``generate`` returns the same tokens on every rank.  There it serves
+    only: packets and resyncs raise (ROADMAP.md queue 1 item 7f's second
+    part)."""
 
     def __init__(self, cfg, shape, params, *, mesh=None, chunk: int = 64,
                  guard=None, metrics=None, events=None):
         from repro_torch.launch import serve as SV
         from repro_torch.observe import events as OE
         from repro_torch.observe import metrics as OM
-        SV.check_mesh(mesh)
+        SV.check_mesh(mesh, cfg)
         self.mesh = mesh
         self.raw_cfg = cfg
         self.cfg = SV.serve_cfg(cfg, shape.name)
         self.shape = shape
         self.chunk = int(chunk)
-        self.params = params
         self.codec = CD.DeltaCodec(params)
+        self.tensor_parallel = SV.tensor_parallel(self.cfg, mesh)
+        self.params = SV.place_params(self.cfg, mesh, params)
         self.fingerprint = self.codec.fingerprint
         self.version = 0
         self.guard = guard
@@ -126,6 +132,12 @@ class ServeSession:
         self._m_resyncs = reg.counter(
             "serve_resyncs_total", "Full-checkpoint resyncs.")
 
+    def _refuse_model_axis(self, what: str) -> None:
+        if self.tensor_parallel:
+            raise NotImplementedError(
+                f"{what} on parameters laid out over a 'model' axis "
+                f"(ROADMAP.md queue 1 item 7f's second part)")
+
     @property
     def device(self) -> torch.device:
         return tree.leaves(self.params)[0].device
@@ -138,6 +150,7 @@ class ServeSession:
         ``fingerprint`` / ``gap`` (refused, ``needs_resync`` set) |
         ``halted`` (guard veto: params unchanged, last-good pinned).
         """
+        self._refuse_model_axis("applying a packet")
         status = self._apply_packet(packet)
         self.log.append({"version": packet.version, "kind": packet.kind,
                          "nbytes": packet.nbytes, "status": status})
@@ -186,6 +199,7 @@ class ServeSession:
         guard halt: resuming a halted stream is an operator decision
         (``guard.resume()``)."""
         from repro_torch.checkpoint import io
+        self._refuse_model_axis("a resync")
         with trace.annotation(names.serve_name("resync", "full")):
             meta = io.load_metadata(path)["metadata"]
             if meta.get("fingerprint") not in (None, self.fingerprint):

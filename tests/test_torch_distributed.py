@@ -54,12 +54,11 @@ Contracts:
     the tolerances above.
 """
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -117,7 +116,7 @@ out = {}
 for name, (mode, mc) in MODES.items():
     run = api.RunConfig(mode=mode, momentum_correction=mc, donate=False,
                         **RUN_KW)
-    step, _, _ = api.build_train_step(cfg, mesh, run)
+    step = compile_once(api.build_train_step(cfg, mesh, run)[0])
     state, _ = TR.init_state(cfg, mesh, method=mode, momentum_correction=mc)
     # the shared start (init_state's sharded draw is not init_model's)
     flat, treedef = jax.tree.flatten(state["params"])
@@ -139,6 +138,7 @@ for name, (mode, mc, pipeline, fixed) in PIPE_MODES.items():
                         pipeline=pipeline, wave_target_bytes=WAVE_BYTES,
                         **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode, pipeline=pipeline,
                              momentum_correction=mc)
     flat, treedef = jax.tree.flatten(state["params"])
@@ -165,6 +165,7 @@ for name, pipeline in SCHED_MODES.items():
     run = api.RunConfig(mode="lags_dp", donate=False, pipeline=pipeline,
                         schedule=sched, waves=planned, **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method="lags_dp", pipeline=pipeline)
     flat, treedef = jax.tree.flatten(state["params"])
     state["params"] = jax.tree.unflatten(treedef, [
@@ -182,7 +183,7 @@ for name, pipeline in SCHED_MODES.items():
     out[f"{name}/ks"] = np.asarray(jax.tree.leaves(meta["ks"]))
 lcfg = base.get_smoke_config("paper_lstm_ptb")
 run = api.RunConfig(mode="lags_dp", donate=False, **RUN_KW)
-step, _, _ = api.build_train_step(lcfg, mesh, run)
+step = compile_once(api.build_train_step(lcfg, mesh, run)[0])
 state, _ = TR.init_state(lcfg, mesh, method="lags_dp")
 flat, treedef = jax.tree.flatten(state["params"])
 state["params"] = jax.tree.unflatten(treedef, [
@@ -380,8 +381,10 @@ def _exchange_inputs(rng):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """One JAX subprocess and four gloo ranks, started together; returns
-    (inputs, JAX results, per-rank port results)."""
+    """One JAX subprocess and four gloo ranks, started together
+    (``test_torch_spawn.Spawned``); results by index, each read when a
+    test first needs it: (inputs, JAX results, per-rank port
+    results)."""
     import dataclasses
     from repro.configs import base
     tmp = tmp_path_factory.mktemp("dist")
@@ -407,34 +410,29 @@ def runs(tmp_path_factory):
     inp.update(lstm_tokens=ltoks[..., :-1], lstm_labels=ltoks[..., 1:])
     np.savez(tmp / "in.npz", **inp)
 
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _constants() + textwrap.dedent(JAX_SCRIPT),
-         str(tmp / "in.npz"), str(tmp / "jax.npz")], env=env,
-        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)]
-    torch_env = dict(env, OMP_NUM_THREADS="1")
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level, each
+    # step compiled once, on one thread (``test_torch_spawn``)
+    sp.start("jax", COMPILE_ONCE + _constants() + textwrap.dedent(JAX_SCRIPT),
+             [tmp / "in.npz", tmp / "jax.npz"],
+             XLA_FLAGS="--xla_force_host_platform_device_count=4")
     for r in range(WORLD):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", _constants() + textwrap.dedent(RANK_SCRIPT),
-             str(r), str(tmp / "store"), str(tmp / "in.npz"),
-             str(tmp / f"rank{r}.npz")], env=torch_env,
-            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+        sp.start(f"rank{r}", _constants() + textwrap.dedent(RANK_SCRIPT),
+                 [r, tmp / "store", tmp / "in.npz", tmp / f"rank{r}.npz"],
+                 OMP_NUM_THREADS="1")
+
+    def jax_results():
+        sp.wait("jax")
+        return load(tmp / "jax.npz")
+
+    def rank_results():
+        sp.wait(*(f"rank{r}" for r in range(WORLD)))
+        return [load(tmp / f"rank{r}.npz") for r in range(WORLD)]
     try:
-        outs = [p.communicate(timeout=400) for p in procs]
+        yield Lazy(lambda: inp, jax_results, rank_results)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    jres = dict(np.load(tmp / "jax.npz"))
-    ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
-    return inp, jres, ranks
+        sp.close()
 
 
 def _reference_plan(cfg):
@@ -459,7 +457,7 @@ def _bits(x) -> np.ndarray:
 
 @pytest.mark.parametrize("use_kernel", [0, 1])
 def test_block_lags_distributed_matches_sim_bitwise(runs, use_kernel):
-    inp, _, ranks = runs
+    inp, ranks = runs[0], runs[2]
     ex = TL.BlockLAGSExchange(ks=EX_KS, block_size=EX_BLOCK,
                               use_kernel=bool(use_kernel))
     e = {k: torch.from_numpy(inp[f"e0/{k}"]) for k in EX_LEAVES}
@@ -478,7 +476,7 @@ def test_block_lags_distributed_matches_sim_bitwise(runs, use_kernel):
 
 
 def test_kernel_backend_bitwise_equals_xla_distributed(runs):
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         for key in (k for k in res if k.startswith("block0/")):
             np.testing.assert_array_equal(
@@ -489,7 +487,7 @@ def test_kernel_backend_bitwise_equals_xla_distributed(runs):
 
 
 def test_dense_distributed_mean_matches_sim(runs):
-    inp, _, ranks = runs
+    inp, ranks = runs[0], runs[2]
     for k in EX_LEAVES:
         want = torch.from_numpy(inp[f"u0/{k}"]).mean(0).numpy()
         for res in ranks:
@@ -545,7 +543,7 @@ def test_wave_equals_off_bitwise_on_four_ranks(runs, name):
     """Losses, parameters and EF residuals of 2 steps: ``wave`` (hooks
     inside backprop) == ``off`` bit for bit on every rank, with several
     waves for the leaf-granular strategies and one for slgs."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for r, res in enumerate(ranks):
         n = res[f"parity/{name}/wave/n_waves"]
         assert (n == 1) if name == "slgs" else (n > 1), n
@@ -560,7 +558,7 @@ def test_async1_reproduces_the_exact_sync_prefix(runs):
     (params untouched), step 1 applies step 0's exchange, so the losses
     are ``[L0, L0, L1]`` against ``off``'s ``[L0, L1, L2]``; step 3 runs
     on one-step-stale updates and leaves ``off``'s trajectory."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         a = [res[f"lags_dp_async1/loss{t}"] for t in range(STEPS + 1)]
         off = [res[f"async1_off/loss{t}"] for t in range(STEPS)]
@@ -650,7 +648,7 @@ def test_sampled_exchanges_draw_as_the_simulation_path(runs, name):
     from repro_torch import api as tapi
     from repro_torch import tree as ttree
     from repro_torch.api import registry as TR
-    inp, _, ranks = runs
+    inp, ranks = runs[0], runs[2]
     mode, comp, pods, ratio_inner = SAMPLED[name]
     like = {k: torch.zeros(s) for k, s in EX_LEAVES.items()}
     ex = TR.build_exchange(TR.ExchangeSpec(
@@ -688,7 +686,7 @@ def test_profile_of_the_real_step_over_four_ranks(runs):
     from repro_torch.autotune import planner as TP
     from repro_torch.autotune import profiler as TPR
     from repro_torch.core import comm_model as TCM
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         prof = TPR.ModelProfile.from_json(str(res["profile"]))
         jprof = JPR.ModelProfile.from_json(str(res["profile"]))

@@ -13,8 +13,10 @@ Contracts:
     run, mesh=...).train_step()`` (``off``, ``async1`` + momentum
     correction 0.9, and ``lags_hier``'s post-backward ``wave``; and the
     Granite MoE model under ``lags_hier``, whose token groups follow the
-    reference's pod x data grouping, and under ``lags_dp``, one group of
-    local tokens) match the
+    reference's pod x data grouping, at a global batch of 4 too, where
+    each pod's rows make one group across its ranks (gathered over
+    'data', ``models.moe.TokenSpan``), and under ``lags_dp``, one group
+    of local tokens) match the
     reference's ``build_train_step`` at the battery's tolerances: losses
     rtol 1e-5, parameters, both tiers' residuals, velocities and pending
     updates rtol 1e-4 atol 1e-5 (``lags_hier``'s per-pod gradient is the
@@ -27,12 +29,11 @@ Contracts:
     mesh bit for bit (the (pod, data) group is the ranks in order).
 """
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -64,7 +65,13 @@ REF_MODES = {"hier2": ("lags_hier2", 0.0, "off", False, "tinyllama_1_1b"),
              "moe_hier": ("lags_hier", 0.0, "off", False,
                           "granite_moe_3b_a800m"),
              "moe_dp": ("lags_dp", 0.0, "off", False,
-                        "granite_moe_3b_a800m")}
+                        "granite_moe_3b_a800m"),
+             "moe_span": ("lags_hier", 0.0, "off", False,
+                          "granite_moe_3b_a800m")}
+# the global batch's rows where a case takes fewer than B: at 4 rows
+# each pod's 2 make ONE MoE token group across its two ranks (the
+# reference's pods·data = 4 groups do not divide them)
+ROWS = {"moe_span": 4}
 # wave == off, bitwise: name -> (mode, selection backend)
 WAVE_PARITY = {"hier2_xla": ("lags_hier2", "xla"),
                "hier2_kernel": ("lags_hier2", "kernel"),
@@ -89,6 +96,7 @@ for name, (mode, mc, pipeline, fixed, arch) in REF_MODES.items():
                         pipeline=pipeline, wave_target_bytes=WAVE_BYTES,
                         **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode, pipeline=pipeline,
                              momentum_correction=mc)
     flat, treedef = jax.tree.flatten(state["params"])
@@ -98,7 +106,9 @@ for name, (mode, mc, pipeline, fixed, arch) in REF_MODES.items():
     with compat.set_mesh(mesh):
         for t in range(STEPS):
             b = 0 if fixed else t
-            batch = {"tokens": inp["tokens"][b], "labels": inp["labels"][b]}
+            rows = ROWS.get(name, B)
+            batch = {"tokens": inp["tokens"][b][:rows],
+                     "labels": inp["labels"][b][:rows]}
             state, metrics = step(state, batch)
             out[f"{name}/loss{t}"] = float(metrics["loss"])
     for part in ("params", "ef", "pending"):
@@ -167,9 +177,9 @@ def train(name, steps, fixed, save_after, on=None, arch="tinyllama_1_1b",
     module = TT.from_jax_params(starts[arch], cfg, device="cpu")
     state, _ = sess.init_state(params=module.params)
     for t in range(steps):
-        b = 0 if fixed else t
-        batch = {"tokens": torch.from_numpy(inp["tokens"][b]),
-                 "labels": torch.from_numpy(inp["labels"][b])}
+        b, rows = 0 if fixed else t, ROWS.get(name, B)
+        batch = {"tokens": torch.from_numpy(inp["tokens"][b][:rows]),
+                 "labels": torch.from_numpy(inp["labels"][b][:rows])}
         state, metrics = sess.step_fn(state, batch)
         out[f"{name}/loss{t}"] = float(metrics["loss"])
         for p in tree.leaves(state["params"]):
@@ -210,7 +220,8 @@ print("OK rank", rank)
 
 def _constants() -> str:
     return "".join(f"{name} = {globals()[name]!r}\n" for name in (
-        "WORLD", "PODS", "STEPS", "SMALL", "ARCHS", "RUN_KW", "REF_MODES",
+        "WORLD", "PODS", "STEPS", "B", "ROWS", "SMALL", "ARCHS", "RUN_KW",
+        "REF_MODES",
         "WAVE_PARITY", "WAVE_BYTES", "EX_LEAVES", "EX_BLOCK"))
 
 
@@ -231,8 +242,10 @@ def _exchange_inputs(rng):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """One JAX subprocess and four gloo ranks, started together; returns
-    (inputs, JAX results, per-rank port results)."""
+    """One JAX subprocess and four gloo ranks, started together
+    (``test_torch_spawn.Spawned``); results by index, each read when a
+    test first needs it: (inputs, JAX results, per-rank port
+    results)."""
     import dataclasses
     from repro.configs import base
     tmp = tmp_path_factory.mktemp("hier")
@@ -249,34 +262,29 @@ def runs(tmp_path_factory):
                **_exchange_inputs(rng))
     np.savez(tmp / "in.npz", **inp)
 
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _constants() + textwrap.dedent(JAX_SCRIPT),
-         str(tmp / "in.npz"), str(tmp / "jax.npz")], env=env,
-        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)]
-    torch_env = dict(env, OMP_NUM_THREADS="1")
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level, each
+    # step compiled once, on one thread (``test_torch_spawn``)
+    sp.start("jax", COMPILE_ONCE + _constants() + textwrap.dedent(JAX_SCRIPT),
+             [tmp / "in.npz", tmp / "jax.npz"],
+             XLA_FLAGS="--xla_force_host_platform_device_count=4")
     for r in range(WORLD):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", _constants() + textwrap.dedent(RANK_SCRIPT),
-             str(r), str(tmp / "store"), str(tmp / "in.npz"),
-             str(tmp / f"rank{r}.npz")], env=torch_env,
-            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+        sp.start(f"rank{r}", _constants() + textwrap.dedent(RANK_SCRIPT),
+                 [r, tmp / "store", tmp / "in.npz", tmp / f"rank{r}.npz"],
+                 OMP_NUM_THREADS="1")
+
+    def jax_results():
+        sp.wait("jax")
+        return load(tmp / "jax.npz")
+
+    def rank_results():
+        sp.wait(*(f"rank{r}" for r in range(WORLD)))
+        return [load(tmp / f"rank{r}.npz") for r in range(WORLD)]
     try:
-        outs = [p.communicate(timeout=400) for p in procs]
+        yield Lazy(lambda: inp, jax_results, rank_results)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    jres = dict(np.load(tmp / "jax.npz"))
-    ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
-    return inp, jres, ranks
+        sp.close()
 
 
 def _bits(x) -> np.ndarray:
@@ -285,7 +293,7 @@ def _bits(x) -> np.ndarray:
 
 @pytest.mark.parametrize("backend", ["xla", "kernel"])
 def test_hier2_distributed_matches_sim_bitwise(runs, backend):
-    inp, _, ranks = runs
+    inp, ranks = runs[0], runs[2]
     like = {k: torch.zeros(s) for k, s in EX_LEAVES.items()}
     ex = TR.build_exchange(TR.ExchangeSpec(
         mode="lags_hier2", params_like=like, ratio=20.0, ratio_inner=5.0,
@@ -367,7 +375,7 @@ def _bitwise_equal(res: dict, prefix_a: str, prefix_b: str,
 def test_wave_equals_off_bitwise_on_the_pod_mesh(runs, name):
     """Losses, parameters and every tier's residuals of 2 steps: ``wave``
     == ``off`` bit for bit on every rank, with several waves."""
-    _, _, ranks = runs
+    ranks = runs[2]
     mode = WAVE_PARITY[name][0]
     for r, res in enumerate(ranks):
         assert res[f"parity/{name}/wave/n_waves"] > 1
@@ -377,7 +385,7 @@ def test_wave_equals_off_bitwise_on_the_pod_mesh(runs, name):
 
 
 def test_async1_reproduces_the_exact_sync_prefix(runs):
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         a = [res[f"async1/loss{t}"] for t in range(STEPS + 1)]
         off = [res[f"async1_off/loss{t}"] for t in range(STEPS)]
@@ -389,7 +397,7 @@ def test_async1_reproduces_the_exact_sync_prefix(runs):
 
 
 def test_lags_dp_on_the_pod_mesh_equals_the_flat_mesh(runs):
-    _, _, ranks = runs
+    ranks = runs[2]
     for r, res in enumerate(ranks):
         assert res["dp_pod/n_workers"] == res["dp_flat/n_workers"] == WORLD
         assert _bitwise_equal(res, "dp_pod/", "dp_flat/",

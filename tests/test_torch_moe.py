@@ -198,28 +198,40 @@ def test_moe_forward_grouped_matches_reference(groups):
 
 @pytest.mark.parametrize("rows,pods,data,want", [
     (8, 2, 2, 2), (16, 2, 2, 2), (8, 1, 4, 1), (6, 2, 1, 1), (4, 1, 1, 1),
-    (4, 2, 2, None), (12, 2, 2, None)])
-def test_pod_auto_token_groups_follow_the_reference(rows, pods, data, want):
+    (4, 2, 2, 0), (12, 2, 2, 0)])
+def test_pod_auto_token_groups_follow_the_reference(rows, pods, data, want,
+                                                    monkeypatch):
     """``lags_hier``'s grouping: each rank's rows dispatched in
     ``pod_auto_moe_groups`` groups, concatenated over a pod's ranks, give
     the reference's dispatch of the pod's slice in pods·data groups (its
-    vmap over pods, its auto 'pod' and 'data' axes), output and mean aux;
-    a group that would span ranks raises naming item 7."""
+    vmap over pods, its auto 'pod' and 'data' axes), output and mean aux.
+    A group that spans ranks (``POD_SPAN``, 0) goes as a ``TokenSpan``:
+    the pod's rows gathered (here the gather hands each rank the pod's
+    slice), one dispatch, each rank its own rows and the group's aux;
+    beside a 'model' axis it raises naming item 7e's third part."""
     from repro_torch.launch import train as TTR
-    if want is None:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TTR.pod_auto_moe_groups(rows, pods, data)
-        return
     assert TTR.pod_auto_moe_groups(rows, pods, data) == want
+    if want == TTR.POD_SPAN:
+        with pytest.raises(NotImplementedError, match="item 7e's third"):
+            TTR.pod_auto_moe_groups(rows, pods, data, model=2)
     p, x = _layer(), _x(shape=(rows, 4, D))
     per_pod, per_rank = rows // pods, rows // (pods * data)
     for pod in range(pods):
         xs = x[pod * per_pod:(pod + 1) * per_pod]
         jo, ja = JM.moe_forward_grouped(_jax(p), jnp.asarray(xs), top_k=2,
                                         groups=pods * data)
-        outs, auxs = zip(*(TM.moe_forward_grouped(
+        if want == TTR.POD_SPAN:
+            seen = []
+            monkeypatch.setattr(TM.TP, "gather_rows", lambda x, group, n: (
+                seen.append((group, n)) or torch.from_numpy(xs)))
+        outs, auxs = zip(*(TM.moe_forward_auto(
             _torch(p), torch.from_numpy(xs[r * per_rank:(r + 1) * per_rank]),
-            top_k=2, groups=want) for r in range(data)))
+            top_k=2, groups=TM.TokenSpan("pod", data, r)
+            if want == TTR.POD_SPAN else want) for r in range(data)))
+        if want == TTR.POD_SPAN:
+            assert seen == [("pod", data)] * data
+            for a in auxs:
+                _close(a, ja, f"pod {pod} aux")
         _close(torch.cat(outs), jo, f"pod {pod} output")
         _close(torch.stack(auxs).mean(), ja, f"pod {pod} aux")
 

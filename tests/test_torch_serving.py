@@ -275,10 +275,15 @@ def test_short_shapes_unchanged():
 
 
 def test_model_axis_raises_naming_item_7():
+    """On a 'model' axis of 2 the steps refuse what tensor-parallel
+    serving does not cover yet (a recurrent family: item 7f's second
+    part); the dense and MoE decoders are served there
+    (``tests/test_torch_tp_serving.py``)."""
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  size=lambda i: (1, 2)[i])
     shape = TB.InputShape("s", 8, 1, "decode")
-    cfg = _tiny()
+    cfg = TB.get_smoke_config("xlstm_1_3b")
+    assert TSV.tensor_parallel(_tiny(), mesh)
     for make in (TSV.make_prefill_step, TSV.make_serve_step):
         with pytest.raises(NotImplementedError, match="item 7"):
             make(cfg, mesh, shape)

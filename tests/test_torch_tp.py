@@ -38,12 +38,11 @@ Contracts:
 import dataclasses
 import functools
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -107,6 +106,7 @@ for name, (mode, mc, pipeline, _) in MODES.items():
                         pipeline=pipeline, wave_target_bytes=WAVE_BYTES,
                         **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode, pipeline=pipeline,
                              momentum_correction=mc)
     flat, treedef = jax.tree.flatten(state["params"])
@@ -277,9 +277,9 @@ for case, kw in REFUSED.items():
     try:
         if case == "moe_family":
             # what stays refused of the MoE family: lags_hier's token
-            # groups across ranks (4 rows on 2 pods x 2)
+            # groups across ranks (4 rows on 2 pods x 2) beside 'model'
             from repro_torch.launch import train as TR
-            TR.pod_auto_moe_groups(4, 2, 2)
+            TR.pod_auto_moe_groups(4, 2, 2, model=2)
         else:
             api.Session(cfg, api.RunConfig(**RUN_KW, **kw),
                         mesh=mesh).train_step()
@@ -311,8 +311,10 @@ def _constants() -> str:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """One JAX subprocess and four gloo ranks, started together; returns
-    (inputs, JAX results, per-rank port results)."""
+    """One JAX subprocess and four gloo ranks, started together
+    (``test_torch_spawn.Spawned``); results by index, each read when a
+    test first needs it: (inputs, JAX results, per-rank port
+    results)."""
     from repro.configs import base
     tmp = tmp_path_factory.mktemp("tp")
     cfg = dataclasses.replace(base.get_smoke_config("tinyllama_1_1b"),
@@ -332,34 +334,31 @@ def runs(tmp_path_factory):
                 np.float32)
     np.savez(tmp / "in.npz", **inp)
 
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _constants() + textwrap.dedent(JAX_SCRIPT),
-         str(tmp / "in.npz"), str(tmp / "jax.npz")], env=env,
-        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)]
-    torch_env = dict(env, OMP_NUM_THREADS="1")
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level, each
+    # step compiled once, on one thread (``test_torch_spawn``)
+    sp.start("jax", COMPILE_ONCE + _constants() + textwrap.dedent(JAX_SCRIPT),
+             [tmp / "in.npz", tmp / "jax.npz"],
+             XLA_FLAGS="--xla_backend_optimization_level=0 "
+                       "--xla_cpu_multi_thread_eigen=false "
+                       f"--xla_force_host_platform_device_count={WORLD}")
     for r in range(WORLD):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", _constants() + textwrap.dedent(RANK_SCRIPT),
-             str(r), str(tmp / "store"), str(tmp / "in.npz"),
-             str(tmp / f"rank{r}.npz")], env=torch_env,
-            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+        sp.start(f"rank{r}", _constants() + textwrap.dedent(RANK_SCRIPT),
+                 [r, tmp / "store", tmp / "in.npz", tmp / f"rank{r}.npz"],
+                 OMP_NUM_THREADS="1")
+
+    def jax_results():
+        sp.wait("jax")
+        return load(tmp / "jax.npz")
+
+    def rank_results():
+        sp.wait(*(f"rank{r}" for r in range(WORLD)))
+        return [load(tmp / f"rank{r}.npz") for r in range(WORLD)]
     try:
-        outs = [p.communicate(timeout=400) for p in procs]
+        yield Lazy(lambda: inp, jax_results, rank_results)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    jres = dict(np.load(tmp / "jax.npz"))
-    ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
-    return inp, jres, ranks
+        sp.close()
 
 
 def _bits(x) -> np.ndarray:
@@ -564,7 +563,7 @@ def test_wave_equals_off_bitwise_on_data_by_model(runs, name):
     """2 steps: ``wave`` (the gradients brought to their parameters'
     layout inside the hooks, several waves) == ``off`` bit for bit in
     losses, parameters and residuals on every rank."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         assert res[f"parity/{name}/wave/n_waves"] > 1
         n = _bitwise_equal(res, f"parity/{name}/off/",
@@ -577,7 +576,7 @@ def test_kernel_backend_equals_xla_bitwise(runs):
     """``lags_dp`` with ``selection_backend="kernel"`` (the plain version
     of ``ef_select_pack`` on the CPU, on each rank's chunk rows) leaves
     the xla backend's losses, parameters and residuals, bit for bit."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         n = _bitwise_equal(res, "lags_dp_xla/", "lags_dp_kernel/")
         assert n == STEPS + 12 * 3
@@ -592,7 +591,7 @@ def test_local_rows_equal_the_full_leaf_exchange_bitwise(runs, use_kernel):
     boundaries, chunks whose blocks straddle a neighbour's (and one
     narrower than a block), and a leaf that is not sharded."""
     from repro_torch.core import lags as TL
-    inp, _, ranks = runs
+    inp, ranks = runs[0], runs[2]
     ex = TL.BlockLAGSExchange(
         ks={k: v[2] for k, v in EX_LEAVES.items()}, block_size=EX_BLOCK,
         use_kernel=bool(use_kernel),
@@ -623,7 +622,7 @@ def test_distribute_gather_and_checkpoint_hold_the_full_tensors(runs):
     """``gather(distribute(params))`` is the tree itself, bit for bit, and
     ``Session.run``'s checkpoint on the model axis holds the gathered
     full tensors in the reference's format."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         assert bool(res["roundtrip"]) and bool(res["ckpt_full"])
 
@@ -636,7 +635,7 @@ def test_what_the_slice_does_not_cover_raises_naming_item_7(runs, case):
     re-planning controller, ``profile_model`` and a stream publisher
     raise ``NotImplementedError`` on a mesh with a 'model' axis, naming
     their part of item 7; nothing falls back to a gathered leaf."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         msg = str(res[f"refused/{case}"])
         assert "item 7" in msg and "tensor-parallel" in msg, msg
@@ -649,7 +648,7 @@ def test_the_modes_and_the_pod_mesh_of_the_second_part_build(runs, case):
     single pod), ``lags_hier2`` and ``slgs`` on ('data', 'model'), and
     ``lags_dp`` on ('pod', 'data', 'model') = 2 × 1 × 2, each with the
     reference's worker count."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         assert int(res[f"admitted/{case}"]) == ADMITTED[case][1]
 
@@ -658,7 +657,7 @@ def test_the_modes_and_the_pod_mesh_of_the_second_part_build(runs, case):
 def test_a_mesh_without_a_model_axis_creates_no_dtensor(runs):
     """``make_mesh()`` without ``model`` is the data-only layout: no
     specs, plain parameters and residuals after a step."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for res in ranks:
         assert bool(res["no_dtensor"])
 
@@ -669,7 +668,7 @@ def test_data_axes_of_a_pod_mesh_with_a_model_axis_are_one_model_index(
     """On ("pod", "data", "model") = 2 × 1 × 2, the exchange's worker
     axes over 'pod' and 'data' are the group of the ranks of this rank's
     model index, pod-major."""
-    _, _, ranks = runs
+    ranks = runs[2]
     for r, res in enumerate(ranks):
         np.testing.assert_array_equal(res["pod_data_axes"],
                                       [r % MODEL, MODEL + r % MODEL])

@@ -17,12 +17,11 @@ parameters rtol 1e-4 atol 1e-5, the same on every rank; under
 reference's per-worker residual, rtol 1e-4 atol 1e-5.
 """
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -52,6 +51,7 @@ out = {}
 for name, (mode, _) in MODES.items():
     run = api.RunConfig(mode=mode, donate=False, **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode)
     flat, treedef = jax.tree.flatten(state["params"])
     state["params"] = jax.tree.unflatten(treedef, [
@@ -122,8 +122,9 @@ def _constants() -> str:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """One JAX subprocess a model and four gloo ranks, started together;
-    returns (JAX results, per-rank port results)."""
+    """One JAX subprocess a model and four gloo ranks, started together
+    (``test_torch_spawn.Spawned``); results by index, each read when a
+    test first needs it: (JAX results, per-rank port results)."""
     from repro.configs import base
     from repro.models import transformer as JT
     tmp = tmp_path_factory.mktemp("tp_archs")
@@ -140,35 +141,37 @@ def runs(tmp_path_factory):
                                                         toks[..., 1:])
     np.savez(tmp / "in.npz", **inp)
 
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}")
-    code = _constants() + textwrap.dedent(JAX_SCRIPT)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, arch, str(tmp / "in.npz"),
-         str(tmp / f"jax_{arch}.npz")], env=env, stdin=subprocess.DEVNULL,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for arch in ARCHS]
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level, each
+    # step compiled once, on one thread (``test_torch_spawn``)
+    code = COMPILE_ONCE + _constants() + textwrap.dedent(JAX_SCRIPT)
+    for arch in ARCHS:
+        sp.start(f"jax_{arch}", code,
+                 [arch, tmp / "in.npz", tmp / f"jax_{arch}.npz"],
+                 XLA_FLAGS="--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           f"--xla_force_host_platform_device_count={WORLD}")
     code = _constants() + textwrap.dedent(RANK_SCRIPT)
     for r in range(WORLD):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", code, str(r), str(tmp / "store"),
-             str(tmp / "in.npz"), str(tmp / f"rank{r}.npz")],
-            env=dict(env, OMP_NUM_THREADS="1"), stdin=subprocess.DEVNULL,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        sp.start(f"rank{r}", code,
+                 [r, tmp / "store", tmp / "in.npz", tmp / f"rank{r}.npz"],
+                 OMP_NUM_THREADS="1")
+
+    def jax_results():
+        jres = {}
+        for arch in ARCHS:
+            sp.wait(f"jax_{arch}")
+            jres.update(load(tmp / f"jax_{arch}.npz"))
+        return jres
+
+    def rank_results():
+        sp.wait(*(f"rank{r}" for r in range(WORLD)))
+        return [load(tmp / f"rank{r}.npz") for r in range(WORLD)]
     try:
-        outs = [p.communicate(timeout=600) for p in procs]
+        yield Lazy(jax_results, rank_results)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    jres = {}
-    for arch in ARCHS:
-        jres.update(np.load(tmp / f"jax_{arch}.npz"))
-    return jres, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+        sp.close()
 
 
 @pytest.mark.parametrize("name", list(MODES))

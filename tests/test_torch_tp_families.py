@@ -36,13 +36,12 @@ Contracts:
 """
 import dataclasses
 import os
-import subprocess
-import sys
 import textwrap
 import types
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -227,6 +226,7 @@ for name, (which, arch, mode, _) in CASES.items():
     mesh = M.make_host_mesh(data=data, model=model, pod=pod)
     run = api.RunConfig(mode=mode, donate=False, **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode)
     flat, treedef = jax.tree.flatten(state["params"])
     state["params"] = jax.tree.unflatten(treedef, [
@@ -403,58 +403,58 @@ def _inputs() -> dict:
 def runs(tmp_path_factory):
     """Every process, started together: the layer's JAX subprocess and
     its two gloo ranks; the train step's JAX subprocesses (``JAX_SPLIT``)
-    and its four gloo ranks.  Returns (layer JAX results, the layer's
-    ranks' results, step JAX results, the step's ranks' results)."""
+    and its four gloo ranks; the world of one (``test_torch_spawn.
+    Spawned``).  Results by index, each read when a test first needs it:
+    (layer JAX results, the layer's ranks' results, step JAX results, the
+    step's ranks' results, the world of one's)."""
     tmp = tmp_path_factory.mktemp("tp_families")
     np.savez(tmp / "in.npz", **_inputs())
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
     head = _constants()
-
-    def start(code, args, **extra):
-        return subprocess.Popen(
-            [sys.executable, "-c", head + textwrap.dedent(code)]
-            + [str(a) for a in args], env=dict(env, **extra),
-            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-
-    # the reference's CPU code at LLVM's lowest optimization level: a
-    # third less compile time, the same results within the tolerances
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level (a
+    # third less compile time, the same results within the tolerances),
+    # each step compiled once, on one thread (``test_torch_spawn``)
     host = ("--xla_backend_optimization_level=0 "
+            "--xla_cpu_multi_thread_eigen=false "
             "--xla_force_host_platform_device_count=")
-    procs = [start(LAYER_JAX, [tmp / "in.npz", tmp / "jax_layer.npz"],
-                   XLA_FLAGS=host + "2")]
+    sp.start("jax_layer", head + textwrap.dedent(LAYER_JAX),
+             [tmp / "in.npz", tmp / "jax_layer.npz"], XLA_FLAGS=host + "2")
     for i, archs in enumerate(JAX_SPLIT):
-        procs.append(start(STEP_JAX, [",".join(archs), tmp / "in.npz",
-                                      tmp / f"jax_step{i}.npz"],
-                           XLA_FLAGS=host + "4"))
+        sp.start(f"jax_step{i}", COMPILE_ONCE + head + textwrap.dedent(
+            STEP_JAX), [",".join(archs), tmp / "in.npz",
+                        tmp / f"jax_step{i}.npz"], XLA_FLAGS=host + "4")
     for r in range(2):
-        procs.append(start(LAYER_RANK, [r, tmp / "store2", tmp / "in.npz",
-                                        tmp / f"layer{r}.npz"],
-                           OMP_NUM_THREADS="1"))
-    procs.append(start(ONE_RANK, [tmp / "store1", tmp / "one.npz"],
-                       OMP_NUM_THREADS="1"))
+        sp.start(f"layer_rank{r}", head + textwrap.dedent(LAYER_RANK),
+                 [r, tmp / "store2", tmp / "in.npz", tmp / f"layer{r}.npz"],
+                 OMP_NUM_THREADS="1")
+    sp.start("one_rank", head + textwrap.dedent(ONE_RANK),
+             [tmp / "store1", tmp / "one.npz"], OMP_NUM_THREADS="1")
     for r in range(4):
-        procs.append(start(STEP_RANK, [r, tmp / "store4", tmp / "in.npz",
-                                       tmp / f"step{r}.npz"],
-                           OMP_NUM_THREADS="1"))
+        sp.start(f"step_rank{r}", head + textwrap.dedent(STEP_RANK),
+                 [r, tmp / "store4", tmp / "in.npz", tmp / f"step{r}.npz"],
+                 OMP_NUM_THREADS="1")
+
+    def one(name, out):
+        sp.wait(name)
+        return load(tmp / out)
+
+    def ranks(name, n, out):
+        sp.wait(*(f"{name}{r}" for r in range(n)))
+        return [load(tmp / f"{out}{r}.npz") for r in range(n)]
+
+    def step_jax():
+        res = {}
+        for i in range(len(JAX_SPLIT)):
+            res.update(one(f"jax_step{i}", f"jax_step{i}.npz"))
+        return res
     try:
-        outs = [p.communicate(timeout=600) for p in procs]
+        yield Lazy(lambda: one("jax_layer", "jax_layer.npz"),
+                   lambda: ranks("layer_rank", 2, "layer"), step_jax,
+                   lambda: ranks("step_rank", 4, "step"),
+                   lambda: one("one_rank", "one.npz"))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    step_jax = {}
-    for i in range(len(JAX_SPLIT)):
-        step_jax.update(np.load(tmp / f"jax_step{i}.npz"))
-    return (dict(np.load(tmp / "jax_layer.npz")),
-            [dict(np.load(tmp / f"layer{r}.npz")) for r in range(2)],
-            step_jax,
-            [dict(np.load(tmp / f"step{r}.npz")) for r in range(4)],
-            dict(np.load(tmp / "one.npz")))
+        sp.close()
 
 
 def _bits(x) -> np.ndarray:
@@ -682,10 +682,13 @@ def test_check_tensor_parallel_refuses_the_recurrent_families(arch):
 
 def test_moe_token_groups_across_ranks_stay_refused():
     """Under ``lags_hier`` on 2 pods × 2, a batch of 4 rows puts each
-    pod's 2 rows in one MoE token group across its ranks: the step
-    refuses it, naming item 7e's third part."""
+    pod's 2 rows in one MoE token group across its ranks: gathered on a
+    data-only mesh (``POD_SPAN``), refused beside a 'model' axis, naming
+    item 7e's third part."""
     from repro_torch.launch import train as LT
     assert LT.pod_auto_moe_groups(8, 2, 2) == 2
+    assert LT.pod_auto_moe_groups(8, 2, 2, model=2) == 2
+    assert LT.pod_auto_moe_groups(4, 2, 2) == LT.POD_SPAN
     with pytest.raises(NotImplementedError,
                        match="item 7e's third part.*tensor-parallel"):
-        LT.pod_auto_moe_groups(4, 2, 2)
+        LT.pod_auto_moe_groups(4, 2, 2, model=2)

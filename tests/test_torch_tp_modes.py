@@ -34,12 +34,11 @@ Contracts:
 """
 import dataclasses
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -95,6 +94,7 @@ for name, (on, mode, mc, steps, _) in CASES.items():
     run = api.RunConfig(mode=mode, momentum_correction=mc, donate=False,
                         **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode,
                              momentum_correction=mc)
     flat, treedef = jax.tree.flatten(state["params"])
@@ -127,7 +127,7 @@ import numpy as np, torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 from repro_torch import api, tree
-from repro_torch.configs import tinyllama_1_1b
+from repro_torch.configs import tinyllama_1_1b, xlstm_1_3b
 from repro_torch.launch import mesh as M, serve as SV, train as TR
 from repro_torch.models import transformer as TT
 from repro_torch.sharding import dtensor as D
@@ -219,8 +219,8 @@ def refusals(mesh):
     from repro_torch.autotune import profiler as PR
     calls = {
         # what stays refused of the MoE family: lags_hier's token groups
-        # across ranks (4 rows on 2 pods x 2)
-        "moe_family": lambda: TR.pod_auto_moe_groups(4, 2, 2),
+        # across ranks (4 rows on 2 pods x 2) beside a 'model' axis
+        "moe_family": lambda: TR.pod_auto_moe_groups(4, 2, 2, model=2),
         "health": lambda: api.Session(
             cfg, api.RunConfig(mode="lags_hier2", health_every=1, **RUN_KW),
             mesh=mesh).train_step(),
@@ -230,7 +230,8 @@ def refusals(mesh):
         "publisher": lambda: api.Session(
             cfg, api.RunConfig(mode="lags_dp"), mesh=mesh).run(
                 batch_at, 1, publisher=object()),
-        "serving": lambda: SV.check_mesh(mesh)}
+        # serving over 'model' past the dense and MoE decoders
+        "serving": lambda: SV.check_mesh(mesh, xlstm_1_3b.smoke_config())}
     for case in REFUSED:
         try:
             calls[case]()
@@ -302,8 +303,9 @@ def _constants(**extra) -> str:
 def runs(tmp_path_factory):
     """Three JAX subprocesses (one a mesh), four gloo ranks (data 2 ×
     model 2, then pod 2 × data 1 × model 2) and eight (pod 2 × data 2 ×
-    model 2), started together; returns (JAX results by mesh, the four
-    ranks' results, the eight ranks')."""
+    model 2), started together (``test_torch_spawn.Spawned``); results by
+    index, each read when a test first needs it: (JAX results by mesh,
+    the four ranks' results, the eight ranks')."""
     from repro.configs import base
     tmp = tmp_path_factory.mktemp("tp_modes")
     cfg = dataclasses.replace(base.get_smoke_config("tinyllama_1_1b"),
@@ -317,41 +319,52 @@ def runs(tmp_path_factory):
     inp.update(tokens=toks[..., :-1], labels=toks[..., 1:])
     np.savez(tmp / "in.npz", **inp)
 
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
-    procs = []
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level, each
+    # step compiled once, on one thread (``test_torch_spawn``)
+    code = COMPILE_ONCE + _constants() + textwrap.dedent(JAX_SCRIPT)
     for which, shape in MESHES.items():
-        n = int(np.prod(shape))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", _constants() + textwrap.dedent(JAX_SCRIPT),
-             which, str(tmp / "in.npz"), str(tmp / f"jax_{which}.npz")],
-            env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count="
-                     f"{n}"), stdin=subprocess.DEVNULL,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    torch_env = dict(env, OMP_NUM_THREADS="1")
+        sp.start(f"jax_{which}", code,
+                 [which, tmp / "in.npz", tmp / f"jax_{which}.npz"],
+                 XLA_FLAGS="--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           "--xla_force_host_platform_device_count="
+                           f"{int(np.prod(shape))}")
     spawns = {4: ("dm", "pdm"), 8: ("pdm8",)}
     for world, which in spawns.items():
         code = _constants(WHICH=which) + textwrap.dedent(RANK_SCRIPT)
         for r in range(world):
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", code, str(world), str(r),
-                 str(tmp / f"store{world}"), str(tmp / "in.npz"),
-                 str(tmp / f"rank{world}_{r}.npz")], env=torch_env,
-                stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
+            sp.start(f"rank{world}_{r}", code,
+                     [world, r, tmp / f"store{world}", tmp / "in.npz",
+                      tmp / f"rank{world}_{r}.npz"], OMP_NUM_THREADS="1")
+
+    def jax_results(which):
+        sp.wait(f"jax_{which}")
+        return load(tmp / f"jax_{which}.npz")
+
+    def rank_results(world):
+        names = [f"rank{world}_{r}" for r in range(world)]
+        sp.wait(*names)
+        return [load(tmp / f"{n}.npz") for n in names]
     try:
-        outs = [p.communicate(timeout=600) for p in procs]
+        yield Lazy(lambda: ByMesh(jax_results), lambda: rank_results(4),
+                   lambda: rank_results(8))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    jres = {w: dict(np.load(tmp / f"jax_{w}.npz")) for w in MESHES}
-    ranks = {world: [dict(np.load(tmp / f"rank{world}_{r}.npz"))
-                     for r in range(world)] for world in spawns}
-    return jres, ranks[4], ranks[8]
+        sp.close()
+
+
+class ByMesh(dict):
+    """The JAX results by mesh, each read (its subprocess waited on)
+    when first asked for."""
+
+    def __init__(self, read):
+        super().__init__()
+        self.read = read
+
+    def __missing__(self, which):
+        self[which] = self.read(which)
+        return self[which]
 
 
 def _bits(x) -> np.ndarray:

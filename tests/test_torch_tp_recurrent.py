@@ -35,12 +35,11 @@ Contracts:
 """
 import dataclasses
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
+from test_torch_spawn import COMPILE_ONCE, Lazy, Spawned, load
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -72,6 +71,11 @@ ARCHS = sorted({c[1] for c in CASES.values()})
 # wave == off, bit for bit
 WAVE_PARITY = ("dm/xlstm/lags_dp",)
 WAVE_BYTES = 2048
+# the train step's JAX subprocesses, started together: each Jamba case
+# alone (most of the compile time), the rest in one
+JAX_SPLIT = (("dm/xlstm/lags_dp", "dm/xlstm/dense", "dm/lstm/lags_dp",
+              "pdm/xlstm/lags_hier2"), ("dm/jamba/lags_dp",),
+             ("dm/jamba/lags_hier",))
 # the ranks that hold one chunk's replicas: case -> the axis over which
 # the chunk must be equal
 REPLICAS = {"dm/xlstm/lags_dp": "data", "dm/xlstm/dense": "data",
@@ -160,15 +164,18 @@ from repro import api, compat
 from repro.configs import base
 from repro.launch import mesh as M, train as TR
 
-inp, out_path = np.load(sys.argv[1]), sys.argv[2]
+names, inp, out_path = (sys.argv[1].split(","), np.load(sys.argv[2]),
+                        sys.argv[3])
 is_spec = lambda s: isinstance(s, jax.sharding.PartitionSpec)
 out = {}
-for name, (which, arch, mode, _) in CASES.items():
+for name in names:
+    which, arch, mode, _ = CASES[name]
     cfg = dataclasses.replace(base.get_smoke_config(arch), **F32)
     pod, data, model = MESHES[which]
     mesh = M.make_host_mesh(data=data, model=model, pod=pod)
     run = api.RunConfig(mode=mode, donate=False, **RUN_KW)
     step, _, meta = api.build_train_step(cfg, mesh, run)
+    step = compile_once(step)
     state, _ = TR.init_state(cfg, mesh, method=mode)
     flat, treedef = jax.tree.flatten(state["params"])
     state["params"] = jax.tree.unflatten(treedef, [
@@ -378,53 +385,60 @@ def _layer_reference(inp: dict) -> dict:
 def runs(tmp_path_factory):
     """Every process, started together: the layers' two gloo ranks, the
     train step's JAX subprocess and its four gloo ranks, and the world of
-    one; the layers' reference runs here meanwhile.  Returns (the
-    layers' reference results, the layers' ranks' results, step JAX
-    results, the step's ranks' results, the world of one's)."""
+    one (``test_torch_spawn.Spawned``: each waited on, within its
+    deadline, by the tests that read it); the train step's JAX work in
+    ``JAX_SPLIT``'s subprocesses.  Results by index, each
+    computed when first read: (the layers' reference results, here; the
+    layers' ranks' results, step JAX results, the step's ranks' results,
+    the world of one's)."""
     tmp = tmp_path_factory.mktemp("tp_recurrent")
     inp = _inputs()
     np.savez(tmp / "in.npz", **inp)
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
     head = _constants()
-
-    def start(code, args, **extra):
-        return subprocess.Popen(
-            [sys.executable, "-c", head + textwrap.dedent(code)]
-            + [str(a) for a in args], env=dict(env, **extra),
-            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-
-    # the reference's CPU code at LLVM's lowest optimization level: a
-    # third less compile time, the same results within the tolerances
-    procs = [start(STEP_JAX, [tmp / "in.npz", tmp / "jax_step.npz"],
-                   XLA_FLAGS="--xla_backend_optimization_level=0 "
-                             "--xla_force_host_platform_device_count=4")]
+    sp = Spawned(tmp, dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                           JAX_PLATFORMS="cpu"))
+    # the reference's CPU code at LLVM's lowest optimization level (a
+    # third less compile time, the same results within the tolerances),
+    # each step compiled once, on one thread
+    assert sorted(sum(JAX_SPLIT, ())) == sorted(CASES)
+    for i, names in enumerate(JAX_SPLIT):
+        sp.start(f"jax_step{i}", COMPILE_ONCE + head + textwrap.dedent(
+            STEP_JAX), [",".join(names), tmp / "in.npz",
+                        tmp / f"jax_step{i}.npz"],
+                 XLA_FLAGS="--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           "--xla_force_host_platform_device_count=4")
     for r in range(4):
-        procs.append(start(STEP_RANK, [r, tmp / "store4", tmp / "in.npz",
-                                       tmp / f"step{r}.npz"],
-                           OMP_NUM_THREADS="1"))
+        sp.start(f"step_rank{r}", head + textwrap.dedent(STEP_RANK),
+                 [r, tmp / "store4", tmp / "in.npz", tmp / f"step{r}.npz"],
+                 OMP_NUM_THREADS="1")
     for r in range(2):
-        procs.append(start(LAYER_RANK, [r, tmp / "store2", tmp / "in.npz",
-                                        tmp / f"layer{r}.npz"],
-                           OMP_NUM_THREADS="1"))
-    procs.append(start(ONE_RANK, [tmp / "store1", tmp / "one.npz"],
-                       OMP_NUM_THREADS="1"))
+        sp.start(f"layer_rank{r}", head + textwrap.dedent(LAYER_RANK),
+                 [r, tmp / "store2", tmp / "in.npz", tmp / f"layer{r}.npz"],
+                 OMP_NUM_THREADS="1")
+    sp.start("one_rank", head + textwrap.dedent(ONE_RANK),
+             [tmp / "store1", tmp / "one.npz"], OMP_NUM_THREADS="1")
+
+    def ranks(name, n, out):
+        sp.wait(*(f"{name}{r}" for r in range(n)))
+        return [load(tmp / f"{out}{r}.npz") for r in range(n)]
+
+    def one(name, out):
+        sp.wait(name)
+        return load(tmp / out)
+
+    def step_jax():
+        res = {}
+        for i in range(len(JAX_SPLIT)):
+            res.update(one(f"jax_step{i}", f"jax_step{i}.npz"))
+        return res
     try:
-        layer_ref = _layer_reference(inp)
-        outs = [p.communicate(timeout=600) for p in procs]
+        yield Lazy(lambda: _layer_reference(inp),
+                   lambda: ranks("layer_rank", 2, "layer"), step_jax,
+                   lambda: ranks("step_rank", 4, "step"),
+                   lambda: one("one_rank", "one.npz"))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
-    return (layer_ref,
-            [dict(np.load(tmp / f"layer{r}.npz")) for r in range(2)],
-            dict(np.load(tmp / "jax_step.npz")),
-            [dict(np.load(tmp / f"step{r}.npz")) for r in range(4)],
-            dict(np.load(tmp / "one.npz")))
+        sp.close()
 
 
 def _bits(x) -> np.ndarray:
