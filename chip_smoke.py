@@ -130,16 +130,30 @@
    Then serving at 1 × 1 (``tp_serving_phase``): TinyLlama-1.1B (bf16)
    served by ``ServeSession`` and ``launch/serve``'s steps on the
    ("data", "model") = 1 × 1 mesh against ``mesh=None``, every step's
-   logits and the tokens bit for bit.  ``--ranks 4`` runs, after the
+   logits and the tokens bit for bit, then Jamba-v0.1 at its training
+   cut and SeamlessM4T-Large-v2 whole (bf16) the same way
+   (``TP1_SERVE_FAMILIES``).  ``--ranks 4`` runs, after the
    tp phases, ``moe_span_phase`` (Granite-3.0-MoE-3B at
    ``MOE_SPAN_LAYERS`` layers under ``lags_hier`` on pod 2 × data 2 at
    a global batch of 4: each pod's rows ONE MoE token group gathered
    over its 'data' ranks; ``off`` with every launch held to its plain
    version, ``wave`` == ``off``, the replicas bitwise, its launches in
-   their own row, ``moe_span``) and ``tp_serving_phase`` at data 2 ×
+   their own row, ``moe_span``), ``tp_serving_phase`` at data 2 ×
    model 2 (the model in f32 against each card's own one-card serve:
    the same tokens, logits within ``TP_SERVE_RTOL``; tok/s and the
-   peak a card printed).
+   peak a card printed; then the other families the same way,
+   ``tp_serve_family_cuts``: xLSTM-1.3B at 12 of 48 layers, Jamba-v0.1
+   at 8 of 32 with dense FFNs, SeamlessM4T-Large-v2 whole with 256
+   frames, LLaVA-NeXT-Mistral-7B whole with 2880 patches),
+   ``fsdp_serving_phase`` (Jamba-v0.1 whole, 32 layers, 16 experts,
+   bf16, built chunk by chunk, served with FSDP over 'data' on data 2 ×
+   model 2: every logit and token bitwise its twin without FSDP, its
+   bytes at rest a card at most ``FSDP_REST_RATIO`` of the twin's) and
+   ``tp_stream_phase`` (full-width TinyLlama packets under
+   ``topk_block_kernel``, every ``block_topk`` launch held bitwise to
+   its plain version, applied by a ``ServeSession`` over 'model'
+   bitwise a one-card session's, a gap refused, a resync bitwise, its
+   launches in their own row, ``tp_stream``).
 6b. The observe plane and online re-planning, in the same NCCL group:
    ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
    steps each with the health quantities off and on (their step times),
@@ -3125,6 +3139,138 @@ TP_SERVE_GEN = 16
 TP_SERVE_REQUESTS = 2
 #: |logits - one card's| over max |one card's|, at 2 x 2 in f32
 TP_SERVE_RTOL = 1e-4
+def tp_serve_family_cuts() -> dict:
+    """The families ``tp_serving_phase`` adds at 2 x 2, in f32 at full
+    width: name -> (config, layers kept (None: all), frontend rows beside
+    each prompt (-1: the config's patches)).  xLSTM-1.3B at the xlstm
+    phase's cut (``XLSTM_LAYERS`` of 48), Jamba-v0.1 at the jamba
+    phase's training cut (``JAMBA_TRAIN_LAYERS`` of 32, dense FFNs: the
+    Mamba states on 'model'), SeamlessM4T-Large-v2 whole with
+    ``ENCDEC_FRAMES`` frames, LLaVA-NeXT-Mistral-7B whole with its 2880
+    patches."""
+    return {"xlstm": ("xlstm_1_3b", XLSTM_LAYERS, 0),
+            "jamba": ("jamba_v0_1_52b", JAMBA_TRAIN_LAYERS, 0),
+            "seamless": ("seamless_m4t_large_v2", None, ENCDEC_FRAMES),
+            "llava": ("llava_next_mistral_7b", None, -1)}
+
+
+#: the families the one-card run adds at 1 x 1, in the config's bf16,
+#: held bitwise against ``mesh=None``
+TP1_SERVE_FAMILIES = ("jamba", "seamless")
+
+
+def family_config(name: str, f32: bool):
+    """``tp_serve_family_cuts()[name]``'s config at its cut (the jamba
+    cut with dense FFNs), in f32 when ``f32``, and its frontend rows."""
+    from repro_torch.configs import base
+    arch, layers, rows = tp_serve_family_cuts()[name]
+    cfg = base.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if name == "jamba":
+        cfg = dataclasses.replace(cfg, n_experts=0, moe_top_k=0)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+    return cfg, (cfg.n_frontend_tokens if rows < 0 else rows)
+
+
+def serve_by_steps(dev, cfg, mesh, params, batch, gen: int,
+                   toks=None) -> dict:
+    """``launch/serve``'s prefill and ``gen`` decode steps on ``mesh``
+    (None: one card): greedy, or fed ``toks`` (B, gen).  Returns the
+    logits of every step (f32), the greedy token of every step, decode
+    tok/s and the peak device memory (GiB) over the run."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import engine as E
+    b, n = batch["tokens"].shape
+    front = batch.get("frontend_embeds")
+    plen = n + (front.shape[1] if front is not None
+                and not cfg.n_encoder_layers else 0)
+    shape = InputShape("serve", n, b, "prefill")
+    pre, _ = SV.make_prefill_step(cfg, mesh, shape, chunk=64)
+    step, _ = SV.make_serve_step(cfg, mesh, dataclasses.replace(
+        shape, seq_len=plen + gen, kind="decode"), chunk=64)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    placed = SV.place_params(cfg, mesh, params)
+    logits, states = pre(placed, batch)
+    states = E.pad_states_for_decode(cfg, states, plen, plen + gen)
+    out, greedy = [logits.float()], []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(gen):
+        greedy.append(torch.argmax(logits, -1)[:, None])
+        tok = greedy[-1] if toks is None else toks[:, i:i + 1]
+        logits, states = step(placed, tok, states, plen + i)
+        out.append(logits.float())
+    torch.cuda.synchronize(dev)
+    tok_s = b * gen / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del states, placed
+    torch.cuda.empty_cache()
+    return {"logits": out, "tokens": torch.cat(greedy, 1), "tok_s": tok_s,
+            "peak_gib": peak}
+
+
+def serve_family(dev, name: str, mesh, world: int, rank: int) -> dict:
+    """One family of ``tp_serve_family_cuts()`` (seeded random weights, the
+    same on every card) served on ``mesh`` against one card: at 2 x 2 in
+    f32 the mesh fed one card's greedy tokens must pick them at every
+    step, its logits within ``TP_SERVE_RTOL``; at 1 x 1 in bf16 every
+    logit and token bit for bit.  Returns its row."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    tp = world > 1
+    cfg, rows = family_config(name, f32=tp)
+    params = T.init_params(cfg, seed=0, device=dev)
+    batch = synthetic.lm_input_batch(7, SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
+                                     device=dev)
+    batch = {"tokens": batch["tokens"]}
+    if rows:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        batch["frontend_embeds"] = torch.randn(
+            (SERVE_BATCH, rows, cfg.d_model), generator=gen, device=dev,
+            dtype=torch.float32).to(L.DTYPES[cfg.dtype])
+    label = "2x2" if tp else "1x1"
+    one = serve_by_steps(dev, cfg, None, params, batch, TP_SERVE_GEN)
+    got = serve_by_steps(dev, cfg, mesh, params, batch, TP_SERVE_GEN,
+                         toks=one["tokens"] if tp else None)
+    if not torch.equal(got["tokens"], one["tokens"]):
+        raise AssertionError(f"tp serving {label} {name}: greedy tokens "
+                             f"differ from one card's")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got["logits"], one["logits"])):
+        if tp:
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst = max(worst, rel)
+            if not rel <= TP_SERVE_RTOL:
+                raise AssertionError(f"tp serving {label} {name} step {i}: "
+                                     f"logits {rel:.3e} from one card's")
+        else:
+            assert_bitwise(f"tp serving 1x1 {name} step {i} logits", (a,),
+                           (b,))
+    how = (f"logits within {worst:.3e} of one card's (rtol "
+           f"{TP_SERVE_RTOL:g})" if tp else "logits == one device's, bitwise")
+    print(f"tp serving {label} {name} rank {rank}/{world} ({cfg.name}, "
+          f"{cfg.n_layers} layers, {cfg.dtype}, {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} tokens" + (f" + {rows} frontend rows" if rows
+                                       else "") +
+          f", {TP_SERVE_GEN} generated): tokens == one card's; {how}; decode "
+          f"{got['tok_s']:.1f} tok/s (one card {one['tok_s']:.1f}); peak "
+          f"{got['peak_gib']:.3f} GiB a card (one card "
+          f"{one['peak_gib']:.3f})", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "frontend_rows": rows, "tok_s": got["tok_s"],
+            "one_card_tok_s": one["tok_s"], "peak_gib": got["peak_gib"],
+            "one_card_peak_gib": one["peak_gib"], "logits_rel": worst}
 
 
 def tp_serving_phase(dev, world: int = 1, rank: int = 0) -> dict:
@@ -3227,7 +3373,225 @@ def tp_serving_phase(dev, world: int = 1, rank: int = 0) -> dict:
           flush=True)
     del params
     torch.cuda.empty_cache()
+    res["families"] = {
+        name: serve_family(dev, name, mesh, world, rank)
+        for name in (tp_serve_family_cuts() if tp else TP1_SERVE_FAMILIES)}
     return res
+
+
+#: FSDP serving (``fsdp_serving_phase``): Jamba-v0.1 whole, one request
+#: of ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens, this many
+#: generated
+FSDP_SERVE_GEN = 16
+#: FSDP's bytes at rest a card over its twin's, at most (half, plus 1 %
+#: for the small leaves the rules leave whole over 'data')
+FSDP_REST_RATIO = 0.5 * 1.01
+
+
+def fsdp_serving_phase(dev, world: int, rank: int) -> dict:
+    """Jamba-v0.1 whole (32 layers, 16 experts top 2, bf16, 51.57 B
+    parameters: 96.06 GiB, which no card holds) served on data 2 ×
+    model 2, where ``launch.serve.needs_fsdp_serving`` holds: the
+    parameters built chunk by chunk from a seed
+    (``launch.serve.init_placed_params``: each rank makes a leaf, or one
+    layer of a stacked leaf, keeps its ('data', 'model') chunk and frees
+    the rest), each layer gathered over 'data' just before it runs.  One
+    request, greedy.  Its twin is this phase with
+    ``launch.serve.DEVICE_BYTES`` raised past the model, so that the
+    same draws rest over 'model' alone (48 GiB a card): every logit and
+    token of the FSDP run must equal the twin's bit for bit, and its
+    bytes at rest a card be at most ``FSDP_REST_RATIO`` of the twin's.
+    Prints the bytes at rest, tok/s and the peak a card of both, and the
+    gathers' time a decode token.  Returns its row."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import jamba_v0_1_52b
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as SV
+    from repro_torch.sharding import dtensor as D
+    cfg = jamba_v0_1_52b.CONFIG
+    mesh = M.make_mesh(model=2, device=dev.type)
+    prompts = synthetic.lm_input_batch(7, SERVE_BATCH, SERVE_PROMPT,
+                                       cfg.vocab, device=dev)["tokens"]
+    runs: dict = {}
+    real = SV.DEVICE_BYTES
+    gather_s: list = []
+    for name, bytes_ in (("fsdp", real), ("twin", 2 ** 40)):
+        SV.DEVICE_BYTES = bytes_
+        try:
+            on = SV.fsdp(cfg, mesh)
+            if on != (name == "fsdp"):
+                raise AssertionError(f"fsdp serving {name}: fsdp(cfg, mesh) "
+                                     f"is {on}")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            params = SV.init_placed_params(cfg, mesh, seed=0, device=dev)
+            torch.cuda.synchronize(dev)
+            build_s = time.perf_counter() - t0
+            rest = sum(D.local(p).numel() * p.element_size()
+                       for p in tree.leaves(params))
+            fetch = SV.make_fetch(cfg, mesh)
+            # the gathers alone: each layer's leaves as a decode token
+            # fetches them, a pass over the whole stack; the second
+            # pass timed (the first takes the allocator's blocks)
+            for _ in range(2 if fetch is not None else 0):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for stack in params["decoder"]["blocks"]:
+                    for t in range(tree.leaves(stack)[0].shape[0]):
+                        fetch(tree.map(lambda w: w[t], stack))
+                fetch({k: v for k, v in params.items() if k != "decoder"})
+                torch.cuda.synchronize(dev)
+                gather_s[:] = [time.perf_counter() - t0]
+            run = serve_by_steps(dev, cfg, mesh, params,
+                                 {"tokens": prompts}, FSDP_SERVE_GEN)
+        finally:
+            SV.DEVICE_BYTES = real
+        del params
+        torch.cuda.empty_cache()
+        run.update(rest_gib=rest / 2 ** 30, build_s=build_s)
+        runs[name] = run
+        print(f"fsdp serving {name} rank {rank}/{world}: {cfg.name} whole "
+              f"({cfg.n_layers} layers, {cfg.n_experts} experts top "
+              f"{cfg.moe_top_k}, {cfg.param_dtype}, {cfg.param_count()} "
+              f"parameters), FSDP {on}: {rest / 2 ** 30:.3f} GiB at rest a "
+              f"card (built in {build_s:.1f} s); {SERVE_BATCH} x "
+              f"{SERVE_PROMPT} tokens, {FSDP_SERVE_GEN} generated: decode "
+              f"{run['tok_s']:.2f} tok/s, peak {run['peak_gib']:.3f} GiB a "
+              f"card", flush=True)
+    fs, twin = runs["fsdp"], runs["twin"]
+    for i, (a, b) in enumerate(zip(fs["logits"], twin["logits"])):
+        assert_bitwise(f"fsdp serving step {i} logits", (a,), (b,))
+    if not torch.equal(fs["tokens"], twin["tokens"]):
+        raise AssertionError("fsdp serving: tokens differ from the twin's")
+    ratio = fs["rest_gib"] / twin["rest_gib"]
+    if not ratio <= FSDP_REST_RATIO:
+        raise AssertionError(f"fsdp serving: {fs['rest_gib']:.3f} GiB at "
+                             f"rest a card, {ratio:.4f} of the twin's "
+                             f"(at most {FSDP_REST_RATIO})")
+    print(f"fsdp serving rank {rank}/{world}: logits and tokens == the "
+          f"twin's, bitwise; at rest {ratio:.4f} of the twin's; the gathers "
+          f"of one decode token (one pass over the stack) "
+          f"{gather_s[0]:.3f} s", flush=True)
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "gen": FSDP_SERVE_GEN,
+            "rest_ratio": ratio, "gather_pass_s": gather_s[0],
+            **{f"{k}_{name}": runs[name][k] for name in runs
+               for k in ("rest_gib", "tok_s", "peak_gib", "build_s")}}
+
+
+#: the stream over 'model' (``tp_stream_phase``): delta packets after
+#: the full one, and the budget of each
+TP_STREAM_DELTAS = 2
+TP_STREAM_BUDGET = 1 << 24
+
+
+def tp_stream_phase(dev, world: int, rank: int) -> tuple[dict, dict, dict]:
+    """TinyLlama-1.1B at full width in f32 (seeded random weights, the
+    same on every rank; f32, as ``tp_serving_phase``'s 2 x 2 serve, so
+    that the one card's greedy tokens are a fair target for the ranks'
+    sums in another order): a ``StreamPublisher`` under
+    ``topk_block_kernel`` cuts a full packet, then ``TP_STREAM_DELTAS``
+    deltas of the weights moved by seeded noise (every ``block_topk``
+    launch held to its plain version, ``held_to_plain``); a
+    ``ServeSession`` on data 2 × model 2 and a one-card one apply each:
+    the same status, and the former's gathered parameters the latter's
+    bit for bit.  Then a dropped version (both refuse it: ``gap``), a
+    ``resync`` from ``save_full`` (rank 0 writes it to the git-ignored
+    ``.stream_scratch/``; deleted after): both restore the published
+    version, bit for bit; ``generate`` gives the one card's tokens.
+    Returns (the launches, its row, each kernel's largest error against
+    its plain version)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels, tree
+    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor as D
+    from repro_torch.stream import ServeSession, StreamPublisher
+    cfg = dataclasses.replace(tinyllama_1_1b.CONFIG, dtype="float32",
+                              param_dtype="float32")
+    mesh = M.make_mesh(model=2, device=dev.type)
+    params = T.init_params(cfg, seed=0, device=dev)
+    shape = InputShape("serve", SERVE_PROMPT, SERVE_BATCH, "decode")
+    subs = [ServeSession(cfg, shape, tree.map(lambda p: p.clone(), params),
+                         mesh=m) for m in (mesh, None)]
+    pub = StreamPublisher(params, every=1, compressor="topk_block_kernel",
+                          budget_bytes=TP_STREAM_BUDGET)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    errs: dict = {}
+    shapes: dict = {}
+    rows = []
+
+    def publish(step):
+        with torch.no_grad():
+            for p in tree.leaves(params):
+                p.add_((1e-3 * torch.randn(p.shape, generator=gen,
+                                           device=dev)).to(p.dtype))
+        with held_to_plain(errs, shapes):
+            return pub.publish(step, params)
+
+    def same() -> bool:
+        return all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(D.gather(subs[0].params)),
+            tree.leaves(subs[1].params)))
+
+    kernels.reset_launch_counts()
+    for step in range(1 + TP_STREAM_DELTAS):
+        pkt = publish(step)
+        status = [sub.apply_packet(pkt) for sub in subs]
+        if status != ["applied"] * 2 or not same():
+            raise AssertionError(f"tp stream packet {pkt.version} "
+                                 f"({pkt.kind}): {status}, parameters "
+                                 f"differ from the one card's")
+        rows.append({"version": pkt.version, "kind": pkt.kind,
+                     "nbytes": pkt.nbytes})
+        del pkt
+    launches = kernels.launch_counts()
+    if not launches["block_topk"]:
+        raise AssertionError("tp stream: no block_topk launch")
+    publish(1 + TP_STREAM_DELTAS)
+    pkt = publish(2 + TP_STREAM_DELTAS)
+    gap = [sub.apply_packet(pkt) for sub in subs]
+    if gap != ["gap"] * 2 or not subs[0].needs_resync:
+        raise AssertionError(f"tp stream: a dropped version gave {gap}")
+    del pkt
+    STREAM_SCRATCH.mkdir(exist_ok=True)
+    path = str(STREAM_SCRATCH / "tp_resync")
+    if rank == 0:
+        pub.save_full(path, step=9)
+    dist.barrier()
+    try:
+        versions = [sub.resync(path) for sub in subs]
+    finally:
+        dist.barrier()
+        if rank == 0:
+            for suffix in (".npz", ".json"):
+                Path(path + suffix).unlink(missing_ok=True)
+    if versions != [pub.version] * 2 or not same():
+        raise AssertionError(f"tp stream resync: versions {versions} "
+                             f"(published {pub.version}), or parameters "
+                             f"differ from the one card's")
+    prompts = synthetic.MarkovLM(vocab=cfg.vocab, seed=7).batch(
+        20_000, SERVE_BATCH, SERVE_PROMPT, device=dev)["tokens"]
+    toks = [sub.generate(prompts, TP_SERVE_GEN) for sub in subs]
+    if not torch.equal(*toks):
+        raise AssertionError("tp stream: tokens after the resync differ "
+                             "from the one card's")
+    print(f"tp stream rank {rank}/{world}: {cfg.name} f32, a full packet "
+          f"and {TP_STREAM_DELTAS} deltas (topk_block_kernel, "
+          f"{launches['block_topk']} block_topk launches == plain, bitwise) "
+          f"applied over data 2 x model 2 == one card's, bitwise; a gap "
+          f"refused; resync to version {pub.version} bitwise; generate == "
+          f"one card's tokens", flush=True)
+    del subs, params, pub
+    torch.cuda.empty_cache()
+    return launches, {"packets": rows, "resync_version": versions[0]}, errs
 
 
 DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
@@ -5202,6 +5566,7 @@ def ranks_main(world: int) -> int:
               "tp_families": "tp_families_launches",
               "tp_recurrent": "tp_recurrent_launches",
               "moe_span": "moe_span_launches",
+              "tp_stream": "tp_stream_launches",
               "paper_distributed": "paper_launches",
               "observe": "observe_launches"}
     rows = [json.loads((out_dir / f"chip_smoke_rank{r}.json").read_text())
@@ -5237,6 +5602,9 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
                                          recurrent=True)
         span_totals, span, _ = moe_span_phase(dev, args.ranks, args.rank)
         tp_serve = tp_serving_phase(dev, args.ranks, args.rank)
+        fsdp_serve = fsdp_serving_phase(dev, args.ranks, args.rank)
+        stream_totals, tp_stream, _ = tp_stream_phase(dev, args.ranks,
+                                                      args.rank)
         lstm_totals, lstm_results, _ = distributed(
             dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, world=args.ranks,
             rank=args.rank, plans={},
@@ -5252,7 +5620,8 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
          "tp_families_launches": fam_totals, "tp_families": tp_fam,
          "tp_recurrent_launches": rec_totals, "tp_recurrent": tp_rec,
          "moe_span_launches": span_totals, "moe_span": span,
-         "tp_serving": tp_serve,
+         "tp_serving": tp_serve, "fsdp_serving": fsdp_serve,
+         "tp_stream_launches": stream_totals, "tp_stream": tp_stream,
          "paper_launches": lstm_totals, "paper_distributed": lstm_results,
          "observe_launches": observe_totals, "observe": observe},
         indent=1))

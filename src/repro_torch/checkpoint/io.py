@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.sharding import dtensor as D
 
 #: the ``.npy`` header dtype of a bf16 leaf (``ml_dtypes.bfloat16``'s)
 BF16_DESCR = "<V2"
@@ -102,17 +103,20 @@ def host_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def _as_like(key: str, arr: np.ndarray, like):
-    """``arr`` in the type, dtype and device of ``like``."""
+    """``arr`` in the type, dtype and device of ``like``; a ``DTensor``
+    ``like`` takes this rank's chunk of ``arr``, laid out as it is."""
     if tuple(arr.shape) != tuple(np.shape(like)):
         raise ValueError(f"{key}: shape {arr.shape} != "
                          f"{tuple(np.shape(like))}")
     if isinstance(like, torch.Tensor):
-        if like.dtype == torch.bfloat16:
-            if arr.dtype.kind != "V" or arr.dtype.itemsize != 2:
-                raise ValueError(f"{key}: a bf16 leaf needs 2-byte records, "
-                                 f"got {arr.dtype}")
-            return host_tensor(arr).to(like.device)
-        return host_tensor(arr).to(device=like.device, dtype=like.dtype)
+        if like.dtype == torch.bfloat16 and (arr.dtype.kind != "V"
+                                             or arr.dtype.itemsize != 2):
+            raise ValueError(f"{key}: a bf16 leaf needs 2-byte records, "
+                             f"got {arr.dtype}")
+        local = D.local(like)
+        chunk = D.local_of(host_tensor(arr), like)
+        return D.like_local(chunk.to(device=local.device, dtype=local.dtype)
+                            .contiguous(), like)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     return type(like)(arr.item())
@@ -120,7 +124,8 @@ def _as_like(key: str, arr: np.ndarray, like):
 
 def restore(path: str, like):
     """Restore into the structure of ``like`` (shape checked; each leaf
-    takes ``like``'s dtype and device)."""
+    takes ``like``'s dtype and device; a ``DTensor`` leaf, laid out over a
+    mesh, is filled with this rank's chunk only)."""
     with np.load(_npz(path)) as npz:
         flat_like = _flatten_with_paths(like)
         missing = set(flat_like) - set(npz.files)

@@ -27,7 +27,10 @@ offset by its chunk's start), the ranks' (max, sum, output) combined by
 a log-sum-exp over 'model' (:func:`_lse_combine`), and the output handed
 to ``wo``'s row-parallel product as a replicated ``DTensor``.  A cache
 whose capacity does not divide stays whole on every rank and needs no
-combine.
+combine.  An encoder-decoder's cross caches are laid out the same way
+(their slots are the encoder's output), and :func:`cross_decode`
+attends a rank's slots unmasked and combines them by the same
+log-sum-exp.
 """
 from __future__ import annotations
 
@@ -229,6 +232,38 @@ def cross_attention_forward(p, x, memory, *, n_kv_heads: int,
     (B, Sm, D): no rotary embedding, not causal."""
     k, v = cross_kv(p, memory)
     return cross_attend(p, x, k, v, n_kv_heads=n_kv_heads, chunk=chunk)
+
+
+def cross_decode(p, x, cache, *, n_kv_heads: int, chunk: int = 1024):
+    """One token's cross-attention over a decoder layer's cross cache
+    ``{"k", "v"}`` (B, Sm, KV, hd): :func:`cross_attend` on plain
+    caches.  A cache laid out over a tensor-parallel 'model' axis (a
+    ``DTensor``, split on its slots when ``Sm`` divides by the 'model'
+    size, else whole on every rank) runs on local tensors: the token's
+    queries gathered to every head, this rank's slots attended with no
+    mask, the ranks' (max, sum, output) combined by
+    :func:`_lse_combine`, and the output handed to ``wo``'s product as a
+    replicated ``DTensor``."""
+    if type(cache["k"]) is torch.Tensor:
+        return cross_attend(p, x, cache["k"], cache["v"],
+                            n_kv_heads=n_kv_heads, chunk=chunk)
+    from torch.distributed.tensor import DTensor, Replicate
+    q = _whole(torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype)))
+    b, s, h, hd = q.shape
+    q = q.reshape(b, s, n_kv_heads, h // n_kv_heads, hd)
+    mesh = cache["k"].device_mesh
+    kl, vl = cache["k"].to_local(), cache["v"].to_local()
+    n = kl.shape[1]
+    m, l, acc = _softmax_stats(
+        q, kl.to(q.dtype), vl.to(q.dtype),
+        q_positions=torch.zeros((s,), dtype=torch.long, device=q.device),
+        k_positions=torch.zeros((n,), dtype=torch.long, device=q.device),
+        causal=False, window=None, chunk=chunk, k_valid_len=None)
+    if cache["k"].placements[0].is_shard() and mesh.size() > 1:
+        l, acc = _lse_combine(m, l, acc, mesh.get_group())
+    o = DTensor.from_local(_normalized(acc, l, q.dtype), mesh,
+                           (Replicate(),), run_check=False)
+    return _out_proj(p, o, x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,9 @@ few blocks, whatever the depth.  Its products group differently from
 Tensor parallelism: ``DTensor`` leaves on the 'model' mesh, laid out by
 the reference's rules (``MAMBA_TP``: every leaf on its ``inner`` dim),
 run each rank's channels on local tensors between the boundaries of
-``models.tp`` (``mamba_forward``); the data-only path runs the same
-code with ``mesh=None``, where every boundary is the identity.
+``models.tp`` (``mamba_forward``, and ``mamba_decode`` on the rank's
+channels of the decode state); the data-only path runs the same code
+with ``mesh=None``, where every boundary is the identity.
 """
 from __future__ import annotations
 
@@ -278,16 +279,19 @@ def mamba_forward(p, x, *, return_state: bool = False):
     them, ``x_proj``'s partial (dt, B, C) summed over 'model' before
     softplus, ``out_proj``'s partial output summed in f32.  x is
     replicated over 'model' (its gradient comes back ``Partial``); the
-    output is a replicated ``DTensor``.  Training only."""
+    output is a replicated ``DTensor``, and the state this rank's
+    channels of it (``DTensor``s split on ``d_inner``, the rules'
+    ``mamba_state_axes``)."""
+    mesh = None
     if is_dtensor(p["in_proj"]):
-        if return_state:
-            raise NotImplementedError(TP.SERVING)
-        mesh, pl = TP.local_leaves(p, MAMBA_TP, "Mamba")
-        out, _, _ = _mamba(pl, TP.tokens_local(x, mesh, True), mesh)
-        return TP.replicated_sum(out, mesh)
-    out, conv, last = _mamba(p, x)
+        mesh, p = TP.local_leaves(p, MAMBA_TP, "Mamba")
+        x = TP.tokens_local(x, mesh, True)
+    out, conv, last = _mamba(p, x, mesh)
+    if mesh is not None:
+        out = TP.replicated_sum(out, mesh)
     if return_state:
-        return out, {"conv": conv.clone(), "ssm": last}
+        return out, {"conv": TP.state_shard(conv.clone(), mesh, 2),
+                     "ssm": TP.state_shard(last, mesh, 1)}
     return out
 
 
@@ -310,19 +314,29 @@ def mamba_state_axes() -> dict:
 def mamba_decode(p, x, state):
     """One token.  x: (B, 1, D); ``state``: ``{"conv", "ssm"}``.
     Returns (out (B, 1, D), the new state; ``conv`` in the state's
-    dtype)."""
+    dtype).  ``DTensor`` leaves on the 'model' mesh run this rank's
+    channels as :func:`mamba_forward` does, on its chunks of the state
+    (split on ``d_inner``); the new state is its chunks again."""
+    mesh = None
+    if is_dtensor(p["in_proj"]):
+        mesh, p = TP.local_leaves(p, MAMBA_TP, "Mamba")
+        x = TP.tokens_local(x, mesh, True)
+    conv0, h0 = TP.state_local(state["conv"]), TP.state_local(state["ssm"])
     xz = torch.einsum("bsd,di->bsi", x, p["in_proj"].to(x.dtype))
-    xi, z = torch.chunk(xz, 2, dim=-1)
-    xi, conv = _causal_conv(xi, p["conv_w"], p["conv_b"], state["conv"])
+    xi, z = TP.split_pair(xz, mesh)
+    xi, conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv0)
     xi = F.silu(xi)
-    dt, Bm, Cm = _ssm_params(p, xi)
+    dt, Bm, Cm = _ssm_params(p, xi, mesh)
     A = -torch.exp(p["A_log"].float())
     xf = xi.float()[:, 0]                                     # (B, I)
     dt0, Bm0, Cm0 = dt[:, 0], Bm[:, 0], Cm[:, 0]
     a = torch.exp(dt0[..., None] * A)                         # (B, I, N)
-    h = state["ssm"] * a + dt0[..., None] * Bm0[:, None, :] * xf[..., None]
+    h = h0 * a + dt0[..., None] * Bm0[:, None, :] * xf[..., None]
     y = torch.einsum("bin,bn->bi", h, Cm0) + xf * p["D"].float()
     y = y * F.silu(z.float()[:, 0])
     out = torch.einsum("bi,id->bd", y.to(x.dtype),
-                       p["out_proj"].to(x.dtype))
-    return out[:, None], {"conv": conv.to(state["conv"].dtype), "ssm": h}
+                       p["out_proj"].to(x.dtype))[:, None]
+    if mesh is not None:
+        out = TP.replicated_sum(out, mesh)
+    return out, {"conv": TP.state_shard(conv.to(conv0.dtype), mesh, 2),
+                 "ssm": TP.state_shard(h, mesh, 1)}

@@ -1,6 +1,7 @@
 """The explicit 'model'-axis boundaries of the layers that run on local
 tensors under tensor parallelism: the MoE layer (``models.moe``), the
-mLSTM and sLSTM (``models.xlstm``) and the Mamba block (``models.ssm``).
+mLSTM and sLSTM (``models.xlstm``) and the Mamba block (``models.ssm``),
+in training and in serving (prefill and one-token decode).
 
 DTensor has no sharding rule for these layers' dispatch, sorts, time
 loops or scans, so each takes its leaves' local chunks on the 1-D
@@ -25,6 +26,14 @@ forward's transpose:
     'model' as one leaf (``up_proj``, ``in_proj``): rank r holds
     columns r·2c … (r+1)·2c − 1, not a_r and b_r.
 
+Serving adds two that carry the recurrent layers' decode states, held
+by the heads or channels each rank computes:
+
+  * :func:`state_local`: this rank's chunk of a state leaf (a
+    ``DTensor`` over 'model', or a plain tensor as it is);
+  * :func:`state_shard`: a chunk a rank computed, as a ``DTensor``
+    split on ``dim`` over 'model' (plain at ``mesh=None``).
+
 One boundary crosses a data axis instead: :func:`gather_rows`, every
 rank's rows (dim 0) of a process group concatenated in rank order, the
 gradient reduce-scattered back.  The MoE layer gathers an MoE token
@@ -44,11 +53,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.dtensor import is_dtensor
-
-
-#: what the recurrent layers' local paths refuse: their decode states
-SERVING = ("serving over 'model' (ROADMAP.md queue 1 item 7f's second "
-           "part): the tensor-parallel recurrent layers train only")
 
 
 def _single(mesh) -> bool:
@@ -292,3 +296,19 @@ def scatter_sum(xs, dim: int, mesh) -> tuple:
     if _single(mesh):
         return tuple(xs)
     return _ScatterSum.apply(mesh.get_group(), mesh.size(), dim, *xs)
+
+
+def state_local(x):
+    """This rank's chunk of a decode state leaf ``x`` (its local tensor
+    when a ``DTensor``; a plain tensor as it is)."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def state_shard(x, mesh, dim: int):
+    """``x``, this rank's chunk of a decode state split on ``dim`` over
+    'model', as a ``DTensor`` on ``mesh`` (the 1-D 'model' mesh); ``x``
+    itself when ``mesh`` is None (the one-device path)."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Shard
+    return DTensor.from_local(x, mesh, (Shard(dim),), run_check=False)

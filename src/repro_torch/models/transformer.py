@@ -218,6 +218,21 @@ def logical_axes(cfg) -> dict:
     return _layout(cfg)[1]
 
 
+def init_leaf(spec, gen, dtype, device):
+    """One leaf from its ``(shape, init)``: a normal's draw from ``gen``
+    times the scale, a constant, or computed values (the same in every
+    layer of a stacked leaf)."""
+    shape, init = spec
+    if isinstance(init, L.Full):
+        return torch.full(shape, init.value, dtype=dtype, device=device)
+    if isinstance(init, L.Values):
+        return init.fn().to(device=device, dtype=dtype).expand(
+            shape).contiguous()
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(init).to(dtype)
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters from ``seed`` (a ``torch.Generator`` on the
     device: the same distributions as the reference's init, not the same
@@ -226,20 +241,8 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     dtype = L.DTYPES[cfg.param_dtype]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-
-    def make(spec):
-        shape, init = spec
-        if isinstance(init, L.Full):
-            return torch.full(shape, init.value, dtype=dtype, device=dev)
-        if isinstance(init, L.Values):
-            # the same values in every layer of a stacked leaf
-            return init.fn().to(device=dev, dtype=dtype).expand(
-                shape).contiguous()
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return w.mul_(init).to(dtype)
-
-    return _map_specs(make, _shapes(cfg))
+    return _map_specs(lambda spec: init_leaf(spec, gen, dtype, dev),
+                      _shapes(cfg))
 
 
 def abstract_params(cfg) -> dict:

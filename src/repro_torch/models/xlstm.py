@@ -31,7 +31,11 @@ Tensor parallelism: ``DTensor`` leaves on the 'model' mesh, laid out by
 the reference's rules (``MLSTM_TP``, ``SLSTM_TP``), run each rank's heads
 on local tensors between the boundaries of ``models.tp`` (DTensor has
 no rule for ``log_sigmoid_backward`` nor for the sLSTM's written-out
-scan).  The data-only path runs the same code with ``mesh=None``, where
+scan), in training and in serving: a decode state is held by the heads
+its rank computes, where the reference's rules split it on
+``head_dim`` (xLSTM-1.3B's 4 heads do not divide the reference's
+'model' of 16); a card holds the same bytes either way, and the heads
+must divide by the 'model' size.  The data-only path runs the same code with ``mesh=None``, where
 every boundary is the identity.
 """
 from __future__ import annotations
@@ -201,18 +205,32 @@ def mlstm_forward(p, x, *, n_heads: int, state=None,
     projections' partial sums reduce-scattered to its heads, the norm's
     mean square over the whole row, ``down_proj``'s partial output
     summed in f32.  x is replicated over 'model' (its gradient comes
-    back ``Partial``); the output is a replicated ``DTensor``."""
+    back ``Partial``); the output is a replicated ``DTensor``.  The
+    state (``state=``, and the one returned) is this rank's heads of it:
+    ``DTensor``s split on the heads dim (``mlstm_state_axes(by_heads=
+    True)``)."""
+    mesh = None
     if is_dtensor(p["wq"]):
-        if state is not None or return_state:
-            raise NotImplementedError(TP.SERVING)
-        mesh, pl = TP.local_leaves(p, MLSTM_TP, "mLSTM")
-        out, _ = _mlstm(pl, TP.tokens_local(x, mesh, True), None, chunk,
-                        mesh)
-        return TP.replicated_sum(out, mesh)
-    out, new_state = _mlstm(p, x, state, chunk)
+        mesh, p = TP.local_leaves(p, MLSTM_TP, "mLSTM")
+        _check_heads(n_heads, mesh, "mLSTM")
+        x = TP.tokens_local(x, mesh, True)
+        if state is not None:
+            state = tuple(TP.state_local(v) for v in state)
+    out, new_state = _mlstm(p, x, state, chunk, mesh)
+    if mesh is not None:
+        out = TP.replicated_sum(out, mesh)
     if return_state:
-        return out, new_state
+        return out, tuple(TP.state_shard(v, mesh, 1) for v in new_state)
     return out
+
+
+def _check_heads(n_heads: int, mesh, what: str) -> None:
+    """Raise unless the heads split evenly over the 'model' ranks: the
+    local paths, and the decode states they carry, hold a rank's heads."""
+    if n_heads % mesh.size():
+        raise ValueError(f"{what}: {n_heads} heads do not split over "
+                         f"{mesh.size()} 'model' ranks; its tensor-parallel "
+                         f"path holds each rank's heads")
 
 
 def init_mlstm_state(batch: int, d_model: int, n_heads: int, *,
@@ -228,10 +246,15 @@ def init_mlstm_state(batch: int, d_model: int, n_heads: int, *,
                         device=device))
 
 
-def mlstm_state_axes():
-    return (("cache_batch", None, "head_dim", None),
-            ("cache_batch", None, "head_dim"),
-            ("cache_batch", None))
+def mlstm_state_axes(by_heads: bool = False):
+    """The state's logical axes: the reference's (``head_dim`` over
+    'model'), or ``by_heads`` the tensor-parallel serving layout, the
+    heads over 'model' (the heads the local path computes:
+    ``launch.serve.place_states``)."""
+    h, d = ("heads", None) if by_heads else (None, "head_dim")
+    return (("cache_batch", h, d, None),
+            ("cache_batch", h, d),
+            ("cache_batch", h))
 
 
 def slstm_specs(d_model: int, n_heads: int) -> tuple[dict, dict]:
@@ -404,16 +427,20 @@ def slstm_forward(p, x, *, n_heads: int, state=None,
     ``up_proj``'s output gathered for this rank's chunks of u and z,
     ``down_proj``'s partial output summed in f32.  x is replicated over
     'model' (its gradient comes back ``Partial``); the output is a
-    replicated ``DTensor``.  Training only."""
+    replicated ``DTensor``, the state this rank's heads of it
+    (``DTensor``s split on the heads dim)."""
+    mesh = None
     if is_dtensor(p["w_gates"]):
-        if state is not None or return_state:
-            raise NotImplementedError(TP.SERVING)
-        mesh, pl = TP.local_leaves(p, SLSTM_TP, "sLSTM")
-        out, _ = _slstm(pl, TP.tokens_local(x, mesh, True), None, mesh)
-        return TP.replicated_sum(out, mesh)
-    out, new_state = _slstm(p, x, state)
+        mesh, p = TP.local_leaves(p, SLSTM_TP, "sLSTM")
+        _check_heads(n_heads, mesh, "sLSTM")
+        x = TP.tokens_local(x, mesh, True)
+        if state is not None:
+            state = tuple(TP.state_local(v) for v in state)
+    out, new_state = _slstm(p, x, state, mesh)
+    if mesh is not None:
+        out = TP.replicated_sum(out, mesh)
     if return_state:
-        return out, new_state
+        return out, tuple(TP.state_shard(v, mesh, 1) for v in new_state)
     return out
 
 
@@ -425,6 +452,8 @@ def init_slstm_state(batch: int, d_model: int, n_heads: int, *,
     return (z, z.clone(), z.clone(), z.clone())
 
 
-def slstm_state_axes():
-    a = ("cache_batch", None, "head_dim")
+def slstm_state_axes(by_heads: bool = False):
+    """The state's logical axes (see :func:`mlstm_state_axes`)."""
+    a = ("cache_batch", "heads", None) if by_heads else \
+        ("cache_batch", None, "head_dim")
     return (a, a, a, a)

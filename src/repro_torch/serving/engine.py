@@ -21,6 +21,17 @@ PLACE (the reference's decode step donates them) and returns the same
 tree.  Everything runs under ``torch.no_grad``.  An MoE feed-forward
 serves drop-free (capacity for every token in flight), in prefill and
 in decode alike.
+
+Under tensor parallelism (``launch.serve``: the parameters ``DTensor``s
+over 'model') prefill hands back the attention caches, self and cross,
+whole (every head, every slot) as plain tensors, and the recurrent
+states as this rank's chunks (``DTensor``s split on Mamba's ``d_inner``
+or the xLSTM's heads; :func:`states_axes` ``by_heads``);
+:func:`pad_states_for_decode` pads the self caches alone, and decode
+runs each layer on the states ``launch.serve.place_states`` lays out
+(cross-attention: ``attention.cross_decode``).  ``fetch`` (FSDP
+serving) maps each layer's parameters to those it runs on just before
+the layer.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as X
+from repro_torch.sharding import dtensor as D
 
 
 def _attn_capacity(spec: T.BlockSpec, capacity: int) -> int:
@@ -90,7 +102,9 @@ def init_states(cfg, batch: int, capacity: int, dtype: torch.dtype, *,
                      for i in range(n_periods * per, len(specs))]}
 
 
-def layer_state_axes(cfg, spec: T.BlockSpec):
+def layer_state_axes(cfg, spec: T.BlockSpec, by_heads: bool = False):
+    """One layer's state axes (``by_heads``: the xLSTM states by their
+    heads, the tensor-parallel serving layout; ``xlstm.mlstm_state_axes``)."""
     if spec.kind == "attn":
         ax = {"self": A.cache_axes()}
         if spec.cross_attn:
@@ -99,22 +113,23 @@ def layer_state_axes(cfg, spec: T.BlockSpec):
     if spec.kind == "mamba":
         return S.mamba_state_axes()
     if spec.kind == "mlstm":
-        return X.mlstm_state_axes()
+        return X.mlstm_state_axes(by_heads)
     if spec.kind == "slstm":
-        return X.slstm_state_axes()
+        return X.slstm_state_axes(by_heads)
     raise ValueError(spec.kind)
 
 
-def states_axes(cfg):
-    """Logical-axis tree mirroring :func:`init_states`' structure."""
+def states_axes(cfg, by_heads: bool = False):
+    """Logical-axis tree mirroring :func:`init_states`' structure
+    (``by_heads``: see :func:`layer_state_axes`)."""
     specs, per, n_periods = _layout(cfg)
 
     def stacked(j):
         return T._map_axes(lambda a: ("layers",) + a,
-                           layer_state_axes(cfg, specs[j]))
+                           layer_state_axes(cfg, specs[j], by_heads))
 
     return {"blocks": [stacked(j) for j in range(per)],
-            "tail": [layer_state_axes(cfg, specs[i])
+            "tail": [layer_state_axes(cfg, specs[i], by_heads)
                      for i in range(n_periods * per, len(specs))]}
 
 
@@ -148,8 +163,9 @@ def pad_states_for_decode(cfg, states, prompt_len: int, capacity: int):
     self-attention caches sized to the prompt (ring-truncated to the
     window for windowed layers) become capacity-sized caches with each
     token at its decode slot; xLSTM and Mamba states and cross caches
-    pass through unchanged.  A VLM's ``prompt_len`` counts its patches
-    too."""
+    pass through unchanged (under tensor parallelism the recurrent
+    states as this rank's ``DTensor`` chunks, the cross caches whole).
+    A VLM's ``prompt_len`` counts its patches too."""
     specs, per, n_periods = _layout(cfg)
 
     def fix(spec: T.BlockSpec, st):
@@ -201,20 +217,20 @@ def _decode_block(bp, spec: T.BlockSpec, x, state, pos: int, cfg,
             chunk=chunk)
         if spec.cross_attn:
             x = x + h
-            h = A.cross_attend(bp["cross"],
+            h = A.cross_decode(bp["cross"],
                                L.apply_norm(cfg.norm, x, bp["ln_cross"]),
-                               state["cross"]["k"], state["cross"]["v"],
-                               n_kv_heads=cfg.n_kv_heads, chunk=chunk)
+                               state["cross"], n_kv_heads=cfg.n_kv_heads,
+                               chunk=chunk)
     elif spec.kind in ("mlstm", "slstm"):
         fwd = X.mlstm_forward if spec.kind == "mlstm" else X.slstm_forward
         h, new = fwd(bp[spec.kind], h, n_heads=cfg.n_heads,
                      state=tuple(state), return_state=True)
         for dst, src in zip(state, new):
-            dst.copy_(src)
+            D.local(dst).copy_(D.local(src))
     elif spec.kind == "mamba":
         h, new = S.mamba_decode(bp["mamba"], h, state)
         for k, src in new.items():
-            state[k].copy_(src)
+            D.local(state[k]).copy_(D.local(src))
     else:
         raise ValueError(spec.kind)
     return _ffn(bp, spec, x + h, cfg)
@@ -224,25 +240,41 @@ def _slices(stacks, t: int):
     return tree.map(lambda w: w[t], stacks)
 
 
+def _top(params, fetch):
+    """The parameters outside the decoder's stack (embedding, norms,
+    ``lm_head``, an encoder), through ``fetch``."""
+    return fetch({k: v for k, v in params.items() if k != "decoder"})
+
+
+def _same(p):
+    return p
+
+
 @torch.no_grad()
-def serve_step(params, cfg, token, states, pos, *, chunk: int = 2048):
+def serve_step(params, cfg, token, states, pos, *, chunk: int = 2048,
+               fetch=None):
     """One-token decode.  token: (B, 1) integer; ``pos``: the absolute
     position being generated (an int or a 0-d tensor).  Returns (logits
-    (B, V) f32, ``states`` updated in place)."""
+    (B, V) f32, ``states`` updated in place).  ``fetch`` (FSDP serving:
+    ``launch.serve``) maps each layer's parameters, and those outside the
+    stack, to the tensors the layer runs on, just before it runs; the
+    result is dropped after it."""
+    fetch = fetch or _same
     pos = int(pos)
-    x = L.embed(params["embed"], token, L.DTYPES[cfg.dtype])
+    top = _top(params, fetch)
+    x = L.embed(top["embed"], token, L.DTYPES[cfg.dtype])
     specs, per, n_periods = _layout(cfg)
     blocks = params["decoder"]["blocks"]
     for t in range(n_periods):
         for j in range(per):
-            x = _decode_block(_slices(blocks[j], t), specs[j], x,
+            x = _decode_block(fetch(_slices(blocks[j], t)), specs[j], x,
                               _slices(states["blocks"][j], t), pos, cfg,
                               chunk)
     for i, tp in enumerate(params["decoder"]["tail"]):
-        x = _decode_block(tp, specs[n_periods * per + i], x,
+        x = _decode_block(fetch(tp), specs[n_periods * per + i], x,
                           states["tail"][i], pos, cfg, chunk)
-    x = L.apply_norm(cfg.norm, x, params["final_norm"])
-    return T.logits_fn(params, cfg, x)[:, 0], states
+    x = L.apply_norm(cfg.norm, x, top["final_norm"])
+    return T.logits_fn(top, cfg, x)[:, 0], states
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +295,9 @@ def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int, memory):
             h = A.cross_attend(bp["cross"],
                                L.apply_norm(cfg.norm, x, bp["ln_cross"]),
                                k, v, n_kv_heads=cfg.n_kv_heads, chunk=chunk)
-            state["cross"] = {"k": k, "v": v}
+            # tensor-parallel: the whole caches (every head), as the
+            # self-attention caches are handed back
+            state["cross"] = {"k": _full(k), "v": _full(v)}
     elif spec.kind == "mlstm":
         h, state = X.mlstm_forward(bp["mlstm"], h, n_heads=cfg.n_heads,
                                    return_state=True, chunk=chunk)
@@ -277,23 +311,45 @@ def _prefill_block(bp, spec: T.BlockSpec, x, cfg, chunk: int, memory):
     return _ffn(bp, spec, x + h, cfg), state
 
 
+def _full(x):
+    """A ``DTensor``'s full tensor, a plain one as it is."""
+    return x.full_tensor() if D.is_dtensor(x) else x
+
+
+def _stack(xs):
+    """Per-period states stacked on a new leading dim; ``DTensor``s (a
+    rank's chunks of the recurrent states) stacked locally, their split
+    dim moved up by one."""
+    if not D.is_dtensor(xs[0]):
+        return torch.stack(xs)
+    from torch.distributed.tensor import DTensor, Shard
+    pl = tuple(Shard(p.dim + 1) if p.is_shard() else p
+               for p in xs[0].placements)
+    return DTensor.from_local(torch.stack([x.to_local() for x in xs]),
+                              xs[0].device_mesh, pl, run_check=False)
+
+
 @torch.no_grad()
-def prefill(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024):
+def prefill(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024,
+            fetch=None):
     """Run the prompt (B, L); return (last-position logits (B, V) f32,
     states).  ``frontend_embeds`` (B, N, D): an encoder-decoder's encoder
     input (its output fills the cross caches), or a VLM's patches ahead
-    of the prompt (whose states then hold N + L positions)."""
+    of the prompt (whose states then hold N + L positions).  ``fetch``:
+    as :func:`serve_step`'s (an encoder is fetched whole)."""
+    fetch = fetch or _same
     dtype = L.DTYPES[cfg.dtype]
-    x = L.embed(params["embed"], tokens, dtype)
+    top = _top(params, fetch)
+    x = L.embed(top["embed"], tokens, dtype)
     memory = None
     if cfg.n_encoder_layers:
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs its "
                              f"encoder input (frontend_embeds)")
-        mem, _ = T._run_stack(params["encoder"], T.encoder_specs(cfg),
+        mem, _ = T._run_stack(top["encoder"], T.encoder_specs(cfg),
                               frontend_embeds.to(dtype), None, cfg,
                               remat=False, chunk=chunk)
-        memory = L.apply_norm(cfg.norm, mem, params["enc_norm"])
+        memory = L.apply_norm(cfg.norm, mem, top["enc_norm"])
     elif frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
     specs, per, n_periods = _layout(cfg)
@@ -301,16 +357,16 @@ def prefill(params, cfg, tokens, *, frontend_embeds=None, chunk: int = 1024):
     per_t: list[list] = [[] for _ in range(per)]
     for t in range(n_periods):
         for j in range(per):
-            x, st = _prefill_block(_slices(blocks[j], t), specs[j], x, cfg,
-                                   chunk, memory)
+            x, st = _prefill_block(fetch(_slices(blocks[j], t)), specs[j], x,
+                                   cfg, chunk, memory)
             per_t[j].append(st)
-    stacked = [tree.map(lambda *xs: torch.stack(xs), *sts) for sts in per_t
+    stacked = [tree.map(lambda *xs: _stack(xs), *sts) for sts in per_t
                if sts]
     tail = []
     for i, tp in enumerate(params["decoder"]["tail"]):
-        x, st = _prefill_block(tp, specs[n_periods * per + i], x, cfg, chunk,
-                               memory)
+        x, st = _prefill_block(fetch(tp), specs[n_periods * per + i], x,
+                               cfg, chunk, memory)
         tail.append(st)
-    x = L.apply_norm(cfg.norm, x, params["final_norm"])
-    logits = T.logits_fn(params, cfg, x[:, -1:])[:, 0]
+    x = L.apply_norm(cfg.norm, x, top["final_norm"])
+    logits = T.logits_fn(top, cfg, x[:, -1:])[:, 0]
     return logits, {"blocks": stacked, "tail": tail}

@@ -113,6 +113,60 @@ def local(x):
     return x.to_local() if is_dtensor(x) else x
 
 
+def chunk_bounds(x) -> list:
+    """Per dim of the ``DTensor`` ``x`` (split evenly, as
+    :func:`distribute` lays leaves out), this rank's chunk as (offset,
+    length) in the full tensor."""
+    mesh = x.device_mesh
+    bounds = [[0, n] for n in x.shape]
+    for j, pl in enumerate(x.placements):
+        if pl.is_shard():
+            b = bounds[pl.dim]
+            b[1] //= mesh.size(j)
+            b[0] += mesh.get_local_rank(j) * b[1]
+    return [tuple(b) for b in bounds]
+
+
+def local_of(full, like):
+    """This rank's chunk of the full tensor ``full`` as the ``DTensor``
+    ``like`` lays it out (a view; plain ``like``: ``full`` itself)."""
+    if not is_dtensor(like):
+        return full
+    for d, (off, n) in enumerate(chunk_bounds(like)):
+        full = full.narrow(d, off, n)
+    return full
+
+
+def local_entries(vals, idx, like):
+    """Of the entries (``vals`` at flat indices ``idx``) into the full
+    tensor that the ``DTensor`` ``like`` lays out, those in this rank's
+    chunk, each at its flat index in the chunk (int64).  Plain ``like``:
+    all of them, as they are."""
+    if not is_dtensor(like):
+        return vals, idx
+    idx = idx.long()
+    coords, rest = [], idx
+    for n in reversed(like.shape):
+        coords.append(rest % n)
+        rest = rest // n
+    keep = torch.ones_like(idx, dtype=torch.bool)
+    flat = torch.zeros_like(idx)
+    for c, (off, n) in zip(reversed(coords), chunk_bounds(like)):
+        keep &= (c >= off) & (c < off + n)
+        flat = flat * n + (c - off)
+    return vals[keep], flat[keep]
+
+
+def like_local(x, like):
+    """``x`` (this rank's chunk) as a ``DTensor`` laid out as ``like``
+    (plain ``like``: ``x`` itself)."""
+    if not is_dtensor(like):
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, like.device_mesh, like.placements,
+                              run_check=False)
+
+
 def grad_to_local(g, p):
     """A parameter's gradient ``g`` in the parameter's own layout, as this
     rank's chunk.  DTensor's backward gives many of them as ``Partial``

@@ -45,6 +45,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import bucketing
 from repro_torch.core import compressors as C
+from repro_torch.sharding import dtensor as D
 
 #: int32 index bytes on the wire (the exchange payload's layout).
 INDEX_BYTES = 4
@@ -100,7 +101,13 @@ def _apply_tree(params, payload, donate: bool):
     """The one update rule both ends run: ``cast(f32(leaf) +
     scatter(values, idx))`` for a sparse entry, the raw values for a full
     one.  ``donate`` writes into the leaves in place; otherwise a new
-    tree (the untouched leaves shared with ``params``)."""
+    tree (the untouched leaves shared with ``params``).
+
+    A leaf laid out over a mesh (a ``DTensor``: a tensor-parallel
+    ``ServeSession``) takes the entries that fall in this rank's chunk,
+    at their index in it, and its chunk of a full entry's values: the
+    same rule on each element, so the chunks land bit for bit on the
+    one-device leaf's, and no rank builds a full leaf."""
     flat, treedef = tree.flatten(params)
     out = []
     for key, leaf in zip(tree.leaf_paths(params), flat):
@@ -108,20 +115,22 @@ def _apply_tree(params, payload, donate: bool):
         if entry is None:
             out.append(leaf)
             continue
-        vals = entry["values"].to(leaf.device)
+        local = D.local(leaf)
+        vals = entry["values"].to(local.device)
         if "idx" in entry:
-            dense = C.decompress(vals, entry["idx"].to(leaf.device),
-                                 leaf.numel())
-            new = (leaf.float().reshape(-1) + dense).to(leaf.dtype)
+            vals, idx = D.local_entries(vals, entry["idx"].to(local.device),
+                                        leaf)
+            dense = C.decompress(vals, idx, local.numel())
+            new = (local.float().reshape(-1) + dense).to(local.dtype)
         else:
-            new = vals
+            new = D.local_of(vals.reshape(leaf.shape), leaf)
         if donate:
-            leaf.copy_(new.reshape(leaf.shape))
+            local.copy_(new.reshape(local.shape))
             out.append(leaf)
         else:
-            out.append(torch.empty(leaf.shape, dtype=leaf.dtype,
-                                   device=leaf.device).copy_(
-                                       new.reshape(leaf.shape)))
+            out.append(D.like_local(torch.empty(
+                local.shape, dtype=local.dtype, device=local.device).copy_(
+                    new.reshape(local.shape)), leaf))
     return tree.unflatten(treedef, out)
 
 

@@ -82,10 +82,13 @@ class ServeSession:
     """A served model following a :class:`StreamPublisher`'s packets.
     It runs on the device that holds ``params``; on a mesh with a
     'model' axis (``launch.serve.tensor_parallel``) every rank makes one
-    with the same full ``params``, which it lays out over 'model', and
-    ``generate`` returns the same tokens on every rank.  There it serves
-    only: packets and resyncs raise (ROADMAP.md queue 1 item 7f's second
-    part)."""
+    with the same full ``params``, which it lays out over 'model' (and
+    'data' under FSDP serving), and ``generate`` returns the same tokens
+    on every rank.  There every rank offers itself the same packets and
+    resyncs: each applies the entries of its chunks
+    (``stream.codec``) and restores its chunks (``checkpoint.io``), so
+    its parameters stay bitwise the one-device session's chunks, and a
+    guard scores the laid-out candidate."""
 
     def __init__(self, cfg, shape, params, *, mesh=None, chunk: int = 64,
                  guard=None, metrics=None, events=None):
@@ -132,12 +135,6 @@ class ServeSession:
         self._m_resyncs = reg.counter(
             "serve_resyncs_total", "Full-checkpoint resyncs.")
 
-    def _refuse_model_axis(self, what: str) -> None:
-        if self.tensor_parallel:
-            raise NotImplementedError(
-                f"{what} on parameters laid out over a 'model' axis "
-                f"(ROADMAP.md queue 1 item 7f's second part)")
-
     @property
     def device(self) -> torch.device:
         return tree.leaves(self.params)[0].device
@@ -150,7 +147,6 @@ class ServeSession:
         ``fingerprint`` / ``gap`` (refused, ``needs_resync`` set) |
         ``halted`` (guard veto: params unchanged, last-good pinned).
         """
-        self._refuse_model_axis("applying a packet")
         status = self._apply_packet(packet)
         self.log.append({"version": packet.version, "kind": packet.kind,
                          "nbytes": packet.nbytes, "status": status})
@@ -199,7 +195,6 @@ class ServeSession:
         guard halt: resuming a halted stream is an operator decision
         (``guard.resume()``)."""
         from repro_torch.checkpoint import io
-        self._refuse_model_axis("a resync")
         with trace.annotation(names.serve_name("resync", "full")):
             meta = io.load_metadata(path)["metadata"]
             if meta.get("fingerprint") not in (None, self.fingerprint):

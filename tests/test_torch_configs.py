@@ -132,28 +132,26 @@ def test_unported_families_raise_naming_item_13d(arch):
     assert bool(torch.isfinite(hidden).all())
 
 
-@pytest.mark.parametrize("what", ["train_step", "check_mesh",
+@pytest.mark.parametrize("what", ["train_step", "profile_model",
                                   "moe_forward_ep"])
 def test_tensor_parallel_tail_raises_naming_item_7(what):
     """What the port still refuses: on a ``model`` axis the train step's
     health quantities (here of xLSTM, whose training runs there since
-    7e's second part), the serving launch of the recurrent families
-    (the dense and MoE decoders are served there since 7f's first
-    part), and of the MoE family, whose expert-parallel layer runs since
-    7e's first part, the token groups that span a pod's ranks beside a
-    'model' axis (ROADMAP.md queue 1 item 7, its tensor-parallel
-    tail)."""
+    7e's second part), the autotune profiler (every family is served
+    there since 7f's second part), and of the MoE family, whose
+    expert-parallel layer runs since 7e's first part, the token groups
+    that span a pod's ranks beside a 'model' axis (ROADMAP.md queue 1
+    item 7, its tensor-parallel tail)."""
     import types
-    from repro_torch.launch import serve as SV
+    from repro_torch.autotune import profiler as PR
     from repro_torch.launch import train as LT
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  size=lambda i: 2)
     calls = {
         "train_step": lambda: LT.check_tensor_parallel(
             TB.get_smoke_config("xlstm_1_3b"), mesh, "lags_dp", health=True),
-        "check_mesh": lambda: SV.check_mesh(types.SimpleNamespace(
-            mesh_dim_names=("data", "model"), size=lambda i: (1, 2)[i]),
-            TB.get_smoke_config("xlstm_1_3b")),
+        "profile_model": lambda: PR.profile_model(
+            TB.get_smoke_config("xlstm_1_3b"), mesh),
         "moe_forward_ep": lambda: LT.pod_auto_moe_groups(4, 2, 2, model=2),
     }
     with pytest.raises(NotImplementedError, match="item 7.*tensor-parallel"):

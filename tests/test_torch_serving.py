@@ -275,18 +275,23 @@ def test_short_shapes_unchanged():
 
 
 def test_model_axis_raises_naming_item_7():
-    """On a 'model' axis of 2 the steps refuse what tensor-parallel
-    serving does not cover yet (a recurrent family: item 7f's second
-    part); the dense and MoE decoders are served there
-    (``tests/test_torch_tp_serving.py``)."""
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 size=lambda i: (1, 2)[i])
+    """Since item 7f's second part every family is served on a 'model'
+    axis (``tests/test_torch_tp_serving_families.py``): the steps' specs
+    build for xLSTM on a 'model' axis of 2, and raise only where its 4
+    heads do not split over the axis (8), as its layers hold a rank's
+    heads."""
     shape = TB.InputShape("s", 8, 1, "decode")
     cfg = TB.get_smoke_config("xlstm_1_3b")
-    assert TSV.tensor_parallel(_tiny(), mesh)
-    for make in (TSV.make_prefill_step, TSV.make_serve_step):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make(cfg, mesh, shape)
+    for model, ok in ((2, True), (8, False)):
+        mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                     size=lambda i, m=model: (1, m)[i])
+        assert TSV.tensor_parallel(cfg, mesh) and TSV.tensor_parallel(
+            _tiny(), mesh)
+        if ok:
+            TSV.state_specs(cfg, mesh, shape)
+        else:
+            with pytest.raises(ValueError, match="heads do not split"):
+                TSV.state_specs(cfg, mesh, shape)
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])

@@ -72,7 +72,7 @@ WAVE_PARITY = ("dm/slgs", "dm/lags_hier2", "dm/lags_hier")
 WAVE_BYTES = 2048
 N_LEAVES = 12
 REFUSED = ("moe_family", "health", "controller", "profile_model",
-           "publisher", "serving")
+           "publisher")
 
 JAX_SCRIPT = """
 import dataclasses, sys
@@ -127,8 +127,8 @@ import numpy as np, torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 from repro_torch import api, tree
-from repro_torch.configs import tinyllama_1_1b, xlstm_1_3b
-from repro_torch.launch import mesh as M, serve as SV, train as TR
+from repro_torch.configs import tinyllama_1_1b
+from repro_torch.launch import mesh as M, train as TR
 from repro_torch.models import transformer as TT
 from repro_torch.sharding import dtensor as D
 
@@ -229,9 +229,7 @@ def refusals(mesh):
         "profile_model": lambda: PR.profile_model(cfg, mesh),
         "publisher": lambda: api.Session(
             cfg, api.RunConfig(mode="lags_dp"), mesh=mesh).run(
-                batch_at, 1, publisher=object()),
-        # serving over 'model' past the dense and MoE decoders
-        "serving": lambda: SV.check_mesh(mesh, xlstm_1_3b.smoke_config())}
+                batch_at, 1, publisher=object())}
     for case in REFUSED:
         try:
             calls[case]()
@@ -576,9 +574,9 @@ def test_gradient_placements_before_grad_to_local(runs):
 @pytest.mark.parametrize("case", REFUSED)
 def test_what_the_slice_does_not_cover_raises_naming_item_7(runs, case):
     """On pod 2 × data 1 × model 2: the MoE token groups across ranks,
-    the health quantities, the re-planning controller, ``profile_model``,
-    a stream publisher and serving raise ``NotImplementedError`` naming
-    their part of ROADMAP.md queue 1 item 7."""
+    the health quantities, the re-planning controller, ``profile_model``
+    and a stream publisher raise ``NotImplementedError`` naming their
+    part of ROADMAP.md queue 1 item 7."""
     for res in runs[1]:
         msg = str(res[f"refused/{case}"])
         assert "item 7" in msg, msg

@@ -1,5 +1,5 @@
 """Serving the dense and MoE decoders over ("data", "model") against the
-reference (ROADMAP.md queue 1 item 7f's first part).
+reference, and a ``ServeSession``'s packets and resyncs there.
 
 Four gloo ranks at ``make_mesh(model=2)`` (data 2 × model 2) run
 ``launch/serve``'s prefill and decode steps and
@@ -23,11 +23,17 @@ Contracts:
   * the decode step with the log-sum-exp combine over 'model' skipped
     (``attention._lse_combine`` replaced: each rank normalises its own
     slots) leaves the tolerance;
-  * a ``ServeSession`` over 'model' refuses packets and resyncs;
+  * a ``ServeSession`` over 'model' follows a weight stream (a full
+    packet, then deltas of a ``StreamPublisher``): after each packet its
+    gathered parameters are a one-device session's, bit for bit; a
+    dropped version is refused (``gap``); ``resync`` from ``save_full``
+    restores them bit for bit; and ``generate`` then gives the one-device
+    session's tokens;
   * at 1 × 1 the logits and tokens are the one-device path's, bit for
     bit;
-  * ``check_mesh`` refuses the audio, VLM, SSM and hybrid families and
-    FSDP serving on a 'model' axis, naming item 7f's second part.
+  * ``check_mesh`` admits every family on a 'model' axis, and FSDP
+    serving (Nemotron-4-340B), and refuses an xLSTM whose heads do not
+    split over it.
 """
 import dataclasses
 import os
@@ -51,13 +57,15 @@ CASES = {"tinyllama": ("tinyllama_1_1b", 4, 20),
          "gemma3": ("gemma3_27b", 4, 20),
          "odd": ("tinyllama_1_1b", 3, 19)}
 ARCHS = sorted({a for a, _, _ in CASES.values()})
-# the case the planted fault runs on
+# the case the planted fault and the weight stream run on
 FAULT = "tinyllama"
+# the packets the stream offers before the dropped one: a full, deltas
+STREAM_PACKETS = 3
 # the world of one: the archs held bitwise at 1 x 1
 ONE_ARCHS = ("tinyllama_1_1b", "olmoe_1b_7b")
 
 RANK_SCRIPT = """
-import dataclasses, sys
+import dataclasses, os, sys
 import numpy as np, torch
 import torch.distributed as dist
 from repro_torch import tree
@@ -66,6 +74,7 @@ from repro_torch.launch import mesh as M, serve as SV
 from repro_torch.models import attention as A, transformer as TT
 from repro_torch.serving import engine as TE
 from repro_torch.sharding import dtensor as D
+from repro_torch.stream import StreamPublisher
 from repro_torch.stream import subscriber as SS
 
 rank, store, inp_path, out_path = (int(sys.argv[1]), sys.argv[2],
@@ -109,6 +118,48 @@ def serve(key, cfg, params, prompts):
     out[f"{key}/tokens"] = torch.cat(toks, 1).numpy()
 
 
+def same(sess, one):
+    # whether sess's gathered parameters are one's, bitwise
+    return all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(D.gather(sess.params)), tree.leaves(one.params)))
+
+
+def stream(cfg, params, prompts, sess, one):
+    # a weight stream offered to the session over 'model' and to a
+    # one-device one: a full packet, then sparse deltas of the weights
+    # moved by seeded noise; a dropped version; a resync
+    pub = StreamPublisher(params, every=1, budget_bytes=8192)
+    now = tree.map(lambda p: p.clone(), params)
+    gen = torch.Generator().manual_seed(3)
+
+    def publish(step):
+        for p in tree.leaves(now):
+            p.add_(1e-2 * torch.randn(p.shape, generator=gen))
+        return pub.publish(step, now)
+
+    for step in range(STREAM_PACKETS):
+        pkt = publish(step)
+        statuses = (sess.apply_packet(pkt), one.apply_packet(pkt))
+        out[f"stream/{step}/status"] = np.array(statuses)
+        out[f"stream/{step}/kind"] = np.array(pkt.kind)
+        out[f"stream/{step}/same"] = np.array(same(sess, one))
+    publish(STREAM_PACKETS)
+    pkt = publish(STREAM_PACKETS + 1)
+    out["stream/gap"] = np.array((sess.apply_packet(pkt),
+                                  one.apply_packet(pkt)))
+    out["stream/needs_resync"] = np.array(sess.needs_resync)
+    path = pub.save_full(os.path.join(os.path.dirname(out_path),
+                                      f"resync{rank}"), step=9)
+    out["stream/resync"] = np.array((sess.resync(path), one.resync(path),
+                                     pub.version))
+    out["stream/resync_same"] = np.array(same(sess, one))
+    out["stream/resync_full"] = np.array(all(torch.equal(
+        a, b) for a, b in zip(tree.leaves(one.params),
+                              tree.leaves(pub.published))))
+    out["stream/generate"] = sess.generate(prompts, GEN).numpy()
+    out["stream/generate_one"] = one.generate(prompts, GEN).numpy()
+
+
 for name, (arch, b, n) in CASES.items():
     cfg = dataclasses.replace(base.get_smoke_config(arch), **F32)
     params = params_of(arch, cfg)
@@ -118,13 +169,11 @@ for name, (arch, b, n) in CASES.items():
                            params, mesh=mesh, chunk=CHUNK)
     out[f"{name}/generate"] = sess.generate(prompts, GEN).numpy()
     if name == FAULT:
-        for what, call in (("packet", lambda: sess.apply_packet(None)),
-                           ("resync", lambda: sess.resync("no such path"))):
-            try:
-                call()
-                out[f"refused/{what}"] = np.array("no error")
-            except NotImplementedError as err:
-                out[f"refused/{what}"] = np.array(str(err))
+        # each session its own copy: they apply packets in place
+        stream(cfg, params, prompts, *(SS.ServeSession(
+            cfg, base.InputShape("serve", n, b, "decode"),
+            tree.map(lambda p: p.clone(), params), mesh=m, chunk=CHUNK)
+            for m in (mesh, None)))
         real = A._lse_combine
         A._lse_combine = lambda m, l, acc, group: (l, acc)
         try:
@@ -183,7 +232,8 @@ print("OK one rank")
 
 
 def _constants() -> str:
-    names = ("GEN", "CHUNK", "F32", "CASES", "FAULT", "ONE_ARCHS")
+    names = ("GEN", "CHUNK", "F32", "CASES", "FAULT", "STREAM_PACKETS",
+             "ONE_ARCHS")
     return "".join(f"{n} = {globals()[n]!r}\n" for n in names)
 
 
@@ -329,12 +379,32 @@ def test_skipping_the_log_sum_exp_combine_leaves_the_tolerance(runs):
 
 @pytest.mark.parametrize("what", ["packet", "resync"])
 def test_a_session_over_model_serves_only(runs, what):
-    """A ``ServeSession`` whose parameters are laid out over 'model'
-    refuses a weight-stream packet and a resync, naming item 7f's second
-    part."""
+    """Since item 7f's second part a ``ServeSession`` over 'model' does
+    not serve only: it follows the weight stream.  Its parameters laid
+    out over 'model' (``packet``): a full packet, then deltas, each applied with the
+    one-device session's status and leaving the gathered parameters its
+    bits; a dropped version refused as a ``gap`` by both, setting
+    ``needs_resync``.  (``resync``): ``resync`` from ``save_full``
+    restores the publisher's version and the one-device session's bits
+    (themselves the published parameters), and ``generate`` then gives
+    its tokens."""
     for res in runs[1]:
-        msg = str(res[f"refused/{what}"])
-        assert "item 7f's second part" in msg, msg
+        if what == "packet":
+            kinds = [str(res[f"stream/{i}/kind"])
+                     for i in range(STREAM_PACKETS)]
+            assert kinds == ["full"] + ["delta"] * (STREAM_PACKETS - 1)
+            for i in range(STREAM_PACKETS):
+                assert list(res[f"stream/{i}/status"]) == ["applied"] * 2
+                assert bool(res[f"stream/{i}/same"]), i
+            assert list(res["stream/gap"]) == ["gap", "gap"]
+            assert bool(res["stream/needs_resync"])
+        else:
+            version = STREAM_PACKETS + 2
+            assert list(res["stream/resync"]) == [version] * 3
+            assert bool(res["stream/resync_same"])
+            assert bool(res["stream/resync_full"])
+            np.testing.assert_array_equal(res["stream/generate"],
+                                          res["stream/generate_one"])
 
 
 @pytest.mark.parametrize("arch", ONE_ARCHS)
@@ -362,17 +432,23 @@ def _mesh(model: int):
                                   "llava_next_mistral_7b", "xlstm_1_3b",
                                   "jamba_v0_1_52b", "nemotron_4_340b"])
 def test_check_mesh_refuses_what_is_left_naming_7f_second_part(arch):
-    """On a 'model' axis of 2: the audio, VLM, SSM and hybrid families,
-    and Nemotron-4-340B (whose copy over 'model' needs FSDP serving),
-    raise naming item 7f's second part; on a 'model' axis of one they
-    pass (the one-device path)."""
+    """Since item 7f's second part nothing of these is left: on a
+    'model' axis of 2 the audio, VLM, SSM and hybrid families pass and
+    take the tensor-parallel layout, and Nemotron-4-340B (whose copy
+    over 'model' needs FSDP serving) takes it with FSDP.  What is left
+    to refuse: an xLSTM whose 4 heads do not split over a 'model' axis
+    of 8."""
     from repro_torch.configs import base
     from repro_torch.launch import serve as SV
     cfg = base.get_config(arch) if arch == "nemotron_4_340b" \
         else base.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 7f's second part"):
-        SV.check_mesh(_mesh(2), cfg)
+    SV.check_mesh(_mesh(2), cfg)
     SV.check_mesh(_mesh(1), cfg)
+    assert SV.tensor_parallel(cfg, _mesh(2))
+    assert SV.fsdp(cfg, _mesh(2)) == (arch == "nemotron_4_340b")
+    if arch == "xlstm_1_3b":
+        with pytest.raises(ValueError, match="heads do not split"):
+            SV.check_mesh(_mesh(8), cfg)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama_1_1b", "olmoe_1b_7b",
