@@ -137,7 +137,9 @@
    ``MOE_SPAN_LAYERS`` layers under ``lags_hier`` on pod 2 × data 2 at
    a global batch of 4: each pod's rows ONE MoE token group gathered
    over its 'data' ranks; ``off`` with every launch held to its plain
-   version, ``wave`` == ``off``, the replicas bitwise, its launches in
+   version, ``wave`` == ``off``, the parameters FSDP blocks over each
+   pod's 'data' ranks, each card's bytes at rest against the replicated
+   layout's, the blocks bitwise across the pods, its launches in
    their own row, ``moe_span``), ``tp_serving_phase`` at data 2 ×
    model 2 (the model in f32 against each card's own one-card serve:
    the same tokens, logits within ``TP_SERVE_RTOL``; tok/s and the
@@ -154,9 +156,22 @@
    its plain version, applied by a ``ServeSession`` over 'model'
    bitwise a one-card session's, a gap refused, a resync bitwise, its
    launches in their own row, ``tp_stream``).
+   Then the rest of the stack on 'model' (``tp_observe_phase``, item
+   7g) at 1 × 1: TinyLlama-1.1B (bf16) ``lags_dp`` + kernel, step s
+   with and without the health quantities, then ``Session.run`` with
+   ``health_every=1``, a controller (cadence trigger, a fake trace whose
+   wire degrades: it must swap) and a ``StreamPublisher`` under
+   ``topk_block_kernel`` whose every packet must be a one-card
+   publisher's of the gathered parameters, bit for bit; every
+   ``ef_select_pack`` and ``block_topk`` launch held to its plain
+   version; then ``profile_model`` on the mesh; its launches in their
+   own row, ``tp_observe``.  ``--ranks 4`` runs it last, at data 2 ×
+   model 2, the four ranks swapping at one step and the data replicas
+   bitwise equal.
 6b. The observe plane and online re-planning, in the same NCCL group:
-   ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: 3
-   steps each with the health quantities off and on (their step times),
+   ``Session(TinyLlama-1.1B, lags_dp + kernel, health_every=1)``: a
+   warm-up step each with the health quantities off and on, then 3 of
+   each in turn (their step times and medians),
    then ``Session.run`` of 12 steps with a ``HealthMonitor`` and a
    ``ReplanController`` (cadence 4, an anomaly detector, the health
    monitor) from a plan for the healthy wire, its telemetry a fake trace
@@ -1633,7 +1648,9 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     when it ends; its residuals go.  Configurations with
     ``health_every`` print the Eq. 20 δ of every leaf each step.
     Several ranks: after every step each rank's parameters must equal
-    rank 0's bit for bit.
+    rank 0's bit for bit (under ``lags_hier``, whose parameters are
+    FSDP blocks over each pod's 'data' ranks, the ranks of one block
+    across the pods).
     ``plans``: the schedules of the autotune phase; None (``--ranks``)
     runs that phase here, over the ranks (``ranks_plans``, writing its
     artifacts to ``out_dir``).  Returns (launch counts summed over the run, per-step rows, each
@@ -1644,6 +1661,7 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
     from repro_torch.data import synthetic
     from repro_torch.launch import mesh as M
     from repro_torch.pipeline import step as WS
+    from repro_torch.sharding import dtensor as D
 
     if batch is None:
         batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=3).batch(
@@ -1687,7 +1705,7 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                           and run.mode != "dense" and run.pipeline == "off")
                 shapes0: dict = {}
                 if det:
-                    p0 = ([x.detach().clone()
+                    p0 = ([D.local(x).detach().clone()
                            for x in tree.leaves(state["params"])]
                           if step0 == "simulation" else None)
                     torch.use_deterministic_algorithms(True)
@@ -1733,8 +1751,11 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                     print(f"distributed {shown} step {t}: Eq. 20 delta per "
                           f"leaf " + ", ".join(f"{k} {v:.4f}"
                                                for k, v in delta.items()))
+                fsdp = sess.meta["param_axes"] is not None
                 if world > 1:
-                    check_replicas(state["params"], f"{shown} step {t}")
+                    check_replicas(state["params"], f"{shown} step {t}",
+                                   group=mesh.get_group("pod") if fsdp
+                                   else None)
                 rows.append({"step": t, "loss": loss, "step_s": step_s,
                              "max_memory_allocated": mem,
                              "launches": step_counts, "wave_leads": leads,
@@ -1744,7 +1765,8 @@ def distributed(dev, cfg, seq: int, steps: int, world: int = 1,
                       f"step_s {step_s:.4f} max_memory_allocated "
                       f"{mem / 2**30:.3f} GiB launches {step_counts}"
                       + (" (deterministic algorithms)" if det else "")
-                      + (", parameters equal on every rank"
+                      + ((", parameters equal across the pods" if fsdp
+                          else ", parameters equal on every rank")
                          if world > 1 else ""))
                 if leads is not None:
                     print(f"distributed {shown}{who} step {t}: launch lead "
@@ -1792,7 +1814,9 @@ def held(label: str, state, twins: dict, shown: str) -> None:
     configuration: they must equal its twin's, bit for bit (``shown``:
     the label as printed)."""
     from repro_torch import tree
-    parts = tree.leaves(state["params"]) + tree.leaves(state["ef"])
+    from repro_torch.sharding import dtensor as D
+    parts = [D.local(x) for x in tree.leaves(state["params"])
+             + tree.leaves(state["ef"])]
     wave_twins = {v for k, v in TWINS.items() if k.endswith("/wave")}
     if label in wave_twins:
         twins.setdefault(label, {})["step0"] = [
@@ -1927,6 +1951,7 @@ def check_step0(sess, state, p0, batch) -> dict:
     from repro_torch import tree
     from repro_torch.api import registry as R
     from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor as D
     run, meta = sess.run_config, sess.meta
     ex, axes = meta["exchange"], meta["axes"]
     tiers = R.get_exchange(meta["mode"]).ef_tiers
@@ -1970,6 +1995,7 @@ def check_step0(sess, state, p0, batch) -> dict:
                 tree.leaf_paths(m_d), tree.leaves(m_d), tree.leaves(m_s),
                 p0, tree.leaves(state["params"])):
             assert_bitwise(f"step 0 {path} mean vs simulation", (md,), (ms,))
+            p_new = D.local(p_new)    # lags_hier's FSDP block: all of it
             assert_bitwise(f"step 0 {path} parameters vs p0 - mean",
                            (p_new,), ((p_start.float() - md).to(p_new.dtype),))
             nonzero += int((md != 0).sum())
@@ -2083,6 +2109,17 @@ def grad_placements(seen: list):
         yield
     finally:
         D.grad_to_local = real
+
+
+def replicated_bytes(state) -> int:
+    """What :func:`at_rest_bytes` would be with every leaf whole on the
+    card: the full parameters and an f32 leaf of each per-worker
+    state."""
+    from repro_torch import tree
+    params = tree.leaves(state["params"])
+    rest = tree.leaves(state["ef"]) + tree.leaves(state.get("extra", {}))
+    return sum(p.numel() * p.element_size() for p in params) + sum(
+        4 * params[i % len(params)].numel() for i in range(len(rest)))
 
 
 def at_rest_bytes(state) -> int:
@@ -3028,8 +3065,10 @@ def moe_span_phase(dev, world: int, rank: int) -> tuple[dict, dict, dict]:
     (seeded random weights), ``MOE_SPAN_STEPS`` steps ``off`` and
     ``wave`` under deterministic algorithms: every kernel launch of the
     ``off`` steps held to its plain version inside the step
-    (``held_to_plain``); after every step the parameters equal on every
-    rank; ``wave``'s losses equal ``off``'s every step and its
+    (``held_to_plain``); the parameters FSDP blocks over each pod's
+    'data' ranks, each card's bytes at rest below 0.55 of the replicated
+    layout's; after every step the blocks equal across the pods;
+    ``wave``'s losses equal ``off``'s every step and its
     parameters and residuals after the last, bit for bit.  The span's
     row gathers are counted (``models.tp.gather_rows``).  Returns (launch
     counts of both runs, results, each kernel's largest error against
@@ -3084,7 +3123,10 @@ def moe_span_phase(dev, world: int, rank: int) -> tuple[dict, dict, dict]:
                 mem = torch.cuda.max_memory_allocated() / 2 ** 30
                 if not math.isfinite(loss):
                     raise AssertionError(f"{label} step {t}: loss {loss}")
-                check_replicas(state["params"], f"{label} step {t}")
+                # each rank holds its pod's block of every leaf (FSDP
+                # over 'data'): the ranks of one block across the pods
+                check_replicas(state["params"], f"{label} step {t}",
+                               group=mesh.get_group("pod"))
                 if pipeline == "wave" and loss != kept["losses"][t]:
                     raise AssertionError(f"{label} step {t}: loss {loss} != "
                                          f"off's {kept['losses'][t]}")
@@ -3092,11 +3134,19 @@ def moe_span_phase(dev, world: int, rank: int) -> tuple[dict, dict, dict]:
                              "peak_gib": mem, "launches": counts})
                 print(f"{label} rank {rank}/{world} step {t}: loss "
                       f"{loss:.6f} step_s {step_s:.4f} peak {mem:.3f} GiB "
-                      f"launches {counts}, parameters equal on every rank"
-                      + (", loss == off's" if pipeline == "wave" else ""),
-                      flush=True)
+                      f"launches {counts}, parameters equal across the "
+                      f"pods" + (", loss == off's" if pipeline == "wave"
+                                 else ""), flush=True)
             if not gathers[0]:
                 raise AssertionError(f"{label}: no token group was gathered")
+            rest, whole = at_rest_bytes(state), replicated_bytes(state)
+            print(f"{label} rank {rank}: bytes at rest {rest / 2**30:.3f} "
+                  f"GiB a card, {rest / whole:.4f} of the replicated "
+                  f"layout's {whole / 2**30:.3f} (FSDP over 'data')",
+                  flush=True)
+            if not rest < 0.55 * whole:
+                raise AssertionError(f"{label}: {rest} bytes at rest, the "
+                                     f"replicated layout {whole}")
             parts = [host_copy(x) for x in tree.leaves(state["params"])
                      + tree.leaves(state["ef"])]
             if pipeline == "off":
@@ -3116,7 +3166,9 @@ def moe_span_phase(dev, world: int, rank: int) -> tuple[dict, dict, dict]:
                 print(f"{label} rank {rank}: losses, parameters and "
                       f"residuals == off's, bitwise ({len(parts)} leaves); "
                       f"{gathers[0]} row gathers", flush=True)
-            res[pipeline] = {"steps": rows, "gathers": gathers[0]}
+            res[pipeline] = {"steps": rows, "gathers": gathers[0],
+                             "at_rest_bytes": rest,
+                             "replicated_bytes": whole}
             del state, sess
             torch.cuda.empty_cache()
     finally:
@@ -3601,6 +3653,28 @@ DEGRADED = dict(name="degraded", alpha=50e-3, beta=1e-6)
 OBSERVE_SCRATCH = ROOT / ".observe_scratch"
 
 
+def alternate_steps(fns: dict, state, data_fn, rounds: int = 3):
+    """Step times of each step function of ``fns`` (label -> fn) on one
+    live state: one warm-up step of each first, then ``rounds`` rounds
+    in which each runs once, in turn, so no function takes the warm-up
+    or a drift of the card alone.  Returns (state, label -> the timed
+    steps' seconds, label -> their median)."""
+    import numpy as np
+    import torch
+    times = {label: [] for label in fns}
+    t = 0
+    for r in range(rounds + 1):
+        for label, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, data_fn(t))
+            float(m["loss"])
+            if r:
+                times[label].append(time.perf_counter() - t0)
+            t += 1
+    return state, times, {k: float(np.median(v)) for k, v in times.items()}
+
+
 def observe_phase(dev, cfg, seq: int, out_dir: Path, world: int = 1,
                   rank: int = 0) -> tuple[dict, dict]:
     """The observe plane and online re-planning at full width, over the
@@ -3661,26 +3735,19 @@ def observe_phase(dev, cfg, seq: int, out_dir: Path, world: int = 1,
             return data.batch(t, world, seq, device=dev)
 
         kernels.reset_launch_counts()
-        # step time with and without the health quantities (3 each, the
-        # first of each dropped), then the live step under a capture
+        # step time with and without the health quantities (a warm-up
+        # step of each, then 3 in turn), then the live step under a capture
         plain_fn = api.build_train_step(
             cfg, mesh, dataclasses.replace(run, health_every=0))[0]
-        times = {}
-        for label, fn in (("health_every=0", plain_fn),
-                          ("health_every=1", sess.step_fn)):
-            ts = []
-            for t in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = fn(state, data_fn(t))
-                float(m["loss"])
-                ts.append(time.perf_counter() - t0)
-            times[label] = ts
-            say(f"step s {label}: {[round(x, 4) for x in ts]}, health keys "
-                f"{sorted(k for k in m if k.startswith('health'))}")
-        del plain_fn, m
-        res["step_s"] = times
-        t_plain = float(np.median(times["health_every=0"][1:]))
+        state, times, med = alternate_steps(
+            {"health_every=0": plain_fn, "health_every=1": sess.step_fn},
+            state, data_fn)
+        for label, ts in times.items():
+            say(f"step s {label}: {[round(x, 4) for x in ts]} (in turn "
+                f"after a warm-up step each), median {med[label]:.4f}")
+        del plain_fn
+        res["step_s"], res["step_s_median"] = times, med
+        t_plain = med["health_every=0"]
         if world > 1:      # one plan and one fake trace on every rank
             t_plain = torch.tensor([t_plain], dtype=torch.float64,
                                    device=dev)
@@ -3992,6 +4059,244 @@ def observe_phase(dev, cfg, seq: int, out_dir: Path, world: int = 1,
         return counts, res
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+#: the tp_observe phase (item 7g): by world size, the Session.run steps,
+#: the controller's cadence and the controller step after which the fake
+#: trace's wire degrades; the publish cadence; the rounds of step times
+#: with and without the health quantities
+TP_OBSERVE_STEPS = {1: 4, 4: 8}
+TP_OBSERVE_CADENCE = {1: 2, 4: 4}
+TP_OBSERVE_SHIFT = {1: 1, 4: 2}
+TP_OBSERVE_EVERY = 2
+TP_OBSERVE_ROUNDS = 3
+
+
+def tp_observe_phase(dev, cfg, seq: int, world: int = 1,
+                     rank: int = 0) -> tuple[dict, dict, dict]:
+    """The rest of the stack on a 'model' axis (item 7g), over the NCCL
+    group of ``world`` ranks (inside ``process_group``): data 2 × model
+    2 on four cards, data 1 × model 1 on one.  TinyLlama-1.1B at full
+    width (bf16, seeded random weights), one ``seq``-token sequence a
+    data rank, ``lags_dp`` + kernel backend:
+
+    (a) a warm-up step each with ``health_every`` 0 and 1, then
+        ``TP_OBSERVE_ROUNDS`` rounds of one step each, in turn (the
+        median step s of each);
+    (b) ``Session.run`` for ``TP_OBSERVE_STEPS`` steps with the health
+        quantities, a controller (a cadence trigger of
+        ``TP_OBSERVE_CADENCE``, its telemetry from a fake trace whose
+        wire degrades after controller step ``TP_OBSERVE_SHIFT``, the
+        live plan the healthy wire's: it must swap, at the same step on
+        every rank) and a ``StreamPublisher`` every
+        ``TP_OBSERVE_EVERY`` steps at ``full_bytes // 8`` under
+        ``topk_block_kernel``, each packet bitwise the packet of a
+        one-card publisher fed ``dtensor.gather`` of the parameters (its
+        launches aside); every ``ef_select_pack`` and ``block_topk``
+        launch of (a) and (b) held to its plain version
+        (``held_to_plain``); after it the replicas over 'data' bitwise
+        equal; δ max per step, packet bytes / ``full_bytes``, peak and
+        bytes at rest a card printed;
+    (c) ``profile_model`` on the mesh: its dense and LAGS step times,
+        data workers and per-card FLOPs and bytes.
+
+    Returns (the launch counts of (a) and (b), results, each kernel's
+    largest error against its plain version)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, kernels, tree
+    from repro_torch.autotune import planner, profiler
+    from repro_torch.core import comm_model as cm
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.observe import trace as OT
+    from repro_torch.observe import triggers as OTG
+    from repro_torch.runtime import RuntimeConfig
+    from repro_torch.sharding import dtensor as D
+    from repro_torch.stream import StreamPublisher
+
+    who = f" rank {rank}/{world}" if world > 1 else ""
+
+    def say(msg: str) -> None:
+        print(f"tp_observe{who}: {msg}", flush=True)
+
+    model = 2 if world > 1 else 1
+    n_data = world // model
+    steps, cadence = TP_OBSERVE_STEPS[world], TP_OBSERVE_CADENCE[world]
+    mesh = M.make_mesh(model=model, device=dev.type)
+    run = api.RunConfig(mode="lags_dp", selection_backend="kernel", lr=0.01,
+                        health_every=1)
+    data = synthetic.MarkovLM(vocab=cfg.vocab, seed=3)
+
+    def data_fn(t):
+        return data.batch(t, n_data, seq, device=dev)
+
+    sess = api.Session(cfg, run, mesh=mesh)
+    state, _ = sess.init_state(seed=0)
+    torch.cuda.empty_cache()
+    res: dict = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+    errs, shapes, checks = {}, {}, {}
+    kernels.reset_launch_counts()
+
+    # (a) step s with and without the health quantities: a warm-up step
+    # of each, then TP_OBSERVE_ROUNDS in turn
+    plain_fn = api.build_train_step(
+        cfg, mesh, dataclasses.replace(run, health_every=0))[0]
+    with held_to_plain(errs, shapes):
+        state, times, med = alternate_steps(
+            {"health_every=0": plain_fn, "health_every=1": sess.step_fn},
+            state, data_fn, rounds=TP_OBSERVE_ROUNDS)
+    for label, ts in times.items():
+        say(f"step s {label}: {[round(x, 4) for x in ts]} (in turn after "
+            f"a warm-up step each), median {med[label]:.4f}")
+    del plain_fn
+    t_plain = torch.tensor([med["health_every=0"]],
+                           dtype=torch.float64, device=dev)
+    dist.broadcast(t_plain, 0)      # one plan and one fake trace for all
+    t_plain = float(t_plain)
+
+    # (b) the controller and the publisher, through Session.run; the
+    # live plan the healthy wire's (one data rank: the what-if of 8
+    # workers, as the observe phase prices it)
+    p_plan = n_data if n_data > 1 else 8
+    budgets = profiler.apportion_backward(
+        profiler.backprop_leaves(cfg, 1.0), profiler.BWD_FRACTION * t_plain)
+    healthy = planner.plan_schedule(budgets, p=p_plan, hw=cm.H100_NVLINK,
+                                    arch=cfg.name, shape="tp_observe")
+    sess = api.Session(cfg, dataclasses.replace(run, schedule=healthy),
+                       mesh=mesh)
+    wires = {"flat": cm.H100_NVLINK}
+    ctl = sess.controller(
+        rcfg=RuntimeConfig(replan_every=cadence, fence_every=1,
+                           min_step_samples=1),
+        triggers=(OTG.CadenceTrigger(cadence),))
+    ctl.meta["n_workers"] = p_plan
+    fake = OT.FakeTraceBackend(
+        budgets, wires=wires, tier_workers={"flat": p_plan},
+        t_forward=(1.0 - profiler.BWD_FRACTION) * t_plain,
+        schedule_fn=lambda: ctl.schedule)
+    ctl.trace_source = fake.capture
+    live_step, peaks = ctl.step, []
+
+    def watched(state_, batch):
+        torch.cuda.reset_peak_memory_stats()
+        out = live_step(state_, batch)
+        peaks.append(torch.cuda.max_memory_allocated())
+        ctl.meta["n_workers"] = p_plan
+        if ctl._step_count == TP_OBSERVE_SHIFT[world]:
+            wires["flat"] = dataclasses.replace(cm.H100_NVLINK, **DEGRADED)
+        return out
+
+    class Checked:
+        """The publisher; each packet held bitwise to the one-card
+        publisher's of the gathered parameters."""
+
+        def __init__(self, params):
+            self.pub = StreamPublisher(params, every=TP_OBSERVE_EVERY,
+                                       compressor="topk_block_kernel")
+            self.one, self.rows = None, []
+
+        def maybe_publish(self, step, params):
+            pkt = self.pub.maybe_publish(step, params)
+            if pkt is None:
+                return None
+            with aside(checks):
+                full = D.gather(params)
+                if self.one is None:
+                    self.one = StreamPublisher(
+                        full, every=TP_OBSERVE_EVERY,
+                        compressor="topk_block_kernel")
+                ref = self.one.publish(step, full)
+                for key, entry in ref.payload.items():
+                    got = pkt.payload[key]
+                    assert_bitwise(f"tp_observe packet {pkt.version} {key}",
+                                   tuple(got[f] for f in sorted(entry)),
+                                   tuple(entry[f] for f in sorted(entry)))
+                if (pkt.kind, pkt.nbytes, sorted(pkt.payload)) != (
+                        ref.kind, ref.nbytes, sorted(ref.payload)):
+                    raise AssertionError(f"tp_observe packet {pkt.version}: "
+                                         f"{pkt.kind} {pkt.nbytes} B, the "
+                                         f"one card's {ref.kind} "
+                                         f"{ref.nbytes} B")
+                del full, ref
+            self.rows.append({"version": pkt.version, "kind": pkt.kind,
+                              "nbytes": pkt.nbytes,
+                              "share": pkt.nbytes / self.pub.codec.full_bytes})
+            return pkt
+
+    checked = Checked(state["params"])
+    ctl.step = watched
+    t0 = time.perf_counter()
+    try:
+        with held_to_plain(errs, shapes):
+            state, hist = sess.run(data_fn, steps, controller=ctl,
+                                   state=state, publisher=checked,
+                                   log_every=1, print_fn=say)
+    finally:
+        ctl.step = live_step
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    events = [(e.step, e.swapped, e.trigger) for e in ctl.history]
+    every = [None] * world
+    dist.all_gather_object(every, events)
+    if any(e != events for e in every) or not any(s for _, s, _ in events):
+        raise AssertionError(f"tp_observe: the ranks' re-plan decisions "
+                             f"{every}: each must swap, at one step")
+    if n_data > 1:
+        check_replicas(state["params"], "tp_observe",
+                       group=M.worker_axes(mesh, ("data",)).group)
+    for name in ("ef_select_pack", "block_topk"):
+        if not counts[name] or not shapes.get(name):
+            raise AssertionError(f"tp_observe: {name} launched "
+                                 f"{counts[name]} times")
+    deltas = [r["health"]["delta_max"] for r in hist]
+    if not all(math.isfinite(x) and x >= 0.0 for x in deltas):
+        raise AssertionError(f"tp_observe: delta max {deltas}")
+    rest = at_rest_bytes(state)
+    pub_rest = sum(D.local(x).numel() * x.element_size() for x in
+                   tree.leaves(checked.pub.published)) + sum(
+        4 * r.numel() for r in checked.pub.residual.values())
+    say(f"{steps} steps in {run_s:.2f} s, step s (health, controller, "
+        f"publisher) {[round(r['step_s'], 4) for r in hist]}")
+    say(f"re-plans (controller step, swapped, trigger): {events}, the "
+        f"same on every rank; the live plan {sum(lp.ratio > 1.0 for lp in ctl.schedule.leaves)} "
+        f"of {len(ctl.schedule.leaves)} leaves sparse")
+    say(f"delta max per step {[round(x, 4) for x in deltas]}")
+    say(f"packets {[(r['kind'], r['nbytes'], round(r['share'], 4)) for r in checked.rows]}"
+        f" (bytes, / full_bytes {checked.pub.codec.full_bytes}), each == "
+        f"the one card's, bitwise")
+    say(f"peak {max(peaks) / 2**30:.3f} GiB a card; at rest "
+        f"{rest / 2**30:.3f} GiB (parameters, residuals), the publisher's "
+        f"published copy and residual {pub_rest / 2**30:.3f} GiB (chunks)")
+    say(f"launches {counts}, every ef_select_pack and block_topk launch == "
+        f"its plain version, bitwise; (rows, bs, k) "
+        f"{dict((k, sorted(v)) for k, v in shapes.items())}; the one-card "
+        f"publisher's aside {checks}")
+    res.update(step_s=times, step_s_median=med, run_s=run_s, rows=hist,
+               history=[dataclasses.asdict(e) for e in ctl.history],
+               delta_max=deltas, packets=checked.rows, peak=max(peaks),
+               at_rest_bytes=rest, publisher_bytes=pub_rest, launches=counts)
+    del checked, ctl, sess
+    torch.cuda.empty_cache()
+
+    # (c) the autotune profile on the mesh
+    t0 = time.perf_counter()
+    prof = profiler.profile_model(cfg, mesh, seq=seq, global_batch=n_data,
+                                  iters=1, arch=cfg.name,
+                                  comm_sizes=(1 << 20,))
+    say(f"profile_model: dense step {prof.t_step_dense:.4f} s, lags step "
+        f"{prof.t_step_lags:.4f} s, {prof.n_workers} data workers, mesh "
+        f"{prof.mesh_shape}, per card {prof.flops_per_step:.4g} FLOPs and "
+        f"{prof.hbm_bytes_per_step:.4g} B a dense step "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res["profile"] = {"t_step_dense": prof.t_step_dense,
+                      "t_step_lags": prof.t_step_lags,
+                      "n_workers": prof.n_workers,
+                      "flops_per_step": prof.flops_per_step,
+                      "hbm_bytes_per_step": prof.hbm_bytes_per_step}
+    del state, prof
+    torch.cuda.empty_cache()
+    return counts, res, errs
 
 
 STREAM_STEPS, STREAM_EVERY = 8, 2
@@ -4351,10 +4656,10 @@ def stream_phase(dev, cfg, seq: int) -> tuple[dict, dict]:
         encode_s: list = []
 
         def timed(fn):
-            def call(*args):
+            def call(*args, **kw):
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
-                out = fn(*args)
+                out = fn(*args, **kw)
                 torch.cuda.synchronize(dev)
                 encode_s.append(time.perf_counter() - t0)
                 return out
@@ -4438,9 +4743,17 @@ def stream_phase(dev, cfg, seq: int) -> tuple[dict, dict]:
         for e in plan:
             say(f"plan {e['key']}: d {e['d']}, k {e['k']}, k_b {e['k_b']}, "
                 f"{e['kind']}, {e['nbytes']} bytes")
+        if len(encode_s) != len(pub.packets):
+            raise AssertionError(f"stream: {len(encode_s)} encode times for "
+                                 f"{len(pub.packets)} packets")
         packets = [{"version": p.version, "step": p.step, "kind": p.kind,
                     "nbytes": p.nbytes, "of_full": p.nbytes / codec.full_bytes,
                     "encode_s": s} for p, s in zip(pub.packets, encode_s)]
+        over = [p for p in packets
+                if p["kind"] == "delta" and p["of_full"] > 0.25]
+        if over:
+            raise AssertionError(f"stream: delta packets above 0.25 of "
+                                 f"full_bytes: {over}")
         for p in packets:
             say(f"packet v{p['version']} (step {p['step']}, {p['kind']}): "
                 f"{p['nbytes']} bytes = {p['of_full']:.4f} of full_bytes "
@@ -5430,6 +5743,9 @@ def main(argv=None) -> int:
                                                     recurrent=True)
         with timed("tp_serving", clock):
             tp_serve = tp_serving_phase(dev)
+        with timed("tp_observe", clock):
+            obs_tp_totals, tp_obs, obs_tp_errs = tp_observe_phase(dev, cfg,
+                                                                  seq)
         with timed("paper_distributed", clock):
             lstm_totals, lstm_results, lstm_errs = distributed(
                 dev, paper_lstm_ptb.CONFIG, LSTM_SEQ, steps, plans={},
@@ -5449,7 +5765,7 @@ def main(argv=None) -> int:
         with timed("jamba", clock):
             jamba_totals, jamba, jamba_errs = jamba_phase(dev)
     for part in (paper_errs, dist_errs, tp_errs, fam_errs, rec_errs,
-                 lstm_errs,
+                 obs_tp_errs, lstm_errs,
                  stream.pop("errs"),
                  moe_errs, xlstm_errs, encdec_errs, jamba_errs):
         for name, err in part.items():
@@ -5459,7 +5775,7 @@ def main(argv=None) -> int:
     phases = {"main": main_totals, "ef_accum": path_counts,
               "paper": paper_totals, "distributed": dist_totals,
               "tp": tp_totals, "tp_families": fam_totals,
-              "tp_recurrent": rec_totals,
+              "tp_recurrent": rec_totals, "tp_observe": obs_tp_totals,
               "paper_distributed": lstm_totals, "observe": observe_totals,
               "stream": stream_totals, "moe": moe_totals,
               "xlstm": xlstm_totals, "encdec": encdec_totals,
@@ -5487,7 +5803,7 @@ def main(argv=None) -> int:
          "timings": times, "autotune": autotune, "planned_pack": planned,
          "main": results, "distributed": dist_results, "tp": tp,
          "tp_families": tp_fam, "tp_recurrent": tp_rec,
-         "tp_serving": tp_serve,
+         "tp_serving": tp_serve, "tp_observe": tp_obs,
          "paper": paper_results, "paper_narrow": narrow,
          "paper_distributed": lstm_results, "observe": observe,
          "stream": stream, "moe": moe, "xlstm": xlstm, "encdec": encdec,
@@ -5568,7 +5884,8 @@ def ranks_main(world: int) -> int:
               "moe_span": "moe_span_launches",
               "tp_stream": "tp_stream_launches",
               "paper_distributed": "paper_launches",
-              "observe": "observe_launches"}
+              "observe": "observe_launches",
+              "tp_observe": "tp_observe_launches"}
     rows = [json.loads((out_dir / f"chip_smoke_rank{r}.json").read_text())
             for r in range(world)]
     print(json.dumps({"launches_by_phase": {
@@ -5612,6 +5929,8 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
             per_rank=LSTM_SEQS, name="paper-lstm-ptb ")
         observe_totals, observe = observe_phase(
             dev, cfg, seq, out_dir, world=args.ranks, rank=args.rank)
+        obs_tp_totals, tp_obs, _ = tp_observe_phase(
+            dev, cfg, seq, world=args.ranks, rank=args.rank)
     (out_dir / f"chip_smoke_rank{args.rank}.json").write_text(json.dumps(
         {"card": card_line(), "torch": torch.__version__,
          "world": args.ranks, "rank": args.rank, "seq": seq,
@@ -5623,8 +5942,9 @@ def rank_main(args, cfg, seq: int, steps: int) -> int:
          "tp_serving": tp_serve, "fsdp_serving": fsdp_serve,
          "tp_stream_launches": stream_totals, "tp_stream": tp_stream,
          "paper_launches": lstm_totals, "paper_distributed": lstm_results,
-         "observe_launches": observe_totals, "observe": observe},
-        indent=1))
+         "observe_launches": observe_totals, "observe": observe,
+         "tp_observe_launches": obs_tp_totals, "tp_observe": tp_obs},
+        indent=1, default=str))
     return 0
 
 

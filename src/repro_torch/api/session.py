@@ -158,8 +158,10 @@ class Session:
         ``ckpt_final``/``runtime_final`` pair.  On a mesh with a 'model'
         axis the checkpoint holds the full tensors (every rank gathers
         them, over ('data', 'model') under ``lags_hier``, so every rank
-        must be given ``out_dir``); a controller or a
-        publisher there raises (``launch.train.refuse_model_axis``).
+        must be given ``out_dir``); a controller there decides once for
+        every rank (``runtime.controller``), and a publisher on every
+        rank cuts the one-card packets of the gathered parameters
+        (``stream.publisher``).
 
         Each JSONL row is a thin view over the metrics plane
         (``repro_torch.observe.metrics``): ``step``, ``loss``,
@@ -214,9 +216,6 @@ class Session:
         from repro_torch.observe import metrics as OM
 
         self._need_mesh("run")
-        if publisher is not None:
-            from repro_torch.launch import train as TR
-            TR.refuse_model_axis(self.mesh, "Session.run(publisher=...)")
         from repro_torch.sharding import dtensor as SD
         step_fn = controller.step if controller is not None else self.step_fn
         if state is None:

@@ -11,11 +11,14 @@ Two kinds of measurement feed the fit and plan stages:
     ``launch.train.build_train_step`` (dense and the config's LAGS mode),
     timed over a few steps, each ended by a device sync (the reference's
     ``block_until_ready``).  There is no compiled cost analysis, so one
-    more dense step runs under two dispatch modes at once:
-    ``torch.utils.flop_counter.FlopCounterMode`` counts its FLOPs and
-    :class:`ByteCounterMode` its device-memory bytes
-    (``hbm_bytes_per_step``, the counterpart of XLA's "bytes accessed",
-    from which ``costfit`` fits the device-memory rate).  The per-kind
+    more dense step runs under a dispatch mode, :class:`ByteCounterMode`,
+    that counts its FLOPs (``torch.utils.flop_counter``'s formulas) and
+    its device-memory bytes (``hbm_bytes_per_step``, the counterpart of
+    XLA's "bytes accessed", from which ``costfit`` fits the device-memory
+    rate).  Both are per card, as the reference's ``cost_analysis()`` of
+    its partitioned program is: on a mesh with a 'model' axis the mode
+    sees each op on ``DTensor`` operands and counts it on this rank's
+    chunks.  The per-kind
     collective bytes of the LAGS step (``collective_bytes_lags``) stay
     empty until ``launch/hlo``'s counterpart (ROADMAP.md queue 1 item
     13e).
@@ -38,7 +41,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.autotune import schedule as S
 from repro_torch.core import lags
@@ -85,7 +88,10 @@ def _tensors(tree) -> list:
 
 
 def _storage(t: torch.Tensor) -> int:
-    return t.untyped_storage().data_ptr()
+    try:
+        return t.untyped_storage().data_ptr()
+    except RuntimeError:    # a wrapper (a collective's result) has none
+        return -id(t)
 
 
 def op_bytes(func, inputs, outputs) -> int:
@@ -105,20 +111,36 @@ def op_bytes(func, inputs, outputs) -> int:
 
 
 class ByteCounterMode(TorchDispatchMode):
-    """Sums :func:`op_bytes` over every aten op dispatched under it: the
-    eager counterpart of XLA's per-op "bytes accessed".  XLA counts the
-    ops of the fused program, so it leaves out the intermediates that
-    fusion keeps in registers; this count has every unfused pass of the
-    eager step in it, and is larger."""
+    """Sums :func:`op_bytes` (``total``) and the FLOPs of
+    ``torch.utils.flop_counter``'s formulas (``flops``: ``FlopCounterMode``'s
+    count) over every aten op dispatched under it: the eager counterpart
+    of XLA's per-op "bytes accessed" and "flops".  XLA counts the ops of
+    the fused program, so it leaves out the intermediates that fusion
+    keeps in registers; this count has every unfused pass of the eager
+    step in it, and is larger.  An op on ``DTensor`` operands (the mode
+    sees it before ``DTensor`` runs it) counts the card's own work: the
+    bytes of this rank's chunks of its operands and results, and the
+    FLOPs of the whole op over the ranks that split it (those its result
+    is ``Shard`` or ``Partial`` over; a replicated result is computed
+    whole on every rank)."""
 
     def __init__(self):
         super().__init__()
         self.total = 0
+        self.flops = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+        from repro_torch.sharding import dtensor as D
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self.total += op_bytes(func, (args, kwargs), out)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out) // max(
+                (D.split_ways(x) for x in tree_leaves(out)
+                 if D.is_dtensor(x)), default=1)
+        self.total += op_bytes(func, *tree_map(D.local,
+                                               ((args, kwargs), out)))
         return out
 
 
@@ -261,12 +283,10 @@ def _time_step(cfg, mesh, batch, *, method, seq: int, iters: int,
     t = _timed(one, dev, iters=iters)
     flops, nbytes = 0.0, 0
     if count_flops:
-        from torch.utils.flop_counter import FlopCounterMode
-        with FlopCounterMode(display=False) as counter, \
-                ByteCounterMode() as moved:
+        with ByteCounterMode() as moved:
             one()
         _sync(dev)
-        flops, nbytes = float(counter.get_total_flops()), moved.total
+        flops, nbytes = float(moved.flops), moved.total
     box.clear()
     return t, flops, nbytes
 
@@ -279,7 +299,11 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
     """Measured profile of one (cfg × input shape) on ``mesh``: micro-steps
     of the real train step in dense mode (compute calibration) and the
     config's LAGS mode, plus the collective sweep.  Every rank of the
-    mesh calls it (the steps and collectives span them all).
+    mesh calls it (the steps and collectives span them all).  On a mesh
+    with a 'model' axis the workers are the data ranks (``n_workers``,
+    ``tokens_per_worker``), ``mesh_shape`` carries 'model', the sweep
+    runs over the data ranks of each model index, and the FLOPs and
+    bytes are one card's (:class:`ByteCounterMode`).
 
     ``trace``: optional ``repro_torch.observe.Trace`` (a real capture or
     the deterministic fake backend).  When given, its per-leaf backward
@@ -290,8 +314,6 @@ def profile_model(cfg, mesh, *, seq: int = 64, global_batch: int | None = None,
     pass a trace that decides alike, since the sweep spans them all)."""
     from repro_torch.data import synthetic
     from repro_torch.launch import mesh as M
-    from repro_torch.launch import train as TR
-    TR.refuse_model_axis(mesh, "profile_model")
     manual = M.data_axis_names(mesh)
     n_w = M.n_workers(mesh, manual)
     global_batch = global_batch if global_batch is not None else 2 * n_w

@@ -46,11 +46,12 @@ leaves (1, ...) f32 (the reference's per-worker state under its manual
 axes; under ``lags_hier`` the pod's, the same on each of its ranks);
 ``step`` is a Python int.  The port updates the parameters and the
 velocity in place, which saves one copy of each; under ``async1`` with
-mc the pending leaves are the velocity's own.  The reference's
-``lags_hier`` shards the parameters over 'data' (FSDP); on a mesh
-without a 'model' axis they stay replicated here (that layout waits for
-ROADMAP.md queue 1 item 7g), but its block exchange takes the FSDP
-layout's blocks (``_block_layout``).
+mc the pending leaves are the velocity's own.  ``lags_hier`` shards
+the parameters over 'data' (FSDP, the reference's ``param_pspecs(...,
+"lags_hier")``) on every mesh: without a 'model' axis each is a
+``DTensor`` on the pod's 'data' sub-mesh, ``ef``, ``mom`` and
+``pending`` hold its block, and the step runs as under tensor
+parallelism's FSDP below (``DataShards``, ``_WholeLeaves`` over 'data').
 
 Tensor parallelism (a mesh with a 'model' axis, ``make_mesh(model=)``,
 beside 'data' and optionally 'pod'; the reference's GSPMD auto axis):
@@ -116,13 +117,19 @@ aggregate form and no inner tier) and under ``async1``
 one dense all-reduce per leaf over the workers (cross terms are not
 recoverable from per-worker scalars), each under a
 ``lags/comm/<tier>/allreduce/health/l<i>`` range; the sums of squares
-are one all-reduce of L floats each.  ``health_every == 0`` adds no key
-and no work.
+are one all-reduce of L floats each.  Where the parameters are
+``DTensor``s each rank's residuals, means and updates are chunks, so
+every per-leaf sum of squares takes one more all-reduce of its (2, L)
+floats over each axis of the parameters' sub-mesh ('model', and 'data'
+under ``lags_hier``), a replicated chunk counted by one rank of it; no
+leaf is gathered, and Eq. 20's ``1 - k/d`` takes the full leaf's d and
+k.  ``health_every == 0`` adds no key and no work.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -149,11 +156,6 @@ TP_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 TP_NEXT_FAMILIES = ("ROADMAP.md queue 1 item 7e's third part, the "
                     "tensor-parallel part for an MoE token group across a "
                     "pod's ranks on a 'model' axis")
-#: ... and the health quantities, the controller, profile_model and the
-#: publisher
-TP_NEXT = ("ROADMAP.md queue 1 item 7g, the tensor-parallel part for the "
-           "health quantities, the controller, profile_model and the "
-           "publisher")
 #: the modes a mesh with a 'model' axis runs
 TP_MODES = ("dense", "lags_dp", "slgs", "lags_hier2", "lags_hier")
 #: ... of which these exchange each rank's chunk rows; the others gather
@@ -197,35 +199,23 @@ def param_pspecs(cfg, mesh, mode: str, params_like=None):
                             tp_priority=_tp_priority(cfg))
 
 
-def refuse_model_axis(mesh, what: str) -> None:
-    """Raise for ``what``, which a mesh with a 'model' axis does not run
-    yet."""
-    if "model" in (mesh.mesh_dim_names or ()):
-        raise NotImplementedError(
-            f"{what} on a mesh with a 'model' axis ({TP_NEXT})")
-
-
-def check_tensor_parallel(cfg, mesh, mode: str, *, health: bool = False):
-    """Raise for what a mesh with a 'model' axis does not run yet: modes
-    other than ``TP_MODES`` (a strategy registered later), a model family
-    outside ``TP_FAMILIES`` (every family of the registry is in it), and
-    the health quantities.  A mesh without a 'model' axis passes."""
+def check_tensor_parallel(cfg, mesh, mode: str):
+    """Raise for what a mesh with a 'model' axis does not run: modes
+    other than ``TP_MODES`` (a strategy registered later) and a model
+    family outside ``TP_FAMILIES`` (every family of the registry is in
+    it).  A mesh without a 'model' axis passes."""
     names = tuple(mesh.mesh_dim_names)
     if "model" not in names:
         return
-    what, item = None, TP_NEXT
+    what = None
     if mode not in TP_MODES:
         what = f"mode {mode!r}"
     elif cfg.family not in TP_FAMILIES:
-        what, item = f"the {cfg.family} family ({cfg.name})", \
-            TP_NEXT_FAMILIES
-    elif health:
-        what = "the health quantities (health_every > 0)"
+        what = f"the {cfg.family} family ({cfg.name})"
     if what is not None:
         raise NotImplementedError(
             f"{what} on the mesh {names}: tensor parallelism trains the "
-            f"{', '.join(TP_FAMILIES)} families under {', '.join(TP_MODES)} "
-            f"({item})")
+            f"{', '.join(TP_FAMILIES)} families under {', '.join(TP_MODES)}")
 
 
 #: what :func:`pod_auto_moe_groups` returns for one group across ranks
@@ -370,16 +360,17 @@ class _WholeLeaves:
 
 
 class DataShards:
-    """``lags_hier``'s FSDP over 'data' on a mesh with a 'model' axis:
-    each parameter a ``DTensor`` on the pod's ('data', 'model') sub-mesh,
-    ``dims[i]`` the dim leaf ``i`` splits over 'data' (None: replicated
-    over it), ``placements[i]`` its placements on the 'model' sub-mesh
-    ``model_mesh``, ``data`` the pod's 'data' ranks of this rank's model
-    index.
+    """``lags_hier``'s FSDP over 'data': each parameter a ``DTensor`` on
+    the pod's ('data', 'model') sub-mesh, or its 'data' sub-mesh on a
+    mesh without a 'model' axis; ``dims[i]`` the dim leaf ``i`` splits
+    over 'data' (None: replicated over it), ``placements[i]`` its
+    placements on the 'model' sub-mesh ``model_mesh`` (None: no 'model'
+    axis), ``data`` the pod's 'data' ranks of this rank's model index.
 
     :meth:`leaves` gathers each leaf over 'data' OUTSIDE autograd into a
-    fresh leaf on the 'model' sub-mesh that requires grad: the forward
-    and backward of the data-parallel layout then run on it, and
+    fresh leaf that requires grad (on the 'model' sub-mesh, or a plain
+    tensor): the forward and backward of the data-parallel layout then
+    run on it, and
     :meth:`targets` are what the gradients are taken of.  :meth:`mean`
     reduce-scatters an update of that leaf over 'data' onto its FSDP dim
     and divides by the data size: this rank's block of the pod's dense
@@ -400,8 +391,10 @@ class DataShards:
                 x = D.local(p).detach()
                 if dim is not None:
                     x = _gather_dim(x, dim, self.data)
-                out.append(DTensor.from_local(
-                    x, self.model_mesh, pl, run_check=False).requires_grad_())
+                if self.model_mesh is not None:
+                    x = DTensor.from_local(x, self.model_mesh, pl,
+                                           run_check=False)
+                out.append(x.requires_grad_())
         return out
 
     def targets(self, params, leaves) -> list:
@@ -422,18 +415,14 @@ class DataShards:
         return u.div_(self.data.size)
 
 
-def _block_layout(cfg, mesh, params_like, strat):
-    """The per-leaf dims the block exchange lays first (its
-    ``shard_dims``): under ``pod_auto`` the reference shards the
-    parameters over 'data' (FSDP), and its block view follows that
-    layout; the port keeps the parameters replicated but takes the same
-    block layout, so that lags_hier selects what the reference selects.
-    None elsewhere (the data-parallel layouts shard nothing)."""
-    if strat.axes != "pod_auto":
-        return None
-    return rules.shard_dims_tree(
-        params_like, param_pspecs(cfg, mesh, "lags_hier", params_like),
-        M.inner_axis_names(mesh))
+def param_axes(mesh, mode: str) -> tuple | None:
+    """The axes of the sub-mesh the parameters are ``DTensor``s on:
+    'model' when the mesh has it, 'data' first under ``lags_hier`` (FSDP,
+    on every mesh); None (plain replicas) for the other modes on a mesh
+    without 'model'."""
+    axes = (("data",) if mode == "lags_hier" else ()) + (
+        (D.MODEL,) if D.MODEL in mesh.mesh_dim_names else ())
+    return axes or None
 
 
 def make_state_specs(cfg, mesh, *, method: str | None = None,
@@ -451,17 +440,17 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
     dev = M.device_of(mesh)
     params = tree.map(lambda m: Spec(m.shape, m.dtype, dev),
                       T.abstract_params(cfg))
-    # on a 'model' axis each rank holds one chunk of a parameter (its
-    # Spec keeps the full shape, a DTensor's), and of its worker states:
-    # under lags_hier a 2-D block, FSDP over 'data' beside 'model'
-    pspecs = param_axes = None
+    # on a 'model' axis, or over 'data' under lags_hier, each rank holds
+    # one chunk of a parameter (its Spec keeps the full shape, a
+    # DTensor's), and of its worker states: under lags_hier a block, FSDP
+    # over 'data' (beside 'model')
+    pspecs = None
+    axes = param_axes(mesh, mode)
     chunks = params
-    if "model" in mesh.mesh_dim_names:
+    if axes is not None:
         pspecs = param_pspecs(cfg, mesh, mode, params)
-        param_axes = (D.PARAM_AXES_FSDP if mode == "lags_hier"
-                      else (D.MODEL,))
         sizes = {a: s for a, s in rules.mesh_axis_sizes(mesh).items()
-                 if a in param_axes}
+                 if a in axes}
         leaves, treedef = tree.flatten(params)
         chunks = tree.unflatten(treedef, [
             Spec(D.local_shape(s.shape, spec, sizes), s.dtype, dev)
@@ -484,7 +473,7 @@ def make_state_specs(cfg, mesh, *, method: str | None = None,
         state["extra"] = {"mom": tree.map(local, chunks)}
     meta = {"mode": mode, "manual": manual, "worker_axes": worker,
             "n_workers": M.n_workers(mesh, worker), "pipeline": pipeline,
-            "pspecs": pspecs, "param_axes": param_axes}
+            "pspecs": pspecs, "param_axes": axes}
     return state, meta
 
 
@@ -508,17 +497,17 @@ def build_train_step(cfg, mesh, run: RunConfig):
         cfg, mesh, method=run.mode, pipeline=run.pipeline,
         momentum_correction=run.momentum_correction)
     mode, worker = meta["mode"], meta["worker_axes"]
-    check_tensor_parallel(cfg, mesh, mode, health=run.health_every > 0)
     strat = R.get_exchange(mode)
     ks_override = R.resolve_schedule_ks(run.schedule, mode,
                                         state_specs["params"],
                                         n_workers=meta["n_workers"])
-    # tensor parallelism: the parameters are DTensors over 'model' (and
-    # 'data' under lags_hier); dense and lags_dp exchange each rank's
-    # chunk of the block rows, the other modes whole leaves
+    # the parameters are DTensors over 'model' and/or (lags_hier) 'data';
+    # dense and lags_dp exchange each rank's chunk of the block rows, the
+    # other modes whole leaves
     tp = meta["pspecs"] is not None
     whole = tp and mode not in TP_CHUNK_MODES
-    rows = M.worker_axes(mesh, ("model",)) if tp else None
+    rows = (M.worker_axes(mesh, (D.MODEL,))
+            if D.MODEL in mesh.mesh_dim_names else None)
     exch = R.build_exchange(R.ExchangeSpec(
         mode=mode, params_like=state_specs["params"],
         ratio=run.resolved_ratio(cfg), ks=ks_override,
@@ -529,8 +518,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
         n_inner=max(1, M.n_workers(mesh, M.inner_axis_names(mesh))),
         shard_dims=(rules.shard_dims_tree(state_specs["params"],
                                           meta["pspecs"], meta["param_axes"])
-                    if tp else _block_layout(cfg, mesh,
-                                             state_specs["params"], strat)),
+                    if tp else None),
         row_axes=None if whole else rows,
         momentum_correction=run.momentum_correction))
     # every rank of the data axes (of this rank's model index): the batch
@@ -542,13 +530,14 @@ def build_train_step(cfg, mesh, run: RunConfig):
     inner = (M.worker_axes(mesh, M.inner_axis_names(mesh))
              if strat.axes == "pod_auto" else None)
     step_exch = exch if axes is not None else _OneWorker(exch)
-    shards = None
-    if whole:
+    shards = dims = None
+    if tp:
         specs = tree.flatten_up_to(tree.flatten(state_specs["params"])[1],
                                    meta["pspecs"])
         # per leaf, the dim each of its sub-mesh's axes splits (or None)
         dims = [{a: rules.sharded_dim(spec, a) for a in meta["param_axes"]}
                 for spec in specs]
+    if whole:
         over = {"data": inner, "model": rows}
         step_exch = _WholeLeaves(step_exch, tuple(
             tuple((d[a], over[a]) for a in meta["param_axes"]
@@ -556,8 +545,9 @@ def build_train_step(cfg, mesh, run: RunConfig):
         if strat.axes == "pod_auto":
             shards = DataShards(
                 [d["data"] for d in dims],
-                [rules.placements(spec, D.MODEL) for spec in specs], inner,
-                D.sub_mesh(mesh))
+                [None if rows is None else rules.placements(spec, D.MODEL)
+                 for spec in specs], inner,
+                None if rows is None else D.sub_mesh(mesh))
     meta["ks"] = getattr(exch, "ks", None)
     meta["schedule"] = run.schedule
     meta["run"] = dataclasses.replace(run, mode=mode)
@@ -589,6 +579,8 @@ def build_train_step(cfg, mesh, run: RunConfig):
     health = (run.health_every > 0 and mode != "dense"
               and meta["ks"] is not None)
     h_ks = tree.leaves(meta["ks"]) if health else ()
+    # Eq. 20's d: the full leaf's, whatever a rank holds of it
+    h_ds = [math.prod(s.shape) for s in tree.leaves(state_specs["params"])]
     h_axes = axes
     if ef_tiers:
         h_axes = (axes.sub((exch.outer_axis,))
@@ -602,14 +594,41 @@ def build_train_step(cfg, mesh, run: RunConfig):
             dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axes.group)
         return x
 
+    # DTensor parameters: each rank's sums of squares cover its chunk of
+    # each leaf; the leaf's are their sum over the axes of its sub-mesh,
+    # a chunk held alike by several ranks (replicated over an axis)
+    # counted by the first of them only
+    chunk_sum = None
+    if health and tp:
+        owner = torch.tensor(
+            [float(all(d[a] is not None or mesh.get_local_rank(a) == 0
+                       for a in meta["param_axes"])) for d in dims],
+            device=dev)
+        groups = [mesh.get_group(a) for a in meta["param_axes"]
+                  if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+
+        def chunk_sum(x):
+            """(..., L) per-leaf sums of this rank's chunks -> the whole
+            leaves' (one all-reduce of the stack over each axis)."""
+            x = x * owner
+            for g in groups:
+                dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+            return x
+
+    def leaf_sums(*xs):
+        """Each per-leaf (L,) vector summed over the workers, then over
+        the chunks of each leaf."""
+        xs = [wsum(x) for x in xs]
+        return xs if chunk_sum is None else list(chunk_sum(torch.stack(xs)))
+
     def health_metrics(flat_mean, new_ef, acc_sq, stale) -> dict:
         """The health metrics of one step: ``acc_sq`` the per-leaf
         ``||e + u||^2`` of this rank (None when the wave hooks consumed
         the updates), ``stale`` this rank's (||u_t||^2, ||u_t -
-        u_{t-1}||^2) under async1, else None."""
+        u_{t-1}||^2) per leaf under async1, else None."""
         resid = new_ef["outer"] if ef_tiers else new_ef
         n = h_axes.size if h_axes is not None else 1
-        deltas, energies = [], []
+        nums, dens = [], []
         for i, (e, m) in enumerate(zip(resid, flat_mean)):
             e_sum = e
             if h_axes is not None:
@@ -618,24 +637,33 @@ def build_train_step(cfg, mesh, run: RunConfig):
                                       4.0 * e_sum.numel(), n):
                     dist.all_reduce(e_sum, op=dist.ReduceOp.SUM,
                                     group=h_axes.group)
-            d, en = H.delta_energy(e_sum, m, int(h_ks[i]), n)
-            deltas.append(d)
-            energies.append(en)
+            num, den = H.delta_sums(e_sum, m, n)
+            nums.append(num)
+            dens.append(den)
             del e_sum
+        num, den = torch.stack(nums), torch.stack(dens)
+        if chunk_sum is not None:
+            num, den = chunk_sum(torch.stack([num, den]))
+        deltas, energies = zip(*(
+            H.delta_from_sums(num[i], den[i], int(h_ks[i]), h_ds[i])
+            for i in range(len(nums))))
         delta = torch.stack(deltas)
         out = {"health_delta": delta, "health_delta_max": delta.max()}
         if ef_tiers:
             out["health_ef_energy_outer"] = torch.stack(energies)
             if acc_sq is not None:
-                out["health_ef_energy_inner"] = H.safe_ratio(
-                    wsum(H.sq_leaves(new_ef["inner"])), wsum(acc_sq))
+                out["health_ef_energy_inner"] = H.safe_ratio(*leaf_sums(
+                    H.sq_leaves(new_ef["inner"]), acc_sq))
         elif acc_sq is None:
             # the wave taps consumed the updates: the aggregate form
             out["health_ef_energy_flat"] = torch.stack(energies)
         else:
-            out["health_ef_energy_flat"] = H.safe_ratio(
-                wsum(H.sq_leaves(resid)), wsum(acc_sq))
+            out["health_ef_energy_flat"] = H.safe_ratio(*leaf_sums(
+                H.sq_leaves(resid), acc_sq))
         if stale is not None:
+            if chunk_sum is not None:
+                stale = chunk_sum(torch.stack([torch.stack(stale[0]),
+                                               torch.stack(stale[1])]))
             out["health_staleness"] = H.staleness_gap(
                 wsum(torch.stack([sum(stale[0])])),
                 wsum(torch.stack([sum(stale[1])])))[0]
@@ -650,7 +678,7 @@ def build_train_step(cfg, mesh, run: RunConfig):
             return 1
         groups = pod_auto_moe_groups(batch_rows, meta["n_workers"],
                                      inner.size,
-                                     model=rows.size if tp else None)
+                                     model=None if rows is None else rows.size)
         if groups != POD_SPAN:
             return groups
         return MO.TokenSpan(inner.group, inner.size,

@@ -101,6 +101,26 @@ def delta_leaves(e_sum_tree, agg_tree, ks) -> torch.Tensor:
                         for e, a, k in zip(flat_e, flat_a, flat_k)])
 
 
+def delta_sums(e_sum: torch.Tensor, mean: torch.Tensor,
+               p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One leaf's ``(||e_sum||^2, ||agg||^2)`` with ``agg = e_sum + p *
+    mean`` (the EF exchange identity, built for this leaf only): the
+    numerator and denominator of :func:`delta_energy`, which a chunk of
+    the leaf contributes its share of."""
+    agg = e_sum + float(p) * mean
+    num, den = sq_norm(e_sum), sq_norm(agg)
+    del agg
+    return num, den
+
+
+def delta_from_sums(num: torch.Tensor, den: torch.Tensor, k: int,
+                    d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One leaf's (delta, aggregate energy retention) from the sums of
+    :func:`delta_sums` over the whole leaf of ``d`` entries and budget
+    ``k``: delta = ``num / ((1 - k/d) den)``, energy = ``num / den``."""
+    return safe_ratio(num, _frac(d, k) * den), safe_ratio(num, den)
+
+
 def delta_energy(e_sum: torch.Tensor, mean: torch.Tensor, k: int,
                  p: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One leaf's (delta, aggregate energy retention) from the
@@ -108,11 +128,7 @@ def delta_energy(e_sum: torch.Tensor, mean: torch.Tensor, k: int,
     mean`` (the EF exchange identity, built for this leaf only), delta =
     ``||e_sum||^2 / ((1 - k/d) ||agg||^2)`` and energy =
     ``||e_sum||^2 / ||agg||^2``."""
-    agg = e_sum + float(p) * mean
-    num, den = sq_norm(e_sum), sq_norm(agg)
-    del agg
-    return (safe_ratio(num, _frac(e_sum.numel(), k) * den),
-            safe_ratio(num, den))
+    return delta_from_sums(*delta_sums(e_sum, mean, p), k, e_sum.numel())
 
 
 def delta_leaves_from_mean(e_sum_tree, mean_tree, ks,

@@ -42,6 +42,20 @@ holds per partition piece, and the k-contraction analysis of Alistarh et
 al. (arXiv 1809.10505) bounds the EF residual for any step-wise k
 sequence bounded below — the c_u cap is that bound here.
 
+One decision for the mesh: every rank runs a controller, and the
+reference's single SPMD program takes one decision for all of them.  On
+a process group of several ranks the triggers' votes are OR-ed over
+every rank at each step boundary (one all-reduce of one flag a
+trigger), and the fit's inputs (the measured leaves, the forward time,
+each tier's wire samples and their provenance) are rank 0's, broadcast
+before planning: every rank then re-plans at the same step, from the
+same inputs, to the same swap.  The probes still run on every rank (the
+live one is a collective).  A world of one skips both.  On a mesh with a
+'model' axis the workers are the data ranks of each model index
+(``tier_workers``, ``meta["n_workers"]``), and a swap rebuilds the step
+on the same mesh: the caller's ``DTensor`` parameters and chunked
+residuals carry over as they are.
+
 Controller state (current schedule, telemetry window, swap history,
 stateful triggers such as the anomaly detector) round-trips through
 ``checkpoint.io`` so re-planning survives restarts.
@@ -50,6 +64,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import block_until_ready
 from repro_torch.api.config import RunConfig
@@ -133,8 +150,6 @@ class ReplanController:
         from repro_torch.observe import metrics as OM
         if cfg.train_mode == "dense":
             raise ValueError("nothing to re-plan for train_mode='dense'")
-        from repro_torch.launch import train as TR
-        TR.refuse_model_axis(mesh, "the re-planning controller")
         self._metrics = metrics if metrics is not None \
             else OM.default_registry()
         self._events = events if events is not None else OE.default_events()
@@ -299,10 +314,19 @@ class ReplanController:
                                  schedule=self.schedule, mode=self.mode)
 
     def _fired_triggers(self) -> list[str]:
-        if len(self.telemetry) < self.rcfg.min_step_samples:
-            return []
-        ctx = self._trigger_ctx()
-        return [t.name for t in self.triggers if t.due(ctx)]
+        due = [False] * len(self.triggers)
+        if len(self.telemetry) >= self.rcfg.min_step_samples:
+            ctx = self._trigger_ctx()
+            due = [t.due(ctx) for t in self.triggers]
+        if _world() > 1:
+            # a trigger that fires on one rank fires on all of them: the
+            # re-plan's probe is a collective, and its swap changes the
+            # exchange every rank runs
+            vote = torch.tensor(due, dtype=torch.int32,
+                                device=M.device_of(self.mesh))
+            dist.all_reduce(vote, op=dist.ReduceOp.MAX)
+            due = [bool(v) for v in vote.tolist()]
+        return [t.name for t, d in zip(self.triggers, due) if d]
 
     def _due(self) -> bool:
         return bool(self._fired_triggers())
@@ -378,15 +402,26 @@ class ReplanController:
                           hardware={"name": "static"}, leaves=plans,
                           train_mode=self.mode)
 
-    def _plan_candidate(self, leaves, t_fwd):
-        """(candidate schedule, predict_fn, hw) — ``predict_fn(sched)``
-        prices any schedule (flat or hier) against the fresh fit."""
+    def _fit_samples(self) -> dict:
+        """{tier: (wire samples, fit-name prefix)} of the tiers the
+        planner fits: "inner" and "outer" for the hierarchical modes,
+        else "flat"."""
+        if self.mode in S.HIER_MODES:
+            return {"inner": self._tier_samples(
+                        "inner", M.inner_axis_names(self.mesh)),
+                    "outer": self._tier_samples(
+                        "outer", M.lags_axis_names(self.mesh, self.mode))}
+        return {"flat": self._tier_samples("flat",
+                                           M.data_axis_names(self.mesh))}
+
+    def _plan_candidate(self, leaves, t_fwd, samples):
+        """(candidate schedule, predict_fn, hw) from ``samples``
+        (:meth:`_fit_samples`) — ``predict_fn(sched)`` prices any
+        schedule (flat or hier) against the fresh fit."""
         rc = self.rcfg
         if self.mode in S.HIER_MODES:
-            inner_axes = M.inner_axis_names(self.mesh)
-            outer_axes = M.lags_axis_names(self.mesh, self.mode)
-            s_in, pre_in = self._tier_samples("inner", inner_axes)
-            s_out, pre_out = self._tier_samples("outer", outer_axes)
+            s_in, pre_in = samples["inner"]
+            s_out, pre_out = samples["outer"]
             hw_in = hier.tier_hardware(s_in, rc.hw_base,
                                        name=pre_in + "ici_fit")
             hw_out = hier.tier_hardware(s_out, rc.hw_base_outer,
@@ -414,10 +449,8 @@ class ReplanController:
                     leaves, inner, outer, p_inner=p_in, p_outer=p_out,
                     hw_inner=hw_in, hw_outer=hw_out, t_forward=t_fwd)
             return cand, predict, hw_out
-        axes = M.data_axis_names(self.mesh)
-        samples, prefix = self._tier_samples("flat", axes)
-        hw = hier.tier_hardware(samples, rc.hw_base,
-                                name=prefix + "wire_fit")
+        flat, prefix = samples["flat"]
+        hw = hier.tier_hardware(flat, rc.hw_base, name=prefix + "wire_fit")
         p = int(self.meta["n_workers"])
         cand = planner.plan_schedule(leaves, p=p, hw=hw, arch=self.cfg.name,
                                      shape="runtime", c_upper=rc.c_upper,
@@ -430,7 +463,17 @@ class ReplanController:
     def maybe_replan(self, step_no: int, trigger: str = "manual") -> SwapEvent:
         """Re-fit + re-plan on the current window; swap under hysteresis."""
         leaves, t_fwd = self._measured_leaves()
-        candidate, predict, hw = self._plan_candidate(leaves, t_fwd)
+        inputs = (leaves, t_fwd, self._fit_samples(),
+                  self.measurement_source)
+        if _world() > 1:
+            # every rank plans from rank 0's window, wire and trace
+            box = [inputs]
+            dist.broadcast_object_list(box, src=0,
+                                       device=M.device_of(self.mesh))
+            inputs = box[0]
+        leaves, t_fwd, samples, self.measurement_source = inputs
+        candidate, predict, hw = self._plan_candidate(leaves, t_fwd,
+                                                      samples)
         current = (self.schedule if self.schedule is not None
                    else self._static_baseline(leaves))
         t_cur = predict(current)["t_lags"]
@@ -521,3 +564,8 @@ class ReplanController:
             # so a constructor-supplied schedule must not survive restore
             self.schedule = None
             self._build()
+
+
+def _world() -> int:
+    """The default process group's size (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1

@@ -11,7 +11,8 @@ plain replicas, so each data rank takes its own gradient, as the
 reference's manual worker does.  Under ``lags_hier`` the reference
 leaves 'data' to GSPMD too (FSDP): its parameters are ``DTensor``s on
 the pod's ('data', 'model') sub-mesh (``axes=PARAM_AXES_FSDP``), each
-rank holding one 2-D block of each leaf.
+rank holding one 2-D block of each leaf, or on a mesh without a 'model'
+axis on the pod's 'data' sub-mesh (``axes=("data",)``).
 
 :func:`distribute` turns a full parameter tree (the same numbers on
 every rank, e.g. ``from_jax_params(...).params``) into that tree with no
@@ -58,11 +59,13 @@ def local_shape(shape, spec, sizes) -> tuple:
 
 
 def sub_mesh(mesh, axes=(MODEL,)):
-    """The sub-mesh of ``axes`` (``(MODEL,)``, or ``PARAM_AXES_FSDP``:
-    the pod's ('data', 'model') sub-mesh)."""
+    """The sub-mesh of ``axes`` (``(MODEL,)``; ``PARAM_AXES_FSDP``: the
+    pod's ('data', 'model') sub-mesh; ``("data",)``: the pod's 'data'
+    sub-mesh)."""
     names = mesh.mesh_dim_names or ()
-    if MODEL not in names:
-        raise ValueError(f"the mesh {names} has no {MODEL!r} axis")
+    missing = [a for a in axes if a not in names]
+    if missing:
+        raise ValueError(f"the mesh {names} has no {missing[0]!r} axis")
     return mesh[tuple(axes)] if len(axes) > 1 else mesh[axes[0]]
 
 
@@ -79,7 +82,8 @@ def chunk_of(x, spec, sub, axes=(MODEL,)):
 def distribute(params, specs, mesh, axes=(MODEL,)):
     """The full tree ``params`` (every rank holding the same numbers, on
     the mesh's device) as ``nn.Parameter`` ``DTensor``s on the mesh's
-    sub-mesh of ``axes`` (the 'model' axis, or ``PARAM_AXES_FSDP``), laid
+    sub-mesh of ``axes`` (the 'model' axis, ``PARAM_AXES_FSDP`` or
+    'data'), laid
     out by ``specs`` (``rules.tree_specs``): each rank keeps its own
     contiguous chunk; nothing is communicated."""
     from torch.distributed.tensor import DTensor
@@ -111,6 +115,17 @@ def gather(params):
 def local(x):
     """This rank's chunk of ``x`` (the tensor itself when plain)."""
     return x.to_local() if is_dtensor(x) else x
+
+
+def split_ways(x) -> int:
+    """The number of ranks that split the work of the ``DTensor`` ``x``:
+    the product of its mesh's sizes over the dims it is ``Shard`` or
+    ``Partial`` on (1 when replicated over all of them)."""
+    n = 1
+    for j, pl in enumerate(x.placements):
+        if pl.is_shard() or pl.is_partial():
+            n *= x.device_mesh.size(j)
+    return n
 
 
 def chunk_bounds(x) -> list:

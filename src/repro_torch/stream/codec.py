@@ -153,6 +153,8 @@ class DeltaCodec:
                       for k, v in items}
         self.itemsizes = {k: v.element_size() for k, v in items}
         self.devices = {k: v.device for k, v in items}
+        # this rank's chunk of a DTensor leaf; the leaf itself otherwise
+        self.local_sizes = {k: D.local(v).numel() for k, v in items}
         self.fingerprint = tree_fingerprint(params_like)
 
     @property
@@ -161,9 +163,13 @@ class DeltaCodec:
         return sum(self.sizes[k] * self.itemsizes[k] for k in self.keys)
 
     def zero_residual(self) -> dict[str, torch.Tensor]:
-        """f32 zeros per leaf, flat, on the leaf's device."""
-        return {k: torch.zeros(self.sizes[k], dtype=torch.float32,
-                               device=self.devices[k]) for k in self.keys}
+        """f32 zeros per leaf, flat, on the leaf's device: this rank's
+        chunk of a ``DTensor`` leaf."""
+        return {k: self._zeros(k) for k in self.keys}
+
+    def _zeros(self, key: str) -> torch.Tensor:
+        return torch.zeros(self.local_sizes[key], dtype=torch.float32,
+                           device=self.devices[key])
 
     def dense_bytes(self, key: str) -> int:
         return self.sizes[key] * self.itemsizes[key]
@@ -173,42 +179,63 @@ class DeltaCodec:
 
     # -- encode -------------------------------------------------------------
     @torch.no_grad()
-    def encode(self, published, now, residual: dict, ks: dict):
+    def encode(self, published, now, residual: dict, ks: dict, *,
+               retention: dict | None = None):
         """One delta packet's payload.  Returns ``(payload, residual',
-        nbytes, kinds)``; ``residual`` is not mutated."""
-        pub = dict(leaf_items(published))
-        payload, new_res, kinds = {}, {}, {}
-        nbytes = 0
-        for key, now_leaf in leaf_items(now):
-            d = self.sizes[key]
-            k = int(ks.get(key, d))
-            if not self.sparse_wins(key, k):
-                payload[key] = {"values": now_leaf.detach().reshape(-1)
-                                .clone()}
-                new_res[key] = torch.zeros(d, dtype=torch.float32,
-                                           device=now_leaf.device)
-                kinds[key] = "full"
-                nbytes += self.dense_bytes(key)
-                continue
-            delta = (now_leaf.detach().float().reshape(-1)
-                     - pub[key].float().reshape(-1))
-            acc = residual[key] + delta
-            vals, idx = self.compressor(acc, k)
-            payload[key] = {"values": vals.to(self.value_dtype),
-                            "idx": idx.to(torch.int32)}
-            # acc becomes the residual: acc - scatter(vals, idx), in place
-            new_res[key] = acc.sub_(C.decompress(vals, idx, d))
-            kinds[key] = "sparse"
-            nbytes += int(vals.shape[0]) * self.bpe  # block modes may ceil
-        return payload, new_res, nbytes, kinds
+        nbytes, kinds)``; ``residual`` is not mutated.  A leaf missing
+        from ``ks`` ships full.  ``retention``, when given, takes each
+        leaf's ``||res'||^2 / ||acc||^2`` (0 for a full entry): the
+        stream tier of the health plane's EF energy."""
+        return self._encode(published, now, residual, ks, retention)
 
     @torch.no_grad()
     def encode_full(self, now):
         """All-leaves-full payload (baseline, flush): the residual drains
         to zero and :meth:`apply` lands bitwise on ``now``."""
-        payload = {k: {"values": v.detach().reshape(-1).clone()}
-                   for k, v in leaf_items(now)}
-        return payload, self.zero_residual(), self.full_bytes
+        payload, residual, nbytes, _ = self._encode(None, now, {}, {}, None)
+        return payload, residual, nbytes
+
+    def _encode(self, published, now, residual, ks, retention):
+        """The one per-leaf encode.  A ``DTensor`` leaf (parameters over
+        a mesh) is cut a leaf at a time: the leaf, its published copy and
+        this rank's residual chunk gathered whole, encoded as on one
+        card (the same bits into the same ops, so every rank cuts the
+        one-card packet), and this rank's chunk of the new residual
+        kept; one leaf's transients are alive at once."""
+        pub = {} if published is None else dict(leaf_items(published))
+        payload, new_res, kinds = {}, {}, {}
+        nbytes = 0
+        for key, leaf in leaf_items(now):
+            d = self.sizes[key]
+            k = int(ks.get(key, d))
+            whole = _whole(leaf)
+            if not self.sparse_wins(key, k):
+                payload[key] = {"values": whole.reshape(-1).clone()}
+                new_res[key] = self._zeros(key)
+                kinds[key] = "full"
+                nbytes += self.dense_bytes(key)
+                if retention is not None:
+                    retention[key] = 0.0
+                continue
+            delta = (whole.float().reshape(-1)
+                     - _whole(pub[key]).float().reshape(-1))
+            acc = _whole_flat(residual[key], leaf) + delta
+            del whole, delta
+            vals, idx = self.compressor(acc, k)
+            payload[key] = {"values": vals.to(self.value_dtype),
+                            "idx": idx.to(torch.int32)}
+            acc_sq = (float(torch.sum(torch.square(acc)))
+                      if retention is not None else None)
+            # acc becomes the residual: acc - scatter(vals, idx), in place
+            acc.sub_(C.decompress(vals, idx, d))
+            if retention is not None:
+                retention[key] = (float(torch.sum(torch.square(acc)))
+                                  / max(acc_sq, 1e-30))
+            new_res[key] = _chunk_flat(acc, leaf)
+            del acc
+            kinds[key] = "sparse"
+            nbytes += int(vals.shape[0]) * self.bpe  # block modes may ceil
+        return payload, new_res, nbytes, kinds
 
     # -- apply --------------------------------------------------------------
     def apply(self, params, packet: DeltaPacket, *, donate: bool = True):
@@ -224,6 +251,29 @@ class DeltaCodec:
         if packet.kind != "full":
             raise ValueError("materialize needs a full packet")
         return _apply_tree(like, packet.payload, False)
+
+
+def _whole(x):
+    """The whole leaf of ``x`` (a ``DTensor``'s gathered; detached)."""
+    return x.full_tensor() if D.is_dtensor(x) else x.detach()
+
+
+def _whole_flat(res, like):
+    """The whole leaf's flat residual from this rank's chunk ``res`` of
+    the leaf ``like``."""
+    if not D.is_dtensor(like):
+        return res
+    return D.like_local(res.reshape(D.local(like).shape),
+                        like).full_tensor().reshape(-1)
+
+
+def _chunk_flat(res, like):
+    """This rank's chunk of the whole leaf's flat residual ``res``, flat
+    (its own storage)."""
+    if not D.is_dtensor(like):
+        return res
+    return D.local_of(res.reshape(like.shape), like).clone(
+        memory_format=torch.contiguous_format).reshape(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -20,14 +20,28 @@ drained: subscribers land bitwise on the live parameters).  The
 the packets the publisher keeps (``packets``) are host copies, as the
 reference keeps numpy ones, so the device holds no packet once the
 caller drops the one :meth:`StreamPublisher.publish` returns.
+
+On ``DTensor`` parameters (a mesh with a 'model' axis, or ``lags_hier``'s
+FSDP) every rank of a leaf's sub-mesh publishes together: the published
+copy is ``DTensor``s laid out as the parameters and the residual holds
+this rank's chunk of each leaf, so a card keeps chunks only.  A packet
+is cut a leaf at a time: the leaf, its published copy and its residual
+are gathered whole (one leaf's transients alive at once), encoded as a
+one-card publisher encodes them, and the rank keeps its chunk of the new
+residual; every packet, full or delta, is bitwise the packet a one-card
+publisher cuts from the gathered parameters.  Rank 0 of the process
+group writes ``out_dir`` and :meth:`StreamPublisher.save_full`'s file
+(on plain parameters each rank's publisher is its own, and writes).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.sharding import dtensor as D
 from repro_torch.stream import codec as CD
 
 
@@ -93,7 +107,13 @@ class StreamPublisher:
         else:
             self.budget_bytes = self.codec.full_bytes // 8
         self.published = None            # subscriber-visible param tree
+        # flat f32, this rank's chunk of each leaf (the whole leaf when
+        # the parameters are plain tensors)
         self.residual = self.codec.zero_residual()
+        # DTensor parameters: every rank of their mesh publishes one stream
+        self._writes = not any(D.is_dtensor(v)
+                               for v in tree.leaves(params_like)) or (
+            not dist.is_initialized() or dist.get_rank() == 0)
         self.version = 0
         self.last_plan: list[LeafPlanEntry] = []
         self.packets: list[CD.DeltaPacket] = []
@@ -159,10 +179,12 @@ class StreamPublisher:
 
     def publish(self, step: int, params, *,
                 full: bool = False) -> CD.DeltaPacket:
+        from repro_torch.observe import names as ON
         version = self.version + 1
-        old_res = self.residual
+        retention: dict[str, float] = {}
         if (self.published is None or full
                 or (self.flush_every and version % self.flush_every == 0)):
+            # exact: the residual drains to zero
             payload, self.residual, nbytes = self.codec.encode_full(params)
             kind = "full"
             self.last_plan = []
@@ -170,11 +192,15 @@ class StreamPublisher:
             plan = self.split_budget()
             ks = {e.key: e.k for e in plan}
             payload, self.residual, nbytes, _ = self.codec.encode(
-                self.published, params, old_res, ks)
+                self.published, params, self.residual, ks,
+                retention=retention)
             kind = "delta"
             self.last_plan = plan
-        self._health_gauges(old_res, params, kind)
-        del old_res
+        # the stream tier of the health plane: ||res'||^2 / ||acc||^2
+        for key in self.codec.keys:
+            self._m_health.set(retention.get(key, 0.0),
+                               leaf=ON.health_name("ef_energy",
+                                                   f"stream/{key}"))
         pkt = CD.DeltaPacket(version=version, step=int(step),
                              fingerprint=self.codec.fingerprint, kind=kind,
                              payload=payload, nbytes=int(nbytes))
@@ -196,32 +222,9 @@ class StreamPublisher:
         self._m_version.set(version)
         self._events.emit("publish", step=int(step), version=version,
                           packet_kind=kind, nbytes=int(pkt.nbytes))
-        if self.out_dir:
+        if self.out_dir and self._writes:
             self.packet_paths.append(CD.save_packet(self.out_dir, kept))
         return pkt
-
-    @torch.no_grad()
-    def _health_gauges(self, old_res, params, kind: str) -> None:
-        """Per-leaf ``||res'||^2 / ||acc||^2`` with ``acc = res + (now -
-        published)``: the stream tier of the ``lags/health/ef_energy``
-        family, on the device, at publish cadence only."""
-        from repro_torch.observe import names as ON
-        if kind == "full" or self.published is None:
-            # full packets are exact: the residual drains to zero
-            for key in self.codec.keys:
-                self._m_health.set(
-                    0.0, leaf=ON.health_name("ef_energy", f"stream/{key}"))
-            return
-        now = dict(CD.leaf_items(params))
-        pub = dict(CD.leaf_items(self.published))
-        for key in self.codec.keys:
-            acc = old_res[key] + (now[key].detach().float().reshape(-1)
-                                  - pub[key].float().reshape(-1))
-            acc_sq = float(torch.sum(torch.square(acc)))
-            res_sq = float(torch.sum(torch.square(self.residual[key])))
-            self._m_health.set(
-                res_sq / max(acc_sq, 1e-30),
-                leaf=ON.health_name("ef_energy", f"stream/{key}"))
 
     def flush(self, step: int, params) -> CD.DeltaPacket:
         """Full packet now: drains the EF residual; subscribers that apply
@@ -231,12 +234,15 @@ class StreamPublisher:
     # -- resync source ------------------------------------------------------
     def save_full(self, path: str, step: int | None = None) -> str:
         """Full checkpoint of the *published* state + stream metadata:
-        what a gapped subscriber resyncs from."""
+        what a gapped subscriber resyncs from.  On ``DTensor`` parameters
+        every rank gathers it and rank 0 writes it."""
         from repro_torch.checkpoint import io
-        io.save(path, {"params": self.published},
-                metadata={"version": self.version,
-                          "step": int(step if step is not None else -1),
-                          "fingerprint": self.codec.fingerprint})
+        full = D.gather(self.published)
+        if self._writes:
+            io.save(path, {"params": full},
+                    metadata={"version": self.version,
+                              "step": int(step if step is not None else -1),
+                              "fingerprint": self.codec.fingerprint})
         return path
 
     @property
@@ -246,5 +252,9 @@ class StreamPublisher:
 
 
 def _zeros_like_tree(params):
-    return tree.map(lambda x: torch.zeros(x.shape, dtype=x.dtype,
-                                          device=x.device), params)
+    """Zeros laid out as ``params`` (a ``DTensor`` leaf's chunk)."""
+    def zeros(x):
+        local = D.local(x)
+        return D.like_local(torch.zeros(local.shape, dtype=x.dtype,
+                                        device=local.device), x)
+    return tree.map(zeros, params)

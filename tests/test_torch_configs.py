@@ -135,24 +135,50 @@ def test_unported_families_raise_naming_item_13d(arch):
 @pytest.mark.parametrize("what", ["train_step", "profile_model",
                                   "moe_forward_ep"])
 def test_tensor_parallel_tail_raises_naming_item_7(what):
-    """What the port still refuses: on a ``model`` axis the train step's
-    health quantities (here of xLSTM, whose training runs there since
-    7e's second part), the autotune profiler (every family is served
-    there since 7f's second part), and of the MoE family, whose
-    expert-parallel layer runs since 7e's first part, the token groups
-    that span a pod's ranks beside a 'model' axis (ROADMAP.md queue 1
-    item 7, its tensor-parallel tail)."""
-    import types
+    """Of the port's tensor-parallel tail (ROADMAP.md queue 1 item 7)
+    only the MoE token groups that span a pod's ranks beside a 'model'
+    axis still raise, naming item 7e's third part.  What raised here
+    before item 7g runs on a ``model`` axis: xLSTM's train step with the
+    health quantities (``lags_hier2``'s whole-leaf path; at data 1 ×
+    model 1 its health keys and loss are the data-only mesh's, bit for
+    bit), and the autotune profiler (one data worker, the mesh's (1, 1)
+    shape, the data-only profile's FLOPs; its bytes count the DTensor
+    step's own ops)."""
     from repro_torch.autotune import profiler as PR
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
     from repro_torch.launch import train as LT
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 size=lambda i: 2)
-    calls = {
-        "train_step": lambda: LT.check_tensor_parallel(
-            TB.get_smoke_config("xlstm_1_3b"), mesh, "lags_dp", health=True),
-        "profile_model": lambda: PR.profile_model(
-            TB.get_smoke_config("xlstm_1_3b"), mesh),
-        "moe_forward_ep": lambda: LT.pod_auto_moe_groups(4, 2, 2, model=2),
-    }
-    with pytest.raises(NotImplementedError, match="item 7.*tensor-parallel"):
-        calls[what]()
+    if what == "moe_forward_ep":
+        with pytest.raises(NotImplementedError,
+                           match="item 7.*tensor-parallel"):
+            LT.pod_auto_moe_groups(4, 2, 2, model=2)
+        return
+    from test_torch_spawn import world_of_one
+    cfg = TB.get_smoke_config("xlstm_1_3b")
+    got = {}
+    with world_of_one():
+        for mesh in (M.make_mesh(device="cpu"),
+                     M.make_mesh(model=1, device="cpu")):
+            if what == "profile_model":
+                got[mesh.mesh_dim_names] = PR.profile_model(
+                    cfg, mesh, seq=16, global_batch=2, iters=1,
+                    comm_sizes=(4096,))
+                continue
+            from repro_torch import api
+            sess = api.Session(cfg, api.RunConfig(
+                mode="lags_hier2", health_every=1, chunk=8, loss_chunk=8),
+                mesh=mesh)
+            state, _ = sess.init_state(seed=0)
+            batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=0).batch(
+                0, 2, 16, device="cpu")
+            got[mesh.mesh_dim_names] = sess.step_fn(state, batch)[1]
+    flat, tp = got[("data",)], got[("data", "model")]
+    if what == "profile_model":
+        assert (tp.n_workers, tuple(tp.mesh_shape)) == (1, (1, 1))
+        assert tp.flops_per_step == flat.flops_per_step > 0
+        assert tp.hbm_bytes_per_step > 0 and tp.t_step_lags > 0
+        return
+    assert sorted(tp) == sorted(flat)
+    assert {"health_delta", "health_ef_energy_outer"} <= set(tp)
+    for k in flat:
+        assert torch.equal(tp[k], flat[k]), k

@@ -183,10 +183,11 @@ def test_unported_modes_raise_naming_roadmap(mode):
 def test_distributed_surface_raises_naming_roadmap():
     """What the distributed surface still lacks raises, naming its
     ROADMAP.md item: on a ``model`` axis, what tensor parallelism does
-    not run yet (here the health quantities, under slgs, which it
-    trains).  Sharded dims are a block layout the exchange now takes
-    (lags_hier's FSDP dim, ``test_torch_hier.py``); unsharded hints are
-    the identity."""
+    not run yet (since item 7g, which admitted the health quantities
+    under every mode it trains, slgs among them: the MoE token group
+    that spans a pod's ranks).  Sharded dims are a block layout the
+    exchange now takes (lags_hier's FSDP dim, ``test_torch_hier.py``);
+    unsharded hints are the identity."""
     import types
     from repro_torch.configs import tinyllama_1_1b
     from repro_torch.launch import train as LT
@@ -195,8 +196,7 @@ def test_distributed_surface_raises_naming_roadmap():
                                  size=lambda i: 2)
     LT.check_tensor_parallel(tinyllama_1_1b.smoke_config(), mesh, "slgs")
     with pytest.raises(NotImplementedError, match="ROADMAP.*tensor"):
-        LT.check_tensor_parallel(tinyllama_1_1b.smoke_config(), mesh, "slgs",
-                                 health=True)
+        LT.pod_auto_moe_groups(4, 2, 2, model=2)
     u = {"a": torch.from_numpy(_tree(2, 9)["b"][:, :4, :6].copy())}
     outs = []
     for sdims in ({"a": (1,)}, {"a": ()}, None):

@@ -26,7 +26,11 @@ Contracts:
     ``async1`` reproduces the sync prefix ``[L0, L0, L1]`` on one
     repeated batch;
   * ``lags_dp`` on the pod mesh equals ``lags_dp`` on the flat 4-rank
-    mesh bit for bit (the (pod, data) group is the ranks in order).
+    mesh bit for bit (the (pod, data) group is the ranks in order);
+  * ``lags_hier`` holds its parameters over 'data' (FSDP, a ``DTensor``
+    each on the pod's 'data' sub-mesh): its bytes at rest a card about
+    half the replicated layout's (the rank script gathers the
+    parameters and the blocks of its state for the comparisons above).
 """
 import os
 import textwrap
@@ -50,6 +54,8 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
              param_dtype="float32")
 RUN_KW = dict(lr=0.1, chunk=16, loss_chunk=16, ratio_inner=4.0,
               inner_compressor="topk_block")
+# lags_hier's bytes at rest a card over the replicated layout's
+REST_BAND = (0.5, 0.55)
 # the models, each a smoke config cut to SMALL's widths
 ARCHS = ("tinyllama_1_1b", "granite_moe_3b_a800m")
 # against the reference: name -> (mode, mc, pipeline, one repeated batch,
@@ -129,6 +135,7 @@ from repro_torch import api, tree
 from repro_torch.configs import base
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as TT
+from repro_torch.sharding import dtensor as D
 
 rank, store, inp_path, out_path = (int(sys.argv[1]), sys.argv[2],
                                    sys.argv[3], sys.argv[4])
@@ -169,6 +176,26 @@ for arch in ARCHS:
                                             for i in range(len(leaves))])
 
 
+def whole(x, p):
+    # this rank's worker state x, (1, *chunk), as its whole leaf laid out
+    # as the parameter p (lags_hier's FSDP blocks over 'data')
+    if not D.is_dtensor(p):
+        return x.detach().clone()
+    return D.like_local(x[0].contiguous(), p).full_tensor()[None]
+
+
+def at_rest(state):
+    # (this rank's bytes of parameters and per-worker state, those of
+    # the replicated layout: every leaf whole)
+    ps = tree.leaves(state["params"])
+    xs = (tree.leaves(state["ef"]) + tree.leaves(state.get("extra", {}))
+          + tree.leaves(state.get("pending", ())))
+    local = sum(D.local(x).numel() * x.element_size() for x in ps + xs)
+    full = sum(p.numel() * p.element_size() for p in ps) + sum(
+        4 * ps[i % len(ps)].numel() for i in range(len(xs)))
+    return np.array([local, full])
+
+
 def train(name, steps, fixed, save_after, on=None, arch="tinyllama_1_1b",
           **kw):
     cfg = cfgs[arch]
@@ -185,11 +212,19 @@ def train(name, steps, fixed, save_after, on=None, arch="tinyllama_1_1b",
         for p in tree.leaves(state["params"]):
             assert p.grad is None and not p._post_accumulate_grad_hooks
         if t + 1 == save_after:
-            for part in ("params", "ef", "pending"):
+            ps = tree.leaves(state["params"])
+            for i, x in enumerate(tree.leaves(D.gather(state["params"]))):
+                out[f"{name}/params{i}"] = x.clone().numpy()
+            for part in ("ef", "pending"):
                 for i, x in enumerate(tree.leaves(state.get(part, ()))):
-                    out[f"{name}/{part}{i}"] = x.detach().clone().numpy()
+                    out[f"{name}/{part}{i}"] = whole(
+                        x, ps[i % len(ps)]).numpy()
             for i, x in enumerate(tree.leaves(state.get("extra", {}))):
-                out[f"{name}/mom{i}"] = x.clone().numpy()
+                out[f"{name}/mom{i}"] = whole(x, ps[i]).numpy()
+    out[f"rest/{name}"] = at_rest(state)
+    out[f"fsdp/{name}"] = np.array([
+        tuple(p.device_mesh.mesh_dim_names) == ("data",)
+        for p in tree.leaves(state["params"]) if D.is_dtensor(p)])
     waves = sess.meta["waves"]
     out[f"{name}/n_waves"] = waves.n_waves if waves else 0
     out[f"{name}/n_workers"] = sess.meta["n_workers"]
@@ -402,3 +437,22 @@ def test_lags_dp_on_the_pod_mesh_equals_the_flat_mesh(runs):
         assert res["dp_pod/n_workers"] == res["dp_flat/n_workers"] == WORLD
         assert _bitwise_equal(res, "dp_pod/", "dp_flat/",
                               f"rank {r}") == STEPS + 24
+
+
+@pytest.mark.parametrize("name", ["hier", "hier_async1_mc", "moe_hier",
+                                  "moe_span"])
+def test_lags_hier_holds_its_parameters_over_data(runs, name):
+    """On the data-only pod mesh ``lags_hier``'s parameters are
+    ``DTensor``s on each pod's 'data' sub-mesh (FSDP, the reference's
+    layout) and its residuals, velocities and pending updates their
+    blocks: a card holds ``REST_BAND`` of the replicated layout's bytes
+    at rest (half, and the leaves that no dim of which splits over
+    'data' whole); ``lags_hier2`` keeps every leaf whole."""
+    for res in runs[2]:
+        n = len([k for k in res if k.startswith(f"{name}/params")])
+        fsdp = res[f"fsdp/{name}"]
+        assert len(fsdp) == n >= 12 and fsdp.all()
+        local, full = res[f"rest/{name}"]
+        assert REST_BAND[0] <= local / full <= REST_BAND[1], local / full
+        local, full = res["rest/hier2"]
+        assert local == full and len(res["fsdp/hier2"]) == 0

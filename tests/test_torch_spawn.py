@@ -31,6 +31,7 @@ between two torch computations runs them in one process, or against
 ranks that run on one thread too.
 """
 import collections.abc
+import contextlib
 import os
 import subprocess
 import sys
@@ -148,6 +149,22 @@ class Lazy(collections.abc.Sequence):
 
 def load(path) -> dict:
     return dict(np.load(path))
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A gloo process group of one rank in this process (a mesh's
+    collectives over it are the identity), destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    with tempfile.NamedTemporaryFile() as f:
+        M.init_process_group(f"file://{f.name}", 1, 0, device="cpu")
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 # -- tests of the above ------------------------------------------------------

@@ -372,6 +372,47 @@ def test_acceptance_bytes_and_bitwise_parity():
     assert _bitwise(sub, live)
 
 
+def test_publish_encodes_through_the_codec_once_a_packet():
+    """Every packet is cut by one call of the codec's ``encode`` (delta)
+    or ``encode_full`` (full), the path its timing wraps, and the stream
+    health gauge reads ``||res'||^2 / ||acc||^2`` of that encode (0 after
+    a full packet)."""
+    from repro_torch.observe import metrics as OM
+    from repro_torch.observe import names as ON
+    reg = OM.MetricsRegistry()
+    pub = StreamPublisher(_tree(), every=1, budget_bytes=256, flush_every=4,
+                          metrics=reg)
+    calls = []
+    for name in ("encode", "encode_full"):
+        def counted(*args, _fn=getattr(pub.codec, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        setattr(pub.codec, name, counted)
+    gauge = reg.get("publish_health_ef_energy")
+    live = _tree()
+    for step in range(6):
+        live = _drift(live, 200 + step)
+        want = None
+        if pub.published is not None:
+            acc = {k: pub.residual[k] + (v.float().reshape(-1)
+                                         - p.float().reshape(-1))
+                   for (k, v), (_, p) in zip(CD.leaf_items(live),
+                                             CD.leaf_items(pub.published))}
+        pkt = pub.publish(step, live)
+        if pkt.kind == "delta":
+            want = {k: float(torch.sum(torch.square(pub.residual[k])))
+                    / float(torch.sum(torch.square(acc[k])))
+                    for k in pub.codec.keys}
+        for key in pub.codec.keys:
+            got = gauge.value(leaf=ON.health_name("ef_energy",
+                                                  f"stream/{key}"))
+            assert got == (0.0 if want is None else want[key])
+    assert calls == ["encode_full", "encode", "encode", "encode_full",
+                     "encode", "encode"]
+    assert [p.kind for p in pub.packets] == [
+        "full", "delta", "delta", "full", "delta", "delta"]
+
+
 def test_kept_packets_are_host_copies_that_replay_the_stream():
     """``publisher.packets`` holds every packet with its payload on the
     host (as the reference's numpy packets); replayed in order onto

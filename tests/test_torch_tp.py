@@ -32,7 +32,9 @@ Contracts:
     tensors; ``slgs``, ``lags_hier2``, ``lags_hier`` and the ('pod',
     'data', 'model') mesh build (``test_torch_tp_modes.py`` holds them
     to the reference), the data axes of that mesh the group of one model
-    index; every family and plane the slice does not cover raises
+    index; the health quantities, the controller, ``profile_model`` and
+    the publisher run there (``test_torch_tp_observe.py`` holds them to
+    the reference); every family the slice does not cover raises
     ``NotImplementedError`` naming ROADMAP.md queue 1 item 7.
 """
 import dataclasses
@@ -74,8 +76,9 @@ EX_LEAVES = {"aligned": ((8, 96), 0, 40),       # chunks of 6 blocks
              "whole": ((10, 7), None, 11)}      # not sharded
 EX_BLOCK = 64
 # what the slice does not cover: case -> RunConfig kwargs
-REFUSED = {"moe_family": dict(mode="lags_hier"),
-           "health": dict(mode="lags_dp", health_every=1)}
+REFUSED = {"moe_family": dict(mode="lags_hier")}
+# what it refused until item 7g, run on the model axis
+ITEM_7G = ("health", "controller", "profile_model", "publisher")
 # what the first part refused and the second builds: case -> (RunConfig
 # kwargs, its worker count)
 ADMITTED = {"lags_hier": (dict(mode="lags_hier"), 1),
@@ -259,33 +262,41 @@ out["no_dtensor"] = np.array(sess.meta["pspecs"] is None and not any(
     D.is_dtensor(x) for x in tree.leaves(state["params"])
     + tree.leaves(state["ef"])))
 
-# what the slice does not cover raises, naming its item
+# what the slice does not cover raises, naming its item: lags_hier's
+# MoE token groups across ranks (4 rows on 2 pods x 2) beside 'model'
 from repro_torch.autotune import profiler as PR
-for case, call in (
-        ("controller", lambda: api.Session(
-            cfg, api.RunConfig(mode="lags_dp"), mesh=mesh).controller()),
-        ("profile_model", lambda: PR.profile_model(cfg, mesh)),
-        ("publisher", lambda: api.Session(
-            cfg, api.RunConfig(mode="lags_dp"), mesh=mesh).run(
-                batch_at, 1, publisher=object()))):
-    try:
-        call()
-        out[f"refused/{case}"] = np.array("no error")
-    except NotImplementedError as err:
-        out[f"refused/{case}"] = np.array(str(err))
-for case, kw in REFUSED.items():
-    try:
-        if case == "moe_family":
-            # what stays refused of the MoE family: lags_hier's token
-            # groups across ranks (4 rows on 2 pods x 2) beside 'model'
-            from repro_torch.launch import train as TR
-            TR.pod_auto_moe_groups(4, 2, 2, model=2)
-        else:
-            api.Session(cfg, api.RunConfig(**RUN_KW, **kw),
-                        mesh=mesh).train_step()
-        out[f"refused/{case}"] = np.array("no error")
-    except NotImplementedError as err:
-        out[f"refused/{case}"] = np.array(str(err))
+from repro_torch.launch import train as TR
+from repro_torch.stream import StreamPublisher
+try:
+    TR.pod_auto_moe_groups(4, 2, 2, model=MODEL)
+    out["refused/moe_family"] = np.array("no error")
+except NotImplementedError as err:
+    out["refused/moe_family"] = np.array(str(err))
+# ... and what it refused until item 7g runs
+sess = api.Session(cfg, api.RunConfig(mode="lags_dp", health_every=1,
+                                      **RUN_KW), mesh=mesh)
+state, _ = sess.init_state(params=TT.from_jax_params(start, cfg,
+                                                     device="cpu").params)
+_, metrics = sess.step_fn(state, batch_at(0))
+out["7g/health"] = np.array([float(metrics["health_delta_max"]),
+                             len(metrics["health_delta"])])
+sess = api.Session(cfg, api.RunConfig(mode="lags_dp", **RUN_KW), mesh=mesh)
+ctl = sess.controller(comm_probe=lambda m, a: [])
+state, _ = sess.init_state(params=TT.from_jax_params(start, cfg,
+                                                     device="cpu").params)
+state, _ = ctl.step(state, batch_at(0))
+ctl.maybe_replan(1, trigger="test")
+out["7g/controller"] = np.array([ctl.meta["n_workers"],
+                                 *ctl.tier_workers, len(ctl.history)])
+prof = PR.profile_model(cfg, mesh, seq=S, global_batch=B, iters=1,
+                        comm_sizes=(4096,))
+out["7g/profile_model"] = np.array([prof.n_workers, *prof.mesh_shape])
+state, hist = sess.run(batch_at, 1, state=state, print_fn=lambda *a: None,
+                       publisher=StreamPublisher(state["params"], every=1))
+out["7g/publisher"] = np.array(
+    [hist[0]["publish"]["kind"] == "full",
+     hist[0]["publish"]["nbytes"] == sum(
+         4 * x.numel() for x in tree.leaves(state["params"]))])
 pod_mesh = M.make_mesh(pod=2, model=MODEL, device="cpu")
 assert pod_mesh.mesh_dim_names == ("pod", "data", "model")
 # the worker group over the data axes beside 'model': one model index
@@ -306,7 +317,7 @@ def _constants() -> str:
     return "".join(f"{name} = {globals()[name]!r}\n" for name in (
         "DATA", "MODEL", "WORLD", "STEPS", "SMALL", "MODES", "RUN_KW",
         "WAVE_PARITY", "WAVE_BYTES", "EX_LEAVES", "EX_BLOCK", "REFUSED",
-        "ADMITTED", "B", "S"))
+        "ITEM_7G", "ADMITTED", "B", "S"))
 
 
 @pytest.fixture(scope="module")
@@ -628,17 +639,33 @@ def test_distribute_gather_and_checkpoint_hold_the_full_tensors(runs):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("case", list(REFUSED) + [
-    "controller", "profile_model", "publisher"])
+@pytest.mark.parametrize("case", list(REFUSED) + list(ITEM_7G))
 def test_what_the_slice_does_not_cover_raises_naming_item_7(runs, case):
-    """The MoE token groups across ranks, the health quantities, the
-    re-planning controller, ``profile_model`` and a stream publisher
-    raise ``NotImplementedError`` on a mesh with a 'model' axis, naming
-    their part of item 7; nothing falls back to a gathered leaf."""
+    """The MoE token groups across ranks raise ``NotImplementedError`` on
+    a mesh with a 'model' axis, naming their part of item 7.  What raised
+    there until item 7g runs on data 2 × model 2, on every rank alike:
+    one ``lags_dp`` step with the health quantities (δ of every leaf, its
+    max above 0), a re-planning controller (2 data workers, a re-plan
+    logged), ``profile_model`` (2 data workers, the mesh's shape) and
+    ``Session.run`` with a stream publisher (a full packet of the
+    model's bytes); ``tests/test_torch_tp_observe.py`` holds each to the
+    reference."""
     ranks = runs[2]
-    for res in ranks:
-        msg = str(res[f"refused/{case}"])
-        assert "item 7" in msg and "tensor-parallel" in msg, msg
+    if case in REFUSED:
+        for res in ranks:
+            msg = str(res[f"refused/{case}"])
+            assert "item 7" in msg and "tensor-parallel" in msg, msg
+        return
+    got = ranks[0][f"7g/{case}"]
+    for res in ranks[1:]:
+        np.testing.assert_array_equal(res[f"7g/{case}"], got)
+    want = {"controller": [DATA, DATA, DATA, 1],
+            "profile_model": [DATA, DATA, MODEL],
+            "publisher": [True, True]}
+    if case == "health":
+        assert got[0] > 0.0 and got[1] == 12, got
+    else:
+        assert got.tolist() == want[case], got
 
 
 @pytest.mark.slow

@@ -31,8 +31,10 @@ Contracts:
     steps of Granite and OLMoE are bitwise the data-only mesh's;
   * ``check_tensor_parallel`` admits the ``moe``, ``audio`` and ``vlm``
     families under every mode, and ``ssm`` and ``hybrid`` (item 7e's
-    second part) but for their health quantities; the MoE token groups
-    across ranks stay refused, naming item 7e's third part.
+    second part), whose ``lags_dp`` step with the health quantities at
+    1 × 1 (a world of one in the test process) is the data-only mesh's,
+    bit for bit (item 7g); the MoE token groups across ranks stay
+    refused, naming item 7e's third part.
 """
 import dataclasses
 import os
@@ -666,18 +668,37 @@ def test_check_tensor_parallel_admits_moe_audio_and_vlm(arch, mode):
                                   "jamba_v0_1_52b"])
 def test_check_tensor_parallel_refuses_the_recurrent_families(arch):
     """Since item 7e's second part, xLSTM and the paper's LSTM (``ssm``)
-    and Jamba (``hybrid``) pass on a 'model' axis; what it still refuses
-    for them is the health quantities, naming item 7g
+    and Jamba (``hybrid``) pass on a 'model' axis, and since item 7g
+    nothing refuses them there: with the health quantities, one
+    ``lags_dp`` step of each on ("data", "model") = 1 × 1 (a gloo world
+    of one) gives the data-only mesh's loss and health keys, bit for bit
     (``tests/test_torch_tp_recurrent.py`` holds their training to the
-    reference)."""
+    reference, ``tests/test_torch_tp_observe.py`` the health quantities
+    at 2 × 2)."""
+    from repro_torch import api
     from repro_torch.configs import base
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
     from repro_torch.launch import train as LT
+    from test_torch_spawn import world_of_one
     cfg = base.get_smoke_config(arch)
     assert cfg.family in ("ssm", "hybrid")
     LT.check_tensor_parallel(cfg, _model_mesh(), "lags_dp")
-    with pytest.raises(NotImplementedError,
-                       match="item 7g.*tensor-parallel"):
-        LT.check_tensor_parallel(cfg, _model_mesh(), "lags_dp", health=True)
+    batch = synthetic.MarkovLM(vocab=cfg.vocab, seed=0).batch(
+        0, 2, 16, device="cpu")
+    got = []
+    with world_of_one():
+        for mesh in (M.make_mesh(device="cpu"),
+                     M.make_mesh(model=1, device="cpu")):
+            sess = api.Session(cfg, api.RunConfig(
+                mode="lags_dp", health_every=1, chunk=8, loss_chunk=8),
+                mesh=mesh)
+            state, _ = sess.init_state(seed=0)
+            got.append(sess.step_fn(state, batch)[1])
+    assert sorted(got[0]) == sorted(got[1])
+    assert {"health_delta", "health_delta_max"} <= set(got[1])
+    for k in got[0]:
+        assert torch.equal(got[1][k], got[0][k]), k
 
 
 def test_moe_token_groups_across_ranks_stay_refused():

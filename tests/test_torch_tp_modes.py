@@ -29,8 +29,11 @@ Contracts:
   * the gradients' placements on data 2 × model 2 before
     ``dtensor.grad_to_local``: their own or ``Partial`` over 'model'
     (the record behind its docstring);
-  * what the slice does not cover raises ``NotImplementedError`` naming
-    ROADMAP.md queue 1 item 7, on the pod mesh.
+  * on the pod mesh, the MoE token groups across ranks raise
+    ``NotImplementedError`` naming ROADMAP.md queue 1 item 7, and the
+    health quantities, a controller, ``profile_model`` and a publisher
+    run (item 7g; ``test_torch_tp_observe.py`` holds them to the
+    reference at 2 × 2).
 """
 import dataclasses
 import os
@@ -216,26 +219,42 @@ def record_placements(mesh):
 
 
 def refusals(mesh):
+    # what stays refused of the MoE family: lags_hier's token groups
+    # across ranks (4 rows on 2 pods x 2) beside a 'model' axis
+    try:
+        TR.pod_auto_moe_groups(4, 2, 2, model=2)
+        out["refused/moe_family"] = np.array("no error")
+    except NotImplementedError as err:
+        out["refused/moe_family"] = np.array(str(err))
+    # what it refused until item 7g runs: the health quantities under
+    # lags_hier2, a lags_hier controller, profile_model and a publisher
     from repro_torch.autotune import profiler as PR
-    calls = {
-        # what stays refused of the MoE family: lags_hier's token groups
-        # across ranks (4 rows on 2 pods x 2) beside a 'model' axis
-        "moe_family": lambda: TR.pod_auto_moe_groups(4, 2, 2, model=2),
-        "health": lambda: api.Session(
-            cfg, api.RunConfig(mode="lags_hier2", health_every=1, **RUN_KW),
-            mesh=mesh).train_step(),
-        "controller": lambda: api.Session(
-            cfg, api.RunConfig(mode="lags_hier"), mesh=mesh).controller(),
-        "profile_model": lambda: PR.profile_model(cfg, mesh),
-        "publisher": lambda: api.Session(
-            cfg, api.RunConfig(mode="lags_dp"), mesh=mesh).run(
-                batch_at, 1, publisher=object())}
-    for case in REFUSED:
-        try:
-            calls[case]()
-            out[f"refused/{case}"] = np.array("no error")
-        except NotImplementedError as err:
-            out[f"refused/{case}"] = np.array(str(err))
+    from repro_torch.stream import StreamPublisher
+
+    def start_of(sess):
+        return sess.init_state(params=TT.from_jax_params(
+            start, cfg, device="cpu").params)[0]
+    sess = api.Session(cfg, api.RunConfig(mode="lags_hier2", health_every=1,
+                                          **RUN_KW), mesh=mesh)
+    _, metrics = sess.step_fn(start_of(sess), batch_at(0))
+    out["7g/health"] = np.array([float(metrics["health_delta_max"]),
+                                 len(metrics["health_delta"])])
+    sess = api.Session(cfg, api.RunConfig(mode="lags_hier", **RUN_KW),
+                       mesh=mesh)
+    ctl = sess.controller(comm_probe=lambda m, a: [])
+    ctl.step(start_of(sess), batch_at(0))
+    ctl.maybe_replan(1, trigger="test")
+    out["7g/controller"] = np.array([ctl.meta["n_workers"],
+                                     *ctl.tier_workers, len(ctl.history)])
+    prof = PR.profile_model(cfg, mesh, seq=S, global_batch=B, iters=1,
+                            comm_sizes=(4096,))
+    out["7g/profile_model"] = np.array([prof.n_workers, *prof.mesh_shape])
+    sess = api.Session(cfg, api.RunConfig(mode="lags_dp", **RUN_KW),
+                       mesh=mesh)
+    state = start_of(sess)
+    _, hist = sess.run(batch_at, 1, state=state, print_fn=lambda *a: None,
+                       publisher=StreamPublisher(state["params"], every=1))
+    out["7g/publisher"] = np.array([hist[0]["publish"]["kind"] == "full"])
 
 
 for which in WHICH:
@@ -292,7 +311,7 @@ print("OK rank", rank)
 
 def _constants(**extra) -> str:
     names = ("STEPS", "SMALL", "RUN_KW", "MESHES", "CASES", "WAVE_PARITY",
-             "WAVE_BYTES", "REFUSED")
+             "WAVE_BYTES", "REFUSED", "B", "S")
     return "".join(f"{n} = {globals()[n]!r}\n" for n in names) + "".join(
         f"{n} = {v!r}\n" for n, v in extra.items())
 
@@ -573,10 +592,25 @@ def test_gradient_placements_before_grad_to_local(runs):
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_what_the_slice_does_not_cover_raises_naming_item_7(runs, case):
-    """On pod 2 × data 1 × model 2: the MoE token groups across ranks,
-    the health quantities, the re-planning controller, ``profile_model``
-    and a stream publisher raise ``NotImplementedError`` naming their
-    part of ROADMAP.md queue 1 item 7."""
-    for res in runs[1]:
-        msg = str(res[f"refused/{case}"])
-        assert "item 7" in msg, msg
+    """On pod 2 × data 1 × model 2: the MoE token groups across ranks
+    raise ``NotImplementedError`` naming their part of ROADMAP.md queue 1
+    item 7.  What raised there until item 7g runs, alike on every rank:
+    one ``lags_hier2`` step with the health quantities (δ of every leaf,
+    its max above 0), a ``lags_hier`` controller (2 workers, one a pod;
+    tier workers 1 inside a pod, 2 across; a re-plan logged),
+    ``profile_model`` (2 data workers over ('pod', 'data'), the mesh's
+    shape) and ``Session.run`` with a publisher (a full packet)."""
+    if case == "moe_family":
+        for res in runs[1]:
+            msg = str(res[f"refused/{case}"])
+            assert "item 7" in msg, msg
+        return
+    got = runs[1][0][f"7g/{case}"]
+    for res in runs[1][1:]:
+        np.testing.assert_array_equal(res[f"7g/{case}"], got)
+    if case == "health":
+        assert got[0] > 0.0 and got[1] == N_LEAVES, got
+    else:
+        assert got.tolist() == {"controller": [2, 1, 2, 1],
+                                "profile_model": [2, 2, 1, 2],
+                                "publisher": [True]}[case], got

@@ -609,7 +609,8 @@ def test_one_by_one_mesh_is_bitwise_the_data_only_step(runs, arch):
 def test_check_tensor_parallel_admits_the_recurrent_families(arch, mode):
     """On a mesh with a 'model' axis xLSTM and the paper's LSTM (``ssm``)
     and Jamba (``hybrid``) pass ``check_tensor_parallel`` under every
-    mode; the health quantities stay refused (item 7g)."""
+    mode (since item 7g it refuses no health quantity either:
+    ``test_torch_tp_families.py`` runs them at 1 × 1)."""
     import types
     from repro_torch.configs import base
     from repro_torch.launch import train as LT
@@ -618,5 +619,3 @@ def test_check_tensor_parallel_admits_the_recurrent_families(arch, mode):
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  size=lambda i: 2)
     LT.check_tensor_parallel(cfg, mesh, mode)
-    with pytest.raises(NotImplementedError, match="item 7g"):
-        LT.check_tensor_parallel(cfg, mesh, mode, health=True)
